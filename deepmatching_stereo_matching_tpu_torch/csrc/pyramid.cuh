@@ -1,0 +1,122 @@
+// Device-side aggregation pyramid + dense backtracking on ONE quadtree
+// tile held in shared memory.  Shared by the pyramid kernel (K3,
+// pyramid.cu, exact mode) and the fused image->disparity kernel (K1,
+// fused.cu, fast mode).
+//
+// Semantics of deepmatching_stereo_matching_tpu/ops/pyramid_pallas.py:
+// pyramid_body, written as a SHRINKING pyramid (level l is
+// (D0>>l) x (T>>l) x (T>>l)) instead of the TPU's duplicated-cell layout:
+//   * 3-wide disparity max-pool + x2 subsample, pad -1.0 below bin 0,
+//     ties lo, then even, then odd; the offset in {-1, 0, 1} is recorded;
+//   * 4-child mean in ((q00 + q01) + (q10 + q11)) * 0.25 order;
+//   * x^lam with powf (never __powf or an exp2/log2 form): after every
+//     merge in exact mode; in fast mode deferred to the pooled map of
+//     the next level and skipped at the top (max commutes with the
+//     monotone power);
+//   * first-max argmax at the top, then k = 2k + offset per level, and
+//     score = cost0[k].
+// A tile of T = 2^levels patches holds whole quadtrees, so no merge
+// crosses a tile and blocks need nothing from each other.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace dm {
+
+constexpr int kThreads = 256;
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
+
+// Floats of pyramid levels 1..levels (level 0 is the cost tile itself).
+__host__ __device__ inline int level_floats(int d0, int t, int levels) {
+  int n = 0;
+  for (int l = 1; l <= levels; ++l) n += (d0 >> l) * (t >> l) * (t >> l);
+  return n;
+}
+
+// Bytes of the recorded pool offsets, levels 0..levels-1.
+__host__ __device__ inline int arg_bytes(int d0, int t, int levels) {
+  int n = 0;
+  for (int l = 0; l < levels; ++l) n += (d0 >> (l + 1)) * (t >> l) * (t >> l);
+  return n;
+}
+
+// Bytes of pyramid scratch (levels >= 1 and offsets) after the cost tile.
+__host__ __device__ inline int pyramid_scratch_bytes(int d0, int t, int levels) {
+  return 4 * level_floats(d0, t, levels) + ((arg_bytes(d0, t, levels) + 15) & ~15);
+}
+
+// cost0: (d0, t, t) level-0 tile in shared memory; scratch: at least
+// pyramid_scratch_bytes of shared memory (16-byte aligned).  Writes the
+// tile's disparities and scores to disp/score (one instance's (h0, w0)
+// planes, row stride w0) at patch origin (y0, x0).  Ends with every
+// thread past the block's last use of shared memory.
+template <bool FAST>
+__device__ void pyramid_tile(const float* cost0, float* scratch, int d0,
+                             int t, int levels, float lam, int32_t* disp,
+                             float* score, int w0, int y0, int x0) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float* lv = scratch;
+  int8_t* args = reinterpret_cast<int8_t*>(lv + level_floats(d0, t, levels));
+
+  // Bottom-up: level l -> level l + 1.
+  const float* cur = cost0;
+  float* out = lv;
+  int8_t* arg = args;
+  for (int l = 0; l < levels; ++l) {
+    const int sl = t >> l, hs = sl >> 1, kn = (d0 >> l) >> 1;
+    const int plane = sl * sl, oplane = hs * hs;
+    for (int e = tid; e < kn * oplane; e += nt) {
+      const int k = e / oplane, rem = e - k * oplane;
+      const int I = rem / hs, J = rem - I * hs;
+      float q[4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int c = (2 * I + u) * sl + 2 * J + v;
+          const float lo = k > 0 ? cur[(2 * k - 1) * plane + c] : -1.0f;
+          const float ev = cur[(2 * k) * plane + c];
+          const float od = cur[(2 * k + 1) * plane + c];
+          float pooled = fmaxf(fmaxf(lo, ev), od);
+          arg[k * plane + c] = pooled == lo ? -1 : (pooled == ev ? 0 : 1);
+          if (FAST && l > 0) pooled = powf(pooled, lam);
+          q[2 * u + v] = pooled;
+        }
+      }
+      const float m = ((q[0] + q[1]) + (q[2] + q[3])) * 0.25f;
+      out[k * oplane + rem] = FAST ? m : powf(m, lam);
+    }
+    __syncthreads();
+    arg += kn * plane;
+    cur = out;
+    out += kn * oplane;
+  }
+
+  // Top-down: every level-0 cell walks its own path; cur is the top map
+  // ((d0 >> levels) bins of one spatial cell).
+  const int dtop = d0 >> levels;
+  for (int cell = tid; cell < t * t; cell += nt) {
+    const int y = cell / t, x = cell - y * t;
+    int k = 0;
+    float best = cur[0];
+    for (int d = 1; d < dtop; ++d) {
+      const float v = cur[d];
+      if (v > best) {
+        best = v;
+        k = d;
+      }
+    }
+    for (int l = levels - 1; l >= 0; --l) {
+      int off = 0;  // offset of level l's args
+      for (int m = 0; m < l; ++m) off += (d0 >> (m + 1)) * (t >> m) * (t >> m);
+      const int sl = t >> l;
+      k = 2 * k + args[off + k * sl * sl + (y >> l) * sl + (x >> l)];
+    }
+    const size_t o = (size_t)(y0 + y) * w0 + (x0 + x);
+    disp[o] = k;
+    score[o] = cost0[k * t * t + cell];
+  }
+}
+
+}  // namespace dm

@@ -1,0 +1,227 @@
+"""End-to-end DeepMatching stereo pipeline in torch (single device).
+
+Counterpart of the JAX package's `models/pipeline.py`.  Every function
+takes leading batch dimensions where JAX used `vmap`; `torch.gather`
+takes the place of the TPU's one-hot selects.  Routes ('fused', 'exact',
+'torch') are described in the package docstring; on a CUDA tensor the
+'fused' and 'exact' routes run only the hand-written kernels, on a CPU
+tensor the kernels' plain versions.
+
+Not ported yet, raising NotImplementedError: lr_mode='direct', the
+post-filter (median_filter, fill_invalid), grad_hist and centred
+descriptors, bfloat16, and volumes whose pyramid tile does not fit one
+block's shared memory (the large-D route).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from deepmatching_stereo_matching_tpu.config import Config, Geometry
+
+from ..ops import costvol as costvol_ops
+from ..ops import costvol_cuda, fused_cuda, pyramid_cuda
+from ..ops import pool as pool_ops
+from ..ops._dispatch import check_route
+from . import descriptors
+
+_SENTINEL = torch.iinfo(torch.int32).min // 2
+
+
+def check_supported(cfg: Config) -> None:
+    """Raise NotImplementedError for what this port does not cover yet."""
+    descriptors.check_supported(cfg)
+    if cfg.dtype != "float32":
+        raise NotImplementedError(f"dtype={cfg.dtype!r}: the port is float32 only")
+    if cfg.lr_check and cfg.lr_mode != "flip":
+        raise NotImplementedError(f"lr_mode={cfg.lr_mode!r} is not ported yet")
+    if cfg.median_filter or cfg.fill_invalid:
+        raise NotImplementedError("the post-filter is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Pyramid + backtracking on the D-minor volume (the 'torch' route)
+# ---------------------------------------------------------------------------
+
+
+def build_pyramid(cost0: torch.Tensor, levels: int, lam: float
+                  ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Bottom-up aggregation on (..., H0, W0, D); returns (maps, args)."""
+    maps = [cost0]
+    args = []
+    cur = cost0
+    for _ in range(levels):
+        sub, arg = pool_ops.pool3_subsample(cur)
+        cur = pool_ops.aggregate_children(sub, lam)
+        maps.append(cur)
+        args.append(arg)
+    return maps, args
+
+
+def backtrack(maps: List[torch.Tensor], args: List[torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense top-down argmax propagation -> (disp int32, score f32)."""
+    k = torch.argmax(maps[len(args)], dim=-1)       # first max wins ties
+    for arg in reversed(args):
+        kr = k.repeat_interleave(2, -2).repeat_interleave(2, -1)
+        k = 2 * kr + torch.gather(arg, -1, kr[..., None])[..., 0]
+    score = torch.gather(maps[0], -1, k[..., None])[..., 0]
+    return k.to(torch.int32), score
+
+
+# ---------------------------------------------------------------------------
+# Single direction on a padded grayscale pair
+# ---------------------------------------------------------------------------
+
+
+def _exact_covered(geom: Geometry) -> None:
+    if not pyramid_cuda.supported(geom.disparities, geom.levels):
+        raise NotImplementedError(
+            f"D0={geom.disparities} at L={geom.levels} exceeds the pyramid "
+            "kernel's tile (the large-D route is not ported yet)")
+
+
+def match_from_descriptors(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
+                           cfg: Config, geom: Geometry, route: str,
+                           reverse: bool = False, origin_offset: int = 0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cost volume + pyramid + backtracking on prepared descriptors."""
+    if check_route(route) == "fused":
+        route = "exact"     # descriptor-level callers cannot use K1
+    if route == "exact":
+        _exact_covered(geom)
+        cost_dm = costvol_cuda.cost_volume_dmajor(
+            desc_src, desc_tgt, geom.disparities, cfg.patch_size,
+            cfg.max_disparity, reverse=reverse, origin_offset=origin_offset)
+        return pyramid_cuda.pyramid_backtrack(cost_dm, geom.levels, cfg.lam)
+    cost0 = costvol_ops.cost_volume(
+        desc_src, desc_tgt, geom.disparities, cfg.patch_size,
+        cfg.max_disparity, reverse=reverse, origin_offset=origin_offset)
+    maps, args = build_pyramid(cost0, geom.levels, cfg.lam)
+    return backtrack(maps, args)
+
+
+def one_direction(left: torch.Tensor, right: torch.Tensor, cfg: Config,
+                  geom: Geometry, route: str = "exact"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., Hp, Wp) padded pairs -> (disp_patch, score), (..., H0, W0).
+
+    'fused' runs the fused kernel where `fused_cuda.supported` says it
+    covers the config, else the 'exact' route — decided by the config.
+    """
+    if check_route(route) == "fused" and fused_cuda.supported(cfg, geom):
+        return fused_cuda.match_rows(left, right, cfg, geom)
+    desc_src = descriptors.left_descriptors(left, cfg)
+    desc_tgt = descriptors.right_sliding_descriptors(right, cfg)
+    return match_from_descriptors(desc_src, desc_tgt, cfg, geom, route)
+
+
+# ---------------------------------------------------------------------------
+# Both directions + consistency + densification (C11-C12)
+# ---------------------------------------------------------------------------
+
+
+def densify(patchwise: torch.Tensor, patch_size: int) -> torch.Tensor:
+    return patchwise.repeat_interleave(patch_size, -2).repeat_interleave(
+        patch_size, -1)
+
+
+def lr_consistency_patch(disp_l: torch.Tensor, disp_r: torch.Tensor,
+                         tau: float, num_disparities: int, patch_size: int
+                         ) -> torch.Tensor:
+    """Pixel-level LR validity from (..., H0, W0) patch disparity maps;
+    returns (..., H0*p, W0*p) bool."""
+    n_q = (num_disparities + patch_size - 1) // patch_size
+    pad = torch.full((*disp_r.shape[:-1], n_q + 1), _SENTINEL,
+                     dtype=disp_r.dtype, device=disp_r.device)
+    return lr_consistency_patch_padded(
+        disp_l, torch.cat([pad, disp_r], dim=-1), tau, num_disparities,
+        patch_size)
+
+
+def lr_consistency_patch_padded(disp_l: torch.Tensor, padded: torch.Tensor,
+                                tau: float, num_disparities: int,
+                                patch_size: int) -> torch.Tensor:
+    """`lr_consistency_patch` on a pre-padded (..., H0, n_q + 1 + W0) right
+    map whose first n_q + 1 columns lie left of the checked range.
+
+    With dL = p*q + r, pixel column x = p*J + c reads dR's patch column
+    J - q when c >= r, else J - q - 1: two gathers on patch maps.
+    """
+    p = patch_size
+    n_q = (num_disparities + p - 1) // p
+    *lead, h0, w0 = disp_l.shape
+    dl = disp_l.to(torch.int64)
+    q_l = torch.div(dl, p, rounding_mode="floor")
+    r_l = dl - q_l * p
+    jj = torch.arange(w0, device=disp_l.device)
+    d_r_a = torch.gather(padded, -1, n_q + 1 + jj - q_l)
+    d_r_b = torch.gather(padded, -1, n_q + jj - q_l)
+    ok_a = (disp_l - d_r_a).abs() <= tau
+    ok_b = (disp_l - d_r_b).abs() <= tau
+    c = torch.arange(p, device=disp_l.device)
+    xs = jj[:, None] * p + c                        # (W0, p)
+    valid = torch.where(c >= r_l[..., None], ok_a[..., None], ok_b[..., None])
+    valid &= dl[..., None] <= xs
+    return valid.reshape(*lead, h0, w0 * p).repeat_interleave(p, -2)
+
+
+def match_padded_core(left_p: torch.Tensor, right_p: torch.Tensor,
+                      cfg: Config, geom: Geometry, route: str = "fused"
+                      ) -> Dict[str, torch.Tensor]:
+    """(..., Hp, Wp) padded pairs -> PADDED (..., Hp, Wp) outputs.
+
+    With lr_check (lr_mode='flip'), the L->R pass and the R->L pass on
+    the flipped PADDED pair run as one batch of pair-directions, so the
+    fused route launches its kernel once for the whole batch.
+    """
+    check_supported(cfg)
+    if cfg.lr_check:
+        lefts = torch.stack([left_p, right_p.flip(-1)])
+        rights = torch.stack([right_p, left_p.flip(-1)])
+        disp_patch, score_patch = one_direction(lefts, rights, cfg, geom,
+                                                route)
+        disp_fwd, score = disp_patch[0], score_patch[0]
+        # densify(x).flip(-1) == densify(x.flip(-1)) on patch-aligned widths.
+        disp_r_patch = disp_patch[1].flip(-1)
+    else:
+        disp_fwd, score = one_direction(left_p, right_p, cfg, geom, route)
+
+    disp_px = densify(disp_fwd, cfg.patch_size)
+    score_px = densify(score, cfg.patch_size)
+    valid = torch.ones(disp_px.shape, dtype=torch.bool, device=disp_px.device)
+    disp_r_px = torch.zeros_like(disp_px)
+    if cfg.lr_check:
+        disp_r_px = densify(disp_r_patch, cfg.patch_size)
+        valid &= lr_consistency_patch(disp_fwd, disp_r_patch, cfg.tau,
+                                      geom.disparities, cfg.patch_size)
+    if cfg.min_score > 0.0:
+        valid &= score_px >= cfg.min_score
+    out = torch.where(valid, disp_px.to(torch.float32),
+                      torch.full((), cfg.invalid_value, dtype=torch.float32,
+                                 device=disp_px.device))
+    return {
+        "disparity": out,
+        "disparity_raw": disp_px,
+        "valid": valid,
+        "score": score_px,
+        "disparity_right": disp_r_px,
+    }
+
+
+def crop(outputs: Dict[str, torch.Tensor], height: int, width: int
+         ) -> Dict[str, torch.Tensor]:
+    """Crop padded (..., Hp, Wp) outputs back to the true image size."""
+    return {k: v[..., :height, :width] for k, v in outputs.items()}
+
+
+def match_padded(left_p: torch.Tensor, right_p: torch.Tensor, cfg: Config,
+                 height: int, width: int, route: str = "fused"
+                 ) -> Dict[str, torch.Tensor]:
+    """Padded f32 pairs -> cropped outputs (the post-filter is a no-op
+    under the default Config and raises otherwise)."""
+    geom = cfg.geometry(height, width)
+    return crop(match_padded_core(left_p, right_p, cfg, geom, route),
+                height, width)

@@ -1,0 +1,123 @@
+"""Build and load the CUDA kernels (`csrc/*.cu`).
+
+All kernels compile, with nvcc for sm_90a, into ONE shared library with a
+plain C interface, loaded with `ctypes` — no PyTorch headers, so a build
+takes seconds.  The library lands in `_build/` beside the package (not
+committed), named by a hash of the sources so an edited source is never
+served a stale build.  Nothing is built at import time: the first kernel
+launch calls `library()`.  A failed build raises with nvcc's output.
+
+`--use_fast_math` is deliberately absent: it changes the rounding of
+sqrtf, division and powf, and that rounding decides argmax ties.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argtypes (every one returns a cudaError_t as int).
+_SIGNATURES = {
+    # src, tgt, out, n, h0, w0, wt, c, d0, p, max_d, reverse, origin_offset, stream
+    "dm_costvol_dmajor": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # cost, disp, score, n, d0, h0, w0, levels, lam, stream
+    "dm_pyramid_backtrack": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # left, right, disp, score, n, hp, wp, p, d0, max_d, levels, lam, stream
+    "dm_fused_match": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+_log = ""
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu")), sorted(SRC_DIR.glob("*.cuh"))
+
+
+def _target() -> Path:
+    cus, hdrs = _sources()
+    h = hashlib.sha256()
+    for f in cus + hdrs:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libdmstereo_{h.hexdigest()[:16]}.so"
+
+
+def build(force: bool = False) -> Path:
+    """Compile `csrc/*.cu` into the shared library; returns its path.
+
+    The compiler's output (ptxas registers / shared memory / spills per
+    kernel) is kept for `build_log()`.
+    """
+    global _log
+    so = _target()
+    if so.exists() and not force:
+        return so
+    cus, _ = _sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    _log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{_log}")
+    os.replace(tmp, so)
+    return so
+
+
+def build_log() -> str:
+    """nvcc's output from the last build in this process ('' if none)."""
+    return _log
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.dm_error_string.argtypes = [ctypes.c_int]
+            lib.dm_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def loaded() -> bool:
+    return _lib is not None
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error."""
+    if rc != 0:
+        msg = library().dm_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -1,0 +1,39 @@
+"""Level-0 correlation cost volume (C4) in stock torch ops.
+
+Counterpart of the JAX package's `ops/costvol.py`: the semantic anchor
+that the 'torch' route runs and the plain version of the cost-volume
+kernel (ops/costvol_cuda.py).  Leading batch dimensions are allowed.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def cost_volume(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
+                disparities: int, patch_size: int, max_disparity: int,
+                reverse: bool = False, origin_offset: int = 0
+                ) -> torch.Tensor:
+    """C0[..., i, j, d] = max(0, <src[i, j], tgt[i, p*(j + origin_offset) -+ d]>).
+
+    Forward (reverse=False): src = left patches, tgt = right sliding
+    descriptors, target column p*j - d.  Reverse: target column p*j + d.
+    Out-of-range targets and padded bins (d >= max_disparity) score 0.
+
+    Args:
+      desc_src: (..., H0, W0, C) normalised source patch descriptors.
+      desc_tgt: (..., H0, Wt, C) target sliding descriptors.
+    Returns: (..., H0, W0, disparities) float32.
+    """
+    w0 = desc_src.shape[-2]
+    wt = desc_tgt.shape[-2]
+    dev = desc_src.device
+    xs = (torch.arange(w0, device=dev) + origin_offset) * patch_size
+    planes = []
+    for d in range(disparities):
+        x0 = xs + d if reverse else xs - d
+        valid = (x0 >= 0) & (x0 < wt) & (d < max_disparity)
+        tgt = desc_tgt.index_select(-2, x0.clamp(0, wt - 1))
+        corr = (desc_src * tgt).sum(-1).clamp_min(0.0)
+        planes.append(torch.where(valid, corr, torch.zeros_like(corr)))
+    return torch.stack(planes, dim=-1)

@@ -1,0 +1,66 @@
+"""Pyramid level ops (C5-C7) in stock torch ops.
+
+Counterpart of the JAX package's `ops/pool.py`: 3-wide disparity
+max-pool + x2 subsample with recorded argmax offsets, and the quadtree
+4-child merge + power rectification, in the D-minor (..., H, W, D) and
+D-major (..., D, H, W) layouts.  Same -1.0 pool pad, same lo/even/odd tie
+order and same ((q00 + q01) + (q10 + q11)) * 0.25 summation order, so the
+pools are bitwise equal to the oracle's; x**lam goes through `torch.pow`,
+which rounds like `np.power` only to ~2 ULP.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def _pool(lo_first: torch.Tensor, even: torch.Tensor, odd: torch.Tensor,
+          dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    lo = torch.cat([lo_first, odd.narrow(dim, 0, odd.shape[dim] - 1)], dim)
+    pooled = torch.maximum(torch.maximum(lo, even), odd)
+    arg = torch.ones(pooled.shape, dtype=torch.int8, device=pooled.device)
+    arg[pooled == even] = 0
+    arg[pooled == lo] = -1      # lo wins ties, then even, then odd
+    return pooled, arg
+
+
+def pool3_subsample(maps: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., H, W, D) -> (pooled, arg), both (..., H, W, D//2).
+
+    arg[..., k] in {-1, 0, +1} is the offset of the pool winner around
+    d = 2k; the -1.0 pad below bin 0 never wins against a correlation.
+    """
+    even, odd = maps[..., 0::2], maps[..., 1::2]
+    return _pool(torch.full_like(odd[..., :1], -1.0), even, odd, -1)
+
+
+def pool3_subsample_dmajor(maps: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`pool3_subsample` on the D-major (..., D, H, W) layout."""
+    even, odd = maps[..., 0::2, :, :], maps[..., 1::2, :, :]
+    return _pool(torch.full_like(odd[..., :1, :, :], -1.0), even, odd, -3)
+
+
+def quad_mean(sub: torch.Tensor, h_dim: int) -> torch.Tensor:
+    """Quadtree 4-child mean over spatial dims (h_dim, h_dim + 1), both
+    negative, in ((q00 + q01) + (q10 + q11)) * 0.25 order: w pairs
+    first, then h."""
+    def q(u, v):
+        idx = [slice(None)] * sub.dim()
+        idx[h_dim] = slice(u, None, 2)
+        idx[h_dim + 1] = slice(v, None, 2)
+        return sub[tuple(idx)]
+    return ((q(0, 0) + q(0, 1)) + (q(1, 0) + q(1, 1))) * 0.25
+
+
+def aggregate_children(sub: torch.Tensor, lam: float) -> torch.Tensor:
+    """(..., H, W, K) -> (..., H/2, W/2, K): 4-child mean, then x**lam."""
+    return torch.pow(quad_mean(sub, -3), lam)
+
+
+def aggregate_children_dmajor(sub: torch.Tensor, lam: float) -> torch.Tensor:
+    """`aggregate_children` on the D-major (..., K, H, W) layout."""
+    return torch.pow(quad_mean(sub, -2), lam)

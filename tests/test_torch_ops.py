@@ -1,0 +1,277 @@
+"""PyTorch port's ops vs the JAX package's, on the CPU.
+
+Inputs are made with numpy from a seed and handed to both packages.  On
+a CPU tensor each kernel wrapper of the port runs its plain PyTorch
+version, so these tests hold the plain K1/K2/K3 (and the stock-op
+modules around them) to the JAX functions; the JAX side runs its Pallas
+kernels in interpreter mode, as its own tests do.  Tolerances: 1e-6 for
+descriptors and cost volumes (f32 sums in another order), bitwise for
+pools and pyramid decisions, rtol 1e-5 for maps through x**1.4 (pow is
+not bitwise across libraries), 2e-5 for fused-kernel scores
+(algebraic normalisation).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from deepmatching_stereo_matching_tpu import Config, Geometry
+from deepmatching_stereo_matching_tpu.models import descriptors as jdesc
+from deepmatching_stereo_matching_tpu.ops import costvol as jcostvol
+from deepmatching_stereo_matching_tpu.ops import costvol_pallas
+from deepmatching_stereo_matching_tpu.ops import fused_pallas
+from deepmatching_stereo_matching_tpu.ops import pool as jpool
+from deepmatching_stereo_matching_tpu.ops import pyramid_pallas
+from deepmatching_stereo_matching_tpu_torch.models import descriptors
+from deepmatching_stereo_matching_tpu_torch.ops import (
+    costvol, costvol_cuda, fused_cuda, pool, pyramid_cuda)
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def rand_pair(rng, hp, wp):
+    l = (rng.standard_normal((hp, wp)).astype(np.float32) * 0.3 + 0.5)
+    r = (rng.standard_normal((hp, wp)).astype(np.float32) * 0.3 + 0.5)
+    return l, r
+
+
+# ---------------------------------------------------------------------------
+# Descriptors and the cost volume
+# ---------------------------------------------------------------------------
+
+
+def test_descriptors_match_jax():
+    rng = np.random.default_rng(0)
+    cfg = Config(max_disparity=16)
+    img = rng.uniform(0, 1, (32, 64)).astype(np.float32)
+    for fn in ("left_descriptors", "right_sliding_descriptors"):
+        want = np.asarray(getattr(jdesc, fn)(jnp.asarray(img), cfg))
+        got = getattr(descriptors, fn)(t(img), cfg).numpy()
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+def test_unported_descriptor_modes_raise():
+    img = torch.zeros(16, 16)
+    with pytest.raises(NotImplementedError, match="grad_hist"):
+        descriptors.left_descriptors(img, Config(descriptor="grad_hist"))
+    with pytest.raises(NotImplementedError):
+        descriptors.left_descriptors(img, Config(center_descriptors=True))
+
+
+def _desc_pair(seed, h0=8, w0=16, p=4):
+    rng = np.random.default_rng(seed)
+    cfg = Config(max_disparity=16)
+    l, r = rand_pair(rng, h0 * p, w0 * p)
+    src = np.asarray(jdesc.left_descriptors(jnp.asarray(l), cfg))
+    tgt = np.asarray(jdesc.right_sliding_descriptors(jnp.asarray(r), cfg))
+    return src, tgt
+
+
+@pytest.mark.parametrize("reverse,origin_offset,max_d", [
+    (False, 0, 16), (True, 0, 16), (False, 0, 13), (False, 2, 16),
+])
+def test_cost_volume_matches_jax(reverse, origin_offset, max_d):
+    src, tgt = _desc_pair(2)
+    if origin_offset:
+        tgt = np.concatenate(
+            [np.zeros((tgt.shape[0], 4 * origin_offset, tgt.shape[2]),
+                      np.float32), tgt], axis=1)
+    want = np.asarray(jcostvol.cost_volume(
+        jnp.asarray(src), jnp.asarray(tgt), 16, 4, max_d, reverse=reverse,
+        origin_offset=origin_offset))
+    got = costvol.cost_volume(t(src), t(tgt), 16, 4, max_d, reverse=reverse,
+                              origin_offset=origin_offset).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+@pytest.mark.parametrize("reverse,max_d", [(False, 16), (True, 16),
+                                           (False, 11)])
+def test_plain_costvol_kernel_matches_pallas(reverse, max_d):
+    """Plain K2 vs costvol_pallas.cost_volume_dmajor, with a batch dim."""
+    src, tgt = _desc_pair(3)
+    want = np.asarray(costvol_pallas.cost_volume_dmajor(
+        jnp.asarray(src), jnp.asarray(tgt), 16, 4, max_d, reverse=reverse))
+    got = costvol_cuda.cost_volume_dmajor(
+        t(np.stack([src, src])), t(np.stack([tgt, tgt])), 16, 4, max_d,
+        reverse=reverse).numpy()
+    assert got.shape == (2,) + want.shape
+    np.testing.assert_allclose(got[0], want, atol=1e-6)
+    np.testing.assert_array_equal(got[0], got[1])
+
+
+# ---------------------------------------------------------------------------
+# Pools
+# ---------------------------------------------------------------------------
+
+
+def _tie_volume(rng, shape):
+    return (rng.integers(0, 3, size=shape).astype(np.float32) * 0.5)
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_pool3_subsample_bitwise(kind):
+    rng = np.random.default_rng(4)
+    shape = (4, 6, 16)
+    maps = (_tie_volume(rng, shape) if kind == "ties" else
+            rng.uniform(0, 1, shape).astype(np.float32))
+    wp, wa = jpool.pool3_subsample(jnp.asarray(maps))
+    gp, ga = pool.pool3_subsample(t(maps))
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    np.testing.assert_array_equal(ga.numpy(), np.asarray(wa))
+    dm = np.ascontiguousarray(maps.transpose(2, 0, 1))
+    wp, wa = jpool.pool3_subsample_dmajor(jnp.asarray(dm))
+    gp, ga = pool.pool3_subsample_dmajor(t(dm))
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    np.testing.assert_array_equal(ga.numpy(), np.asarray(wa))
+
+
+def test_aggregate_children_matches_jax():
+    rng = np.random.default_rng(6)
+    sub = rng.uniform(0, 1, (8, 12, 5)).astype(np.float32)
+    want = np.asarray(jpool.aggregate_children(jnp.asarray(sub), 1.4))
+    got = pool.aggregate_children(t(sub), 1.4).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    dm = np.ascontiguousarray(sub.transpose(2, 0, 1))
+    want = np.asarray(jpool.aggregate_children_dmajor(jnp.asarray(dm), 1.4))
+    got = pool.aggregate_children_dmajor(t(dm), 1.4).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K3: pyramid + backtracking
+# ---------------------------------------------------------------------------
+
+
+def _pyramid_both(cost_hwd, levels):
+    cost_dm = np.ascontiguousarray(cost_hwd.transpose(2, 0, 1))
+    wd, ws = pyramid_pallas.pyramid_backtrack(jnp.asarray(cost_dm), levels,
+                                              1.4)
+    gd, gs = pyramid_cuda.pyramid_backtrack(t(cost_dm), levels, 1.4)
+    assert gd.dtype == torch.int32 and gs.dtype == torch.float32
+    return (np.asarray(wd), np.asarray(ws)), (gd.numpy(), gs.numpy())
+
+
+@pytest.mark.parametrize("levels,h0,w0,d0", [
+    (1, 2, 2, 2), (2, 4, 8, 8), (3, 8, 16, 16), (4, 16, 32, 64),
+])
+def test_plain_pyramid_kernel_random(levels, h0, w0, d0):
+    rng = np.random.default_rng(levels)
+    cost = np.maximum(rng.standard_normal((h0, w0, d0)), 0.0).astype(np.float32)
+    (wd, ws), (gd, gs) = _pyramid_both(cost, levels)
+    np.testing.assert_array_equal(gd, wd)
+    np.testing.assert_array_equal(gs, ws)
+
+
+def test_plain_pyramid_kernel_tie_heavy():
+    cost = _tie_volume(np.random.default_rng(7), (8, 16, 16))
+    (wd, ws), (gd, gs) = _pyramid_both(cost, 3)
+    np.testing.assert_array_equal(gd, wd)
+    np.testing.assert_array_equal(gs, ws)
+
+
+def test_plain_pyramid_kernel_all_zero():
+    (wd, ws), (gd, gs) = _pyramid_both(np.zeros((4, 8, 8), np.float32), 2)
+    np.testing.assert_array_equal(gd, wd)
+    assert not gd.any()
+    np.testing.assert_array_equal(gs, ws)
+
+
+def test_pyramid_fast_mode_same_decisions():
+    """Deferred rectification (the fused kernel's mode) picks the exact
+    mode's winners on non-degenerate data."""
+    rng = np.random.default_rng(8)
+    cost = t(np.maximum(rng.standard_normal((2, 16, 16, 32)), 0.0
+                        ).astype(np.float32))
+    ed, es = pyramid_cuda.pyramid_body(cost, 3, 1.4, fast=False)
+    fd, fs = pyramid_cuda.pyramid_body(cost, 3, 1.4, fast=True)
+    np.testing.assert_array_equal(fd.numpy(), ed.numpy())
+    np.testing.assert_array_equal(fs.numpy(), es.numpy())
+
+
+def test_pyramid_misaligned_rejected():
+    with pytest.raises(ValueError, match="not aligned"):
+        pyramid_cuda.pyramid_backtrack(torch.zeros(8, 6, 10), 2, 1.4)
+
+
+def test_kernel_coverage_gates():
+    assert pyramid_cuda.supported(64, 4)
+    assert not pyramid_cuda.supported(192, 5)   # KITTI large-D tile
+    cfg = Config(max_disparity=64)
+    assert fused_cuda.supported(cfg, cfg.geometry(375, 450))
+    assert not fused_cuda.supported(Config(max_disparity=64, center_descriptors=True),
+                                    cfg.geometry(375, 450))
+    big = Config(max_disparity=192)
+    assert not fused_cuda.supported(big, big.geometry(375, 1242))
+
+
+# ---------------------------------------------------------------------------
+# K1: the fused image->disparity kernel
+# ---------------------------------------------------------------------------
+
+
+def _geom(h0, w0, p, d0, levels):
+    return Geometry(height=h0 * p, width=w0 * p, levels=levels,
+                    padded_height=h0 * p, padded_width=w0 * p, grid_h=h0,
+                    grid_w=w0, disparities=d0)
+
+
+def _fused_both(left, right, max_d, levels, p=4):
+    h0, w0 = left.shape[0] // p, left.shape[1] // p
+    unit = 2 ** levels
+    d0 = ((max_d + unit - 1) // unit) * unit
+    cfg = Config(max_disparity=max_d, levels=levels)
+    wd, ws = fused_pallas._match_rows(
+        jnp.asarray(left), jnp.asarray(right), p, d0, max_d, levels, cfg.lam,
+        fused_pallas.dot_precision(cfg), "float32",
+        fused_pallas.use_interpret())
+    gd, gs = fused_cuda.match_rows(t(left), t(right), cfg,
+                                   _geom(h0, w0, p, d0, levels))
+    return (np.asarray(wd), np.asarray(ws)), (gd.numpy(), gs.numpy())
+
+
+@pytest.mark.parametrize("h0,w0,max_d,levels", [
+    (8, 16, 16, 2),
+    (16, 16, 16, 2),
+    (16, 24, 13, 2),
+    (32, 48, 32, 3),
+])
+def test_plain_fused_kernel_matches_pallas(h0, w0, max_d, levels):
+    rng = np.random.default_rng(h0 + w0 + max_d)
+    left, right = rand_pair(rng, h0 * 4, w0 * 4)
+    (wd, ws), (gd, gs) = _fused_both(left, right, max_d, levels)
+    np.testing.assert_array_equal(gd, wd)
+    np.testing.assert_allclose(gs, ws, atol=2e-5)
+
+
+def test_plain_fused_left_edge_out_of_range_zero():
+    """Patches with p*j < d never win with a nonzero out-of-range score:
+    decisions equal the Pallas kernel's on an 8x8-patch pair."""
+    rng = np.random.default_rng(7)
+    left, right = rand_pair(rng, 32, 32)
+    (wd, ws), (gd, gs) = _fused_both(left, right, 16, 2)
+    np.testing.assert_array_equal(gd, wd)
+    cfg = Config(max_disparity=16, levels=2)
+    vol = fused_cuda.cost_volume_torch(t(left), t(right), cfg,
+                                       _geom(8, 8, 4, 16, 2)).numpy()
+    jj = np.arange(8)
+    for d in range(16):
+        assert not vol[d][:, 4 * jj < d].any()
+
+
+def test_plain_fused_batched_equals_single():
+    rng = np.random.default_rng(9)
+    cfg = Config(max_disparity=16, levels=2)
+    geom = _geom(8, 16, 4, 16, 2)
+    pairs = [rand_pair(rng, 32, 64) for _ in range(3)]
+    lb = t(np.stack([l for l, _ in pairs]))
+    rb = t(np.stack([r for _, r in pairs]))
+    bd, bs = fused_cuda.match_rows(lb, rb, cfg, geom)
+    for i, (l, r) in enumerate(pairs):
+        d, s = fused_cuda.match_rows(t(l), t(r), cfg, geom)
+        np.testing.assert_array_equal(bd[i].numpy(), d.numpy())
+        np.testing.assert_array_equal(bs[i].numpy(), s.numpy())

@@ -1,0 +1,179 @@
+"""PyTorch port's pipeline and API vs the JAX package and the oracle, on
+the CPU.
+
+The port's three routes run batched through `match_padded_core` and are
+held to the JAX `match_padded` of the corresponding implementation
+('fused' -> 'fused', 'exact' -> 'pallas', 'torch' -> 'jnp'): decisions,
+validity and right disparities equal, scores at rtol 1e-5.  On CPU
+tensors the kernel routes run the kernels' plain versions.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from deepmatching_stereo_matching_tpu import Config
+from deepmatching_stereo_matching_tpu import api as japi
+from deepmatching_stereo_matching_tpu.data import synthetic
+from deepmatching_stereo_matching_tpu.models import pipeline as jpipeline
+from deepmatching_stereo_matching_tpu.oracle import reference as oracle
+from deepmatching_stereo_matching_tpu_torch import api
+from deepmatching_stereo_matching_tpu_torch.models import pipeline
+from deepmatching_stereo_matching_tpu_torch.ops import _build, _dispatch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_IMPL = {"fused": "fused", "exact": "pallas", "torch": "jnp"}
+H, W, MAX_D = 96, 128, 16
+
+
+def padded_pairs(cfg, seeds):
+    geom = cfg.geometry(H, W)
+    out = []
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        field = synthetic.block_disparity_field(H, W, MAX_D, rng, block=16)
+        left, right, _ = synthetic.make_pair(H, W, field, seed=seed)
+        out.append(tuple(oracle.pad_image(oracle.to_grayscale_f32(x), geom)
+                         for x in (left, right)))
+    return out
+
+
+def assert_outputs_match(got, want):
+    for k in ("disparity_raw", "valid", "disparity_right"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_array_equal(got["disparity"], want["disparity"])
+    np.testing.assert_allclose(got["score"], want["score"], rtol=1e-5,
+                               atol=1e-7)
+
+
+@pytest.mark.parametrize("lr_check", [True, False], ids=["flip", "no_lr"])
+@pytest.mark.parametrize("route", ["fused", "exact", "torch"])
+def test_match_padded_core_batched_matches_jax(route, lr_check):
+    cfg = Config(max_disparity=MAX_D, lr_check=lr_check)
+    geom = cfg.geometry(H, W)
+    pairs = padded_pairs(cfg, (3, 4))
+    lb = torch.from_numpy(np.stack([l for l, _ in pairs]))
+    rb = torch.from_numpy(np.stack([r for _, r in pairs]))
+    out = pipeline.crop(pipeline.match_padded_core(lb, rb, cfg, geom, route),
+                        H, W)
+    assert out["disparity_raw"].dtype == torch.int32
+    assert out["disparity"].shape == (2, H, W)
+    for i, (l, r) in enumerate(pairs):
+        want = jpipeline.match_padded(jnp.asarray(l), jnp.asarray(r), cfg, H,
+                                      W, JAX_IMPL[route])
+        assert_outputs_match({k: v[i].numpy() for k, v in out.items()},
+                             {k: np.asarray(v) for k, v in want.items()})
+
+
+def test_lr_consistency_patch_matches_jax():
+    """The gather form is bitwise equal to JAX's shift scan."""
+    rng = np.random.default_rng(0)
+    dl = rng.integers(0, 32, (6, 16)).astype(np.int32)
+    dr = rng.integers(0, 32, (6, 16)).astype(np.int32)
+    want = np.asarray(jpipeline.lr_consistency_patch(
+        jnp.asarray(dl), jnp.asarray(dr), 1.0, 32, 4))
+    got = pipeline.lr_consistency_patch(torch.from_numpy(dl),
+                                        torch.from_numpy(dr), 1.0, 32, 4)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("route", ["fused", "exact", "torch"])
+def test_api_matches_jax_and_oracle(route):
+    left, right, gt = synthetic.make_block_pair(120, 180, max_disparity=24,
+                                                seed=42)
+    cfg = Config(max_disparity=24)
+    got = api.match_stereo(left, right, cfg, impl=route, device="cpu")
+    want = japi.match_stereo(left, right, cfg, impl=JAX_IMPL[route])
+    ora = oracle.match_stereo(left, right, cfg)
+    for ref in (want, ora):
+        np.testing.assert_array_equal(got.disparity_raw, ref.disparity_raw)
+        np.testing.assert_array_equal(got.valid, ref.valid)
+        np.testing.assert_array_equal(got.disparity, ref.disparity)
+        np.testing.assert_array_equal(got.disparity_right,
+                                      ref.disparity_right)
+        np.testing.assert_allclose(got.score, ref.score, rtol=1e-5, atol=1e-7)
+    assert got.disparity.shape == (120, 180)
+
+
+def test_route_context_selects_route():
+    left, right, _ = synthetic.make_block_pair(64, 64, max_disparity=16,
+                                               seed=1)
+    cfg = Config(max_disparity=16)
+    with _dispatch.set_route("torch"):
+        assert _dispatch.route() == "torch"
+        a = api.match_stereo(left, right, cfg, device="cpu")
+    assert _dispatch.route() == "fused"
+    b = api.match_stereo(left, right, cfg, impl="torch", device="cpu")
+    np.testing.assert_array_equal(a.disparity_raw, b.disparity_raw)
+    with pytest.raises(ValueError, match="unknown route"):
+        api.match_stereo(left, right, cfg, impl="pallas", device="cpu")
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "from deepmatching_stereo_matching_tpu_torch import Config\n"
+        "from deepmatching_stereo_matching_tpu_torch.api import match_stereo\n"
+        "from deepmatching_stereo_matching_tpu_torch.ops import "
+        "fused_cuda, costvol_cuda, pyramid_cuda\n"
+        "from deepmatching_stereo_matching_tpu.data.synthetic import "
+        "make_block_pair\n"
+        "l, r, _ = make_block_pair(64, 96, max_disparity=16, seed=0)\n"
+        "res = match_stereo(l, r, Config(max_disparity=16), device='cpu')\n"
+        "assert res.disparity.shape == (64, 96)\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
+        "if m.startswith('jax'))\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={**os.environ, "PYTHONPATH": REPO},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_cuda_device_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    left, right, _ = synthetic.make_block_pair(64, 64, max_disparity=16,
+                                               seed=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        api.match_stereo(left, right, Config(max_disparity=16))
+
+
+def test_kernel_modules_import_without_nvcc():
+    """Importing and running on CPU tensors builds nothing."""
+    code = (
+        "import os\n"
+        "os.environ['PATH'] = ''\n"
+        "os.environ['CUDA_HOME'] = '/nonexistent'\n"
+        "import torch\n"
+        "from deepmatching_stereo_matching_tpu_torch.ops import "
+        "_build, costvol_cuda, fused_cuda, pyramid_cuda\n"
+        "d, s = pyramid_cuda.pyramid_backtrack(torch.rand(8, 4, 4), 2, 1.4)\n"
+        "assert d.shape == (4, 4) and not _build.loaded()\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={**os.environ, "PYTHONPATH": REPO},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert not _build.loaded()
+
+
+@pytest.mark.parametrize("cfg,height,width,match", [
+    (Config(max_disparity=16, lr_mode="direct"), 64, 64, "lr_mode"),
+    (Config(max_disparity=16, median_filter=3), 64, 64, "post-filter"),
+    (Config(max_disparity=16, dtype="bfloat16"), 64, 64, "float32"),
+    (Config(max_disparity=16, descriptor="grad_hist"), 64, 64, "grad_hist"),
+    (Config(max_disparity=192), 375, 1242, "large-D"),
+])
+@pytest.mark.parametrize("route", ["fused", "exact"])
+def test_uncovered_configs_raise(cfg, height, width, match, route):
+    geom = cfg.geometry(height, width)
+    img = torch.zeros(1, geom.padded_height, geom.padded_width)
+    with pytest.raises(NotImplementedError, match=match):
+        pipeline.match_padded_core(img, img, cfg, geom, route)
