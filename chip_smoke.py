@@ -5,19 +5,35 @@
 
 Phases, each printing its own lines (any failure exits nonzero):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: nvcc builds csrc/*.cu from this checkout; ptxas reports each
-     kernel's registers, shared memory and spills;
-  3. kernel vs plain PyTorch version on the card, at the bench shapes
-     (450x375, D=64 -> padded 384x512, L=4, D0=64; 32 pairs x 2
-     directions = 64 instances): cost volume (K2) atol 1e-6, pyramid (K3)
-     decisions and scores equal, fused (K1) at most 0.5% of decisions
-     flipped and scores within atol 2e-5 where decisions agree;
-  4. main path: `api.match_stereo` on two synthetic bench pairs against
-     the NumPy oracle, the 'fused' route within the bench's 0.5% decision
-     gate and the 'exact' route bitwise on decisions; every kernel's
-     launch count from this phase must be above 0;
-  5. timing with CUDA events: the batched `match_padded_core` step
-     (32 pairs, both directions) per route, and peak device memory.
+  2. build: nvcc builds csrc/*.cu from this checkout, one process per
+     source; ptxas reports each kernel's registers, shared memory, spills;
+  3. kernel vs plain PyTorch version on the card, at full width:
+     - bench shapes (450x375, D=64 -> padded 384x512, L=4, D0=64; 32
+       pairs x 2 directions = 64 instances): cost volume (K2) atol 1e-6,
+       pyramid (K3) decisions and scores equal, fused (K1, patch) and
+       fused magbin (K1b, grad_hist) at most 0.5% of decisions flipped
+       and scores within 2e-5 where decisions agree;
+     - KITTI shapes (1242x375 -> padded 384x1536, L=5, 96x384 patch grid):
+       image->volume (K4) at D=128, 8 pairs x 2 directions, atol 2e-5;
+       level aggregation (K5) on that volume and at D=256 (4 pairs x 2),
+       fast and exact: offsets equal and top maps bitwise;
+     - K4 on a grid of ragged 8x32-patch tiles (28x76 patches, D0=100,
+       max_d=99), atol 2e-5;
+     - each block's shared memory as the library computes it equals the
+       mirror that fused_cuda's routing rules use (K1, K1b, K4);
+  4. main path through `api.match_stereo` against the NumPy oracle: two
+     bench pairs (patch: 'fused' within the bench's 0.5% decision gate,
+     'exact' bitwise on decisions), one KITTI pair at D=128 (the
+     tools/bench_large.py recipe: 'exact' raw_neq = valid_neq = 0,
+     'fused' within the 0.5% gate and |d bad-rate| <= 0.005) and two bench
+     pairs with grad_hist (both routes within the 0.5% gate); each path
+     and route runs with the launch counts set to 0 just before it, and
+     must launch exactly its kernels: bench K1 | K2, K3; KITTI K4, K5 |
+     K2, K5; grad_hist K1b | K2, K3 ('fused' | 'exact');
+  5. timing with CUDA events (any sample <= 0 fails): the batched
+     `match_padded_core` step per route for the bench (32 pairs), grad_hist
+     (32 pairs) and KITTI (D=128 x 8 pairs, D=256 x 4 pairs), and peak
+     device memory.
 Then one JSON line with the kernels' numbers, and as the last line
 {"ok": true, "device": {...}}.  Needs one CUDA device; imports no JAX.
 """
@@ -32,8 +48,14 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 H, W, MAX_D, BATCH = 375, 450, 64, 32
+KH, KW = 375, 1242
+KITTI = {128: 8, 256: 4}               # max_disparity -> batch of pairs
+KITTI_SEED = 7
+RAGGED_HW, RAGGED_D = (100, 300), 99   # L=2: a 28x76-patch grid, D0=100
 MAIN_PATH_SEEDS = (100, 101)
 FUSED_DECISION_TOL = 0.005
+PKG = "deepmatching_stereo_matching_tpu_torch"
+JAX_PKG = "deepmatching_stereo_matching_tpu"
 
 
 class SmokeFailure(Exception):
@@ -52,6 +74,15 @@ def make_pair(seed):
     rng = np.random.default_rng(seed)
     field = synthetic.block_disparity_field(H, W, MAX_D, rng, block=32)
     return synthetic.make_pair(H, W, field, seed=seed)
+
+
+def make_kitti_pair(seed, max_d):
+    """tools/bench_large.py's KITTI-size recipe."""
+    from deepmatching_stereo_matching_tpu.data import synthetic
+
+    rng = np.random.default_rng(seed)
+    field = synthetic.block_disparity_field(KH, KW, max_d, rng, block=48)
+    return synthetic.make_pair(KH, KW, field, seed=seed)
 
 
 def cuda_ms(torch, fn, reps, warmup=1):
@@ -117,21 +148,52 @@ def main():
     _build.library()
     print(flush=True)
 
+    def to_dev(imgs, cfg, h, w):
+        return torch.from_numpy(np.stack([api.preprocess(x, cfg, h, w)
+                                          for x in imgs])).to(dev)
+
+    def both_directions(lp, rp):
+        return torch.stack([lp, rp.flip(-1)]), torch.stack([rp, lp.flip(-1)])
+
+    rows = {}
+
+    def record(key, err, kernel_fn, plain_fn, reps=10, plain_reps=3):
+        rows[key] = dict(err=err, ms=cuda_ms(torch, kernel_fn, reps),
+                         plain=cuda_ms(torch, plain_fn, plain_reps))
+
+    def fused_vs_plain(key, lefts, rights, cfg, geom):
+        """K1 on pixel planes, K1b on (magnitude, bin) planes."""
+        if cfg.descriptor == "grad_hist":
+            (lm, lb), (rm, rb) = map(descriptors.grad_hist_magbin,
+                                     (lefts, rights))
+            planes = (lm, rm, cfg, geom, lb, rb)
+        else:
+            planes = (lefts, rights, cfg, geom)
+        d, s = fused_cuda.match_planes(*planes)
+        sync()
+        dp, sp = fused_cuda.match_planes_torch(*planes)
+        same = d == dp
+        flips = float((~same).float().mean())
+        serr = float((s - sp).abs()[same].max())
+        print(f"{key} fused [{cfg.descriptor}] {tuple(lefts.shape)} -> "
+              f"{tuple(d.shape)}: decisions flipped {flips:.3e}, "
+              f"max |score diff| where equal {serr:.3e}")
+        require(flips <= FUSED_DECISION_TOL and serr <= 2e-5,
+                f"{key} disagrees with its plain version")
+        record(key, serr, lambda: fused_cuda.match_planes(*planes),
+               lambda: fused_cuda.match_planes_torch(*planes))
+
+    # 3a. Kernels vs their plain versions at the bench shapes.
     cfg = Config(max_disparity=MAX_D)
     geom = cfg.geometry(H, W)
     require((geom.levels, geom.padded_height, geom.padded_width,
              geom.disparities) == (4, 384, 512, 64), f"geometry {geom}")
     require(fused_cuda.supported(cfg, geom), "fused kernel must cover the bench")
     pairs = [make_pair(100 + i) for i in range(BATCH)]
-    lp = torch.from_numpy(np.stack([api.preprocess(l, cfg, H, W)
-                                    for l, _, _ in pairs])).to(dev)
-    rp = torch.from_numpy(np.stack([api.preprocess(r, cfg, H, W)
-                                    for _, r, _ in pairs])).to(dev)
-    lefts = torch.stack([lp, rp.flip(-1)])     # (2, 32, Hp, Wp): 64 instances
-    rights = torch.stack([rp, lp.flip(-1)])
+    lp = to_dev([l for l, _, _ in pairs], cfg, H, W)
+    rp = to_dev([r for _, r, _ in pairs], cfg, H, W)
+    lefts, rights = both_directions(lp, rp)     # (2, 32, Hp, Wp): 64 instances
 
-    # 3. Kernels vs their plain versions on the card.
-    rows = {}
     ds = descriptors.left_descriptors(lefts, cfg)
     dt = descriptors.right_sliding_descriptors(rights, cfg)
     args2 = (geom.disparities, cfg.patch_size, cfg.max_disparity)
@@ -141,11 +203,10 @@ def main():
     err2 = float((vol - vol_p).abs().max())
     print(f"K2 cost volume {tuple(vol.shape)}: max |kernel - plain| = {err2:.3e}")
     require(err2 <= 1e-6, f"K2 disagrees with its plain version: {err2}")
-    rows["K2"] = dict(
-        err=err2,
-        ms=cuda_ms(torch, lambda: costvol_cuda.cost_volume_dmajor(ds, dt, *args2), 10),
-        plain=cuda_ms(torch, lambda: costvol_cuda.cost_volume_dmajor_torch(ds, dt, *args2), 3))
     del vol_p
+    record("K2", err2,
+           lambda: costvol_cuda.cost_volume_dmajor(ds, dt, *args2),
+           lambda: costvol_cuda.cost_volume_dmajor_torch(ds, dt, *args2))
 
     d3, s3 = pyramid_cuda.pyramid_backtrack(vol, geom.levels, cfg.lam)
     sync()
@@ -156,120 +217,255 @@ def main():
           f"score mismatch rate {float((s3 != s3p).float().mean()):.3e}, "
           f"max |score diff| {serr3:.3e}")
     require(flip3 == 0.0 and serr3 == 0.0, "K3 disagrees with its plain version")
-    rows["K3"] = dict(
-        err=serr3,
-        ms=cuda_ms(torch, lambda: pyramid_cuda.pyramid_backtrack(vol, geom.levels, cfg.lam), 10),
-        plain=cuda_ms(torch, lambda: pyramid_cuda.pyramid_body(vol, geom.levels, cfg.lam), 3))
+    record("K3", serr3,
+           lambda: pyramid_cuda.pyramid_backtrack(vol, geom.levels, cfg.lam),
+           lambda: pyramid_cuda.pyramid_body(vol, geom.levels, cfg.lam))
     del vol, ds, dt
 
-    d1, s1 = fused_cuda.match_rows(lefts, rights, cfg, geom)
+    def smem_agrees(label, lib_bytes, mirror_bytes):
+        """The routing rules' shared-memory mirror equals the library's."""
+        print(f"{label} shared memory per block: {lib_bytes} B (library), "
+              f"{mirror_bytes} B (fused_cuda's mirror)")
+        require(lib_bytes == mirror_bytes,
+                f"{label}: fused_cuda's shared-memory rule disagrees with "
+                f"the library")
+
+    def fused_smem_agrees(label, fcfg, fgeom):
+        args = (fcfg.patch_size, fgeom.disparities, fcfg.max_disparity,
+                fgeom.levels)
+        magbin = fcfg.descriptor == "grad_hist"
+        smem_agrees(label, _build.library().dm_fused_smem(*args, int(magbin)),
+                    fused_cuda.smem_bytes(*args, magbin=magbin))
+
+    fused_smem_agrees("K1 bench", cfg, geom)
+    fused_vs_plain("K1", lefts, rights, cfg, geom)
+    gh = Config(max_disparity=MAX_D, descriptor="grad_hist")
+    require(fused_cuda.supported(gh, geom), "K1b must cover the bench")
+    fused_smem_agrees("K1b bench", gh, geom)
+    fused_vs_plain("K1b", lefts, rights, gh, geom)
+    planes_ms = cuda_ms(torch, lambda: (descriptors.grad_hist_magbin(lefts),
+                                        descriptors.grad_hist_magbin(rights)),
+                        10)
+    print(f"  K1b's (magnitude, bin) planes, built in torch before it: "
+          f"{planes_ms:.4f} ms per 64-instance call {card}")
+
+    # 3b. K4 and K5 at the KITTI shapes, full width.
+    kitti = {}
+    for max_d, batch in KITTI.items():
+        kcfg = Config(max_disparity=max_d)
+        kgeom = kcfg.geometry(KH, KW)
+        require((kgeom.levels, kgeom.padded_height, kgeom.padded_width,
+                 kgeom.disparities) == (5, 384, 1536, max_d),
+                f"KITTI geometry {kgeom}")
+        require(not fused_cuda.supported(kcfg, kgeom)
+                and not pyramid_cuda.supported(kgeom.disparities, kgeom.levels)
+                and fused_cuda.cost_supported(kcfg, kgeom),
+                f"KITTI D={max_d} must take the large-D route")
+        fused_smem_agrees(f"K1 KITTI D={max_d}", kcfg, kgeom)
+        smem_agrees(f"K4 KITTI D={max_d}",
+                    _build.library().dm_cost_rows_smem(kcfg.patch_size, max_d),
+                    fused_cuda.cost_smem_bytes(kcfg.patch_size, max_d))
+        kp =[make_kitti_pair(i, max_d) for i in range(batch)]
+        klp = to_dev([l for l, _, _ in kp], kcfg, KH, KW)
+        krp = to_dev([r for _, r, _ in kp], kcfg, KH, KW)
+        kitti[max_d] = (kcfg, kgeom, klp, krp)
+        kl, kr = both_directions(klp, krp)
+        kvol = fused_cuda.cost_volume_rows(kl, kr, kcfg, kgeom)
+        sync()
+        kvol_p = fused_cuda.cost_volume_torch(kl, kr, kcfg, kgeom)
+        err4 = float((kvol - kvol_p).abs().max())
+        print(f"K4 D={max_d} {tuple(kl.shape)} -> {tuple(kvol.shape)}: "
+              f"max |kernel - plain| = {err4:.3e}")
+        require(err4 <= 2e-5, f"K4 disagrees with its plain version: {err4}")
+        del kvol_p
+        if max_d == 128:
+            record("K4", err4,
+                   lambda: fused_cuda.cost_volume_rows(kl, kr, kcfg, kgeom),
+                   lambda: fused_cuda.cost_volume_torch(kl, kr, kcfg, kgeom),
+                   plain_reps=1)
+        for fast in (True, False):
+            top, args = pyramid_cuda.aggregate_dmajor(kvol, kgeom.levels,
+                                                      kcfg.lam, fast)
+            sync()
+            top_p, args_p = pyramid_cuda.aggregate_dmajor_torch(
+                kvol, kgeom.levels, kcfg.lam, fast)
+            args_eq = all(torch.equal(a, b) for a, b in zip(args, args_p))
+            top_eq = torch.equal(top, top_p)
+            err5 = float((top - top_p).abs().max())
+            print(f"K5 D={max_d} {'fast' if fast else 'exact'}: top "
+                  f"{tuple(top.shape)} bitwise {top_eq}, max |diff| "
+                  f"{err5:.3e}; offsets equal {args_eq}")
+            require(args_eq and top_eq, "K5 disagrees with its plain version")
+            if max_d == 128 and fast:
+                record("K5", err5,
+                       lambda: pyramid_cuda.aggregate_dmajor(
+                           kvol, kgeom.levels, kcfg.lam, True),
+                       lambda: pyramid_cuda.aggregate_dmajor_torch(
+                           kvol, kgeom.levels, kcfg.lam, True))
+        del kvol, top, top_p, args, args_p
+
+    # K4 on a grid of ragged 8x32-patch tiles, with a masked plane.
+    rcfg = Config(max_disparity=RAGGED_D, levels=2)
+    rgeom = rcfg.geometry(*RAGGED_HW)
+    require(rgeom.grid_h % 8 and rgeom.grid_w % 32
+            and rgeom.disparities > rcfg.max_disparity,
+            f"ragged K4 geometry {rgeom}")
+    rng = np.random.default_rng(5)
+    rl, rr = (torch.from_numpy(rng.random(
+        (4, rgeom.padded_height, rgeom.padded_width), dtype=np.float32)).to(dev)
+        for _ in range(2))
+    rvol = fused_cuda.cost_volume_rows(rl, rr, rcfg, rgeom)
     sync()
-    d1p, s1p = fused_cuda.match_rows_torch(lefts, rights, cfg, geom)
-    same = d1 == d1p
-    flip1 = float((~same).float().mean())
-    serr1 = float((s1 - s1p).abs()[same].max())
-    print(f"K1 fused {tuple(lefts.shape)} -> {tuple(d1.shape)}: decisions "
-          f"flipped {flip1:.3e}, max |score diff| where equal {serr1:.3e}")
-    require(flip1 <= FUSED_DECISION_TOL and serr1 <= 2e-5,
-            "K1 disagrees with its plain version")
-    rows["K1"] = dict(
-        err=serr1,
-        ms=cuda_ms(torch, lambda: fused_cuda.match_rows(lefts, rights, cfg, geom), 10),
-        plain=cuda_ms(torch, lambda: fused_cuda.match_rows_torch(lefts, rights, cfg, geom), 3))
-    for k in ("K1", "K2", "K3"):
+    err4r = float((rvol - fused_cuda.cost_volume_torch(rl, rr, rcfg, rgeom))
+                  .abs().max())
+    print(f"K4 ragged grid {rgeom.grid_h}x{rgeom.grid_w} D0="
+          f"{rgeom.disparities} max_d={rcfg.max_disparity} {tuple(rl.shape)}: "
+          f"max |kernel - plain| = {err4r:.3e}")
+    require(err4r <= 2e-5, f"K4 disagrees with its plain version on a "
+            f"ragged grid: {err4r}")
+    for k in ("K1", "K1b", "K2", "K3"):
         print(f"  {k}: kernel {rows[k]['ms']:.4f} ms, plain "
-              f"{rows[k]['plain']:.4f} ms per 64-instance call {card}")
+              f"{rows[k]['plain']:.4f} ms per 64-instance bench call {card}")
+    print(f"  K4: kernel {rows['K4']['ms']:.4f} ms, plain "
+          f"{rows['K4']['plain']:.4f} ms per 16-instance KITTI D=128 call "
+          f"{card}")
+    print(f"  K5: kernel {rows['K5']['ms']:.4f} ms, plain "
+          f"{rows['K5']['plain']:.4f} ms per 16-instance KITTI D=128 call "
+          f"(fast, 5 levels) {card}")
     print(flush=True)
 
     # 4. Main path through the public API, against the oracle.
-    t0 = time.perf_counter()
-    want = {s: oracle.match_stereo(*make_pair(s)[:2], cfg)
-            for s in MAIN_PATH_SEEDS}
-    print(f"oracle on {len(want)} pairs: {time.perf_counter() - t0:.1f} s (host)")
-    counters = (fused_cuda.match_rows, costvol_cuda.cost_volume_dmajor,
-                pyramid_cuda.pyramid_backtrack)
-    for fn in counters:
-        fn.launches = 0
-    results = {}
-    for seed in MAIN_PATH_SEEDS:
-        left, right, _ = make_pair(seed)
+    kcfg = kitti[128][0]
+    kleft, kright, kgt = make_kitti_pair(KITTI_SEED, 128)
+    cases = [("bench", s, cfg, make_pair(s)) for s in MAIN_PATH_SEEDS]
+    cases.append(("kitti", KITTI_SEED, kcfg, (kleft, kright, kgt)))
+    cases += [("grad_hist", s, gh, make_pair(s)) for s in MAIN_PATH_SEEDS]
+    want = {}
+    for case, seed, ccfg, (left, right, _) in cases:
+        t0 = time.perf_counter()
+        want[case, seed] = oracle.match_stereo(left, right, ccfg)
+        print(f"oracle [{case}] pair {seed}: "
+              f"{time.perf_counter() - t0:.1f} s (host)")
+    counters = {"K1": (fused_cuda.match_planes, "launches"),
+                "K1b": (fused_cuda.match_planes, "magbin_launches"),
+                "K2": (costvol_cuda.cost_volume_dmajor, "launches"),
+                "K3": (pyramid_cuda.pyramid_backtrack, "launches"),
+                "K4": (fused_cuda.cost_volume_rows, "launches"),
+                "K5": (pyramid_cuda.aggregate_dmajor, "launches")}
+    # The kernels each path launches, and no others (routing is decided by
+    # the configuration).  Each path's counts are set to 0 just before it
+    # runs and read just after.
+    path_kernels = {("bench", "fused"): {"K1"},
+                    ("bench", "exact"): {"K2", "K3"},
+                    ("kitti", "fused"): {"K4", "K5"},
+                    ("kitti", "exact"): {"K2", "K5"},
+                    ("grad_hist", "fused"): {"K1b"},
+                    ("grad_hist", "exact"): {"K2", "K3"}}
+    results, path_launches = {}, {}
+    for (path, route), expected in path_kernels.items():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        for case, seed, ccfg, (left, right, _) in cases:
+            if case == path:
+                results[case, seed, route] = api.match_stereo(
+                    left, right, ccfg, impl=route, device="cuda")
+        sync()
+        counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        path_launches[f"{path} {route}"] = counts
+        launched = {k for k, v in counts.items() if v > 0}
+        print(f"launch counts [{path}, {route}]: {counts}")
+        require(launched == expected,
+                f"path [{path}, {route}] launched {sorted(launched)}, "
+                f"expected {sorted(expected)}")
+    launches = {k: sum(c[k] for c in path_launches.values()) for k in counters}
+    for case, seed, ccfg, (left, right, gt) in cases:
+        w_ = want[case, seed]
+        hh, ww = left.shape[:2]
+        d0 = ccfg.geometry(hh, ww).disparities
         for route in ("fused", "exact"):
-            results[seed, route] = api.match_stereo(left, right, cfg,
-                                                    impl=route, device="cuda")
-    sync()
-    launches = {"K1": fused_cuda.match_rows.launches,
-                "K2": costvol_cuda.cost_volume_dmajor.launches,
-                "K3": pyramid_cuda.pyramid_backtrack.launches}
-    print(f"launch counts over the main path: {launches}")
-    require(all(v > 0 for v in launches.values()),
-            "a kernel of the main path was never launched")
-    for (seed, route), got in results.items():
-        w_ = want[seed]
-        gt = make_pair(seed)[2]
-        require(got.disparity.shape == (H, W), f"shape {got.disparity.shape}")
-        require(np.isfinite(got.score).all(), "non-finite scores")
-        require(((got.disparity_raw >= 0)
-                 & (got.disparity_raw < geom.disparities)).all(),
-                "disparity bin out of range")
-        raw_neq = float(np.mean(got.disparity_raw != w_.disparity_raw))
-        val_neq = float(np.mean(got.valid != w_.valid))
-        bad_g = metrics.bad_pixel_rate(got.disparity, gt, count_invalid=False)
-        bad_o = metrics.bad_pixel_rate(w_.disparity, gt, count_invalid=False)
-        print(f"main path [{route}] pair {seed}: raw_neq={raw_neq:.3e} "
-              f"valid_neq={val_neq:.3e} bad_gpu={bad_g:.4f} "
-              f"bad_oracle={bad_o:.4f} coverage={metrics.coverage(got.disparity):.4f}")
-        if route == "fused":
-            require(raw_neq <= FUSED_DECISION_TOL
-                    and val_neq <= FUSED_DECISION_TOL
-                    and abs(bad_g - bad_o) <= FUSED_DECISION_TOL,
-                    f"fused route beyond the decision gate on pair {seed}")
-        else:
-            require(raw_neq == 0.0 and val_neq == 0.0
-                    and np.array_equal(got.disparity, w_.disparity,
-                                       equal_nan=True)
-                    and np.array_equal(got.disparity_right,
-                                       w_.disparity_right)
-                    and np.allclose(got.score, w_.score, rtol=1e-5),
-                    f"exact route not bitwise on decisions on pair {seed}")
+            got = results[case, seed, route]
+            require(got.disparity.shape == (hh, ww),
+                    f"shape {got.disparity.shape}")
+            require(np.isfinite(got.score).all(), "non-finite scores")
+            require(((got.disparity_raw >= 0)
+                     & (got.disparity_raw < d0)).all(),
+                    "disparity bin out of range")
+            raw_neq = float(np.mean(got.disparity_raw != w_.disparity_raw))
+            val_neq = float(np.mean(got.valid != w_.valid))
+            bad_g = metrics.bad_pixel_rate(got.disparity, gt,
+                                           count_invalid=False)
+            bad_o = metrics.bad_pixel_rate(w_.disparity, gt,
+                                           count_invalid=False)
+            serr = float(np.abs(got.score - w_.score).max())
+            print(f"main path [{case}, {route}] pair {seed}: "
+                  f"raw_neq={raw_neq:.3e} valid_neq={val_neq:.3e} "
+                  f"bad_gpu={bad_g:.4f} bad_oracle={bad_o:.4f} "
+                  f"coverage={metrics.coverage(got.disparity):.4f} "
+                  f"max|dscore|={serr:.3e}")
+            within_gate = (raw_neq <= FUSED_DECISION_TOL
+                           and val_neq <= FUSED_DECISION_TOL
+                           and abs(bad_g - bad_o) <= FUSED_DECISION_TOL)
+            if case == "bench" and route == "exact":
+                require(raw_neq == 0.0 and val_neq == 0.0
+                        and np.array_equal(got.disparity, w_.disparity,
+                                           equal_nan=True)
+                        and np.array_equal(got.disparity_right,
+                                           w_.disparity_right)
+                        and np.allclose(got.score, w_.score, rtol=1e-5),
+                        f"exact route not bitwise on decisions on pair {seed}")
+            elif case == "kitti" and route == "exact":
+                require(raw_neq == 0.0 and val_neq == 0.0,
+                        f"KITTI exact route off the oracle on pair {seed}")
+            else:
+                require(within_gate, f"{case} {route} route beyond the "
+                        f"decision gate on pair {seed}")
     print(flush=True)
 
-    # 5. Timing of the batched step.
+    # 5. Timing of the batched steps.
     torch.cuda.reset_peak_memory_stats()
+    steps = [("bench", cfg, geom, lp, rp), ("grad_hist", gh, geom, lp, rp)]
+    steps += [(f"kitti D={d}", *kitti[d]) for d in KITTI]
     step_ms = {}
-    for route in ("fused", "exact"):
-        def step(route=route):
-            return pipeline.match_padded_core(lp, rp, cfg, geom, route)
-        step()
-        sync()
-        samples = [cuda_ms(torch, step, 1, warmup=0) for _ in range(7)]
-        med = float(np.median(samples))
-        step_ms[route] = med
-        print(f"step [{route}] {BATCH} pairs: median {med:.4f} ms "
-              f"[{min(samples):.4f}..{max(samples):.4f}] over 7 samples = "
-              f"{BATCH * H * W * 1e-6 / (med * 1e-3):.1f} Mpx/s {card}")
+    for label, scfg, sgeom, slp, srp in steps:
+        for route in ("fused", "exact"):
+            def step(route=route):
+                return pipeline.match_padded_core(slp, srp, scfg, sgeom, route)
+            step()
+            sync()
+            samples = [cuda_ms(torch, step, 1, warmup=0) for _ in range(7)]
+            med = float(np.median(samples))
+            step_ms[f"{label} {route}"] = med
+            n, hh, ww = slp.shape[0], sgeom.height, sgeom.width
+            print(f"step [{label}, {route}] {n} pairs {ww}x{hh}: median "
+                  f"{med:.4f} ms [{min(samples):.4f}..{max(samples):.4f}] "
+                  f"over 7 samples = {n * hh * ww * 1e-6 / (med * 1e-3):.1f} "
+                  f"Mpx/s {card}")
     peak = torch.cuda.max_memory_allocated()
     print(f"peak device memory over the timed steps: {peak / 2**20:.1f} MiB {card}")
-    print(f"K1 alone: {rows['K1']['ms']:.4f} ms, plain K1 "
-          f"{rows['K1']['plain']:.4f} ms (64 instances) {card}")
     require("jax" not in sys.modules, "jax was imported")
 
+    sources = {
+        "K1": ("K1 fused image->disparity (patch)", "csrc/fused.cu",
+               "ops/fused_pallas.py:572"),
+        "K1b": ("K1b fused image->disparity (magbin, grad_hist)",
+                "csrc/fused.cu", "ops/fused_pallas.py:572"),
+        "K2": ("K2 D-major cost volume", "csrc/costvol.cu",
+               "ops/costvol_pallas.py:86"),
+        "K3": ("K3 pyramid + backtracking", "csrc/pyramid.cu",
+               "ops/pyramid_pallas.py:257"),
+        "K4": ("K4 image->D-major cost volume", "csrc/costrows.cu",
+               "ops/fused_pallas.py:808"),
+        "K5": ("K5 level aggregation", "csrc/aggregate.cu",
+               "ops/pyramid_pallas.py:346"),
+    }
     kernels = [
-        {"name": "K1 fused image->disparity", "route": "cuda",
-         "source": "deepmatching_stereo_matching_tpu_torch/csrc/fused.cu",
-         "replaces": "deepmatching_stereo_matching_tpu/ops/fused_pallas.py:572",
-         "launches": launches["K1"], "max_abs_err": rows["K1"]["err"],
-         "ms": rows["K1"]["ms"], "plain_ms": rows["K1"]["plain"]},
-        {"name": "K2 D-major cost volume", "route": "cuda",
-         "source": "deepmatching_stereo_matching_tpu_torch/csrc/costvol.cu",
-         "replaces": "deepmatching_stereo_matching_tpu/ops/costvol_pallas.py:86",
-         "launches": launches["K2"], "max_abs_err": rows["K2"]["err"],
-         "ms": rows["K2"]["ms"], "plain_ms": rows["K2"]["plain"]},
-        {"name": "K3 pyramid + backtracking", "route": "cuda",
-         "source": "deepmatching_stereo_matching_tpu_torch/csrc/pyramid.cu",
-         "replaces": "deepmatching_stereo_matching_tpu/ops/pyramid_pallas.py:257",
-         "launches": launches["K3"], "max_abs_err": rows["K3"]["err"],
-         "ms": rows["K3"]["ms"], "plain_ms": rows["K3"]["plain"]},
-    ]
+        {"name": label, "route": "cuda", "source": f"{PKG}/{src}",
+         "replaces": f"{JAX_PKG}/{rep}", "launches": launches[k],
+         "launches_by_path": {p: c[k] for p, c in path_launches.items()
+                              if c[k]},
+         "max_abs_err": rows[k]["err"], "ms": rows[k]["ms"],
+         "plain_ms": rows[k]["plain"]}
+        for k, (label, src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels, "step_ms": step_ms,
                       "peak_bytes": peak, "card": card_line}))
     print(json.dumps({"ok": True, "device": {

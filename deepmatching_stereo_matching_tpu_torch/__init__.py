@@ -10,11 +10,13 @@ raises) for tensors on a CUDA device.
 
 Routes (`ops/_dispatch.py`):
   * 'fused' — one image->disparity kernel per pair-direction
-    (ops/fused_cuda.py), falling back to 'exact' for configurations it
-    does not cover;
+    (ops/fused_cuda.py; patch pixels or grad_hist (magnitude, bin)
+    planes); where its tile does not fit a block (large D), the
+    image->cost-volume kernel and the level-aggregation kernel
+    (ops/pyramid_cuda.py); else 'exact';
   * 'exact' — descriptors in torch, then the cost-volume kernel
     (ops/costvol_cuda.py) and the pyramid + backtracking kernel
-    (ops/pyramid_cuda.py);
+    (ops/pyramid_cuda.py), or the level-aggregation kernel for large D;
   * 'torch' — stock torch ops only, the counterpart of the JAX 'jnp' path.
 
 The system has no learned parameters, so there are no weights to convert

@@ -1,12 +1,15 @@
-"""Patch descriptors (C2+C3) in torch.
+"""Patch and grad_hist descriptors (C2+C3) in torch.
 
-Counterpart of the JAX package's `models/descriptors.py`, patch mode
-only: raw-intensity patches, L2-normalised with the norm clamped at 1e-8,
-element order (row, column, feature) as in the oracle.  Leading batch
-dimensions are allowed.
+Counterpart of the JAX package's `models/descriptors.py`: raw-intensity
+'patch' descriptors and the dense-SIFT-like 'grad_hist' descriptors,
+L2-normalised with the norm clamped at 1e-8, element order (row, column,
+feature) as in the oracle.  Leading batch dimensions are allowed.
+Centred descriptors are not ported yet.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -14,22 +17,76 @@ import torch.nn.functional as F
 from deepmatching_stereo_matching_tpu.config import Config
 
 _EPS = 1e-8
+_BINS = 8
 
 
 def check_supported(cfg: Config) -> None:
-    if cfg.descriptor != "patch":
-        raise NotImplementedError(
-            f"descriptor={cfg.descriptor!r} is not ported yet: grad_hist "
-            "comes with the magbin form of the fused kernel (ROADMAP queue "
-            "1, item 9)")
     if cfg.center_descriptors:
         raise NotImplementedError("center_descriptors is not ported yet")
 
 
+def _gradient_1d(img: torch.Tensor, dim: int) -> torch.Tensor:
+    """np.gradient along `dim`: central differences, one-sided at the
+    edges; bitwise equal to NumPy's (x * 0.5 == x / 2.0 in f32)."""
+    n = img.shape[dim]
+    first = img.narrow(dim, 1, 1) - img.narrow(dim, 0, 1)
+    interior = (img.narrow(dim, 2, n - 2) - img.narrow(dim, 0, n - 2)) * 0.5
+    last = img.narrow(dim, n - 1, 1) - img.narrow(dim, n - 2, 1)
+    return torch.cat([first, interior, last], dim)
+
+
+def magbin_from_gradients(gx: torch.Tensor, gy: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gx, gy) -> (L1 magnitude, int64 octant index), elementwise.
+
+    The one definition of the binning: exact comparisons only, no atan2
+    and no sqrt, as `oracle/reference.py:_grad_hist_pixels`.  Both the
+    one-hot form (`hist_from_gradients`) and the fused kernel's magbin
+    planes (`grad_hist_magbin`) derive from it.
+    """
+    ax, ay = gx.abs(), gy.abs()
+    mag = ax + ay
+    idx_up = torch.where(gx > 0, torch.where(ay >= ax, 5, 4),
+                         torch.where(ay > ax, 6, 7))
+    idx_dn = torch.where(gx >= 0, torch.where(ay > ax, 2, 3),
+                         torch.where(ay >= ax, 1, 0))
+    return mag, torch.where(gy >= 0, idx_up, idx_dn)
+
+
+def hist_from_gradients(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
+    """(gx, gy) -> magnitude-weighted orientation histogram (..., 8)."""
+    mag, idx = magbin_from_gradients(gx, gy)
+    return F.one_hot(idx, _BINS).to(mag.dtype) * mag[..., None]
+
+
+def _gradients(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _gradient_1d(img, -1), _gradient_1d(img, -2)
+
+
+def grad_hist_pixels(img: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) image -> (..., H, W, 8) per-pixel histogram."""
+    return hist_from_gradients(*_gradients(img))
+
+
+def grad_hist_magbin(img: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., H, W) image -> (magnitude, bin) planes, both f32 (bins 0..7).
+
+    The one-hot histogram has one nonzero bin per pixel, so it factors
+    losslessly into these two planes, and the descriptor dot becomes
+    mag_L * mag_R * [bin_L == bin_R]: the fused kernel's magbin form.
+    """
+    mag, idx = magbin_from_gradients(*_gradients(img))
+    return mag, idx.to(mag.dtype)
+
+
 def pixel_features(img: torch.Tensor, cfg: Config) -> torch.Tensor:
-    """(..., H, W) image -> (..., H, W, F) per-pixel features (F = 1)."""
+    """(..., H, W) image -> (..., H, W, F) per-pixel features (F = 1 for
+    patch, 8 for grad_hist)."""
     check_supported(cfg)
-    return img[..., None]
+    if cfg.descriptor == "patch":
+        return img[..., None]
+    return grad_hist_pixels(img)
 
 
 def _normalize(desc: torch.Tensor) -> torch.Tensor:

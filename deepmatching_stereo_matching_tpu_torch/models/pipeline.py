@@ -5,12 +5,20 @@ takes leading batch dimensions where JAX used `vmap`; `torch.gather`
 takes the place of the TPU's one-hot selects.  Routes ('fused', 'exact',
 'torch') are described in the package docstring; on a CUDA tensor the
 'fused' and 'exact' routes run only the hand-written kernels, on a CPU
-tensor the kernels' plain versions.
+tensor the kernels' plain versions.  Which kernels a route runs is
+decided by the config and geometry, as in the JAX package:
+
+  'fused': K1 (image -> disparity) where `fused_cuda.supported` holds;
+           else, for patch descriptors, K4 (image -> D-major volume),
+           K5 (fast) and `match_dmajor` — the large-D route (KITTI);
+           else the 'exact' route;
+  'exact': descriptors in torch, K2 (cost volume), then K3 where
+           `pyramid_cuda.supported` holds, else K5 (exact) and
+           `match_dmajor`.
 
 Not ported yet, raising NotImplementedError: lr_mode='direct', the
-post-filter (median_filter, fill_invalid), grad_hist and centred
-descriptors, bfloat16, and volumes whose pyramid tile does not fit one
-block's shared memory (the large-D route).
+post-filter (median_filter, fill_invalid), centred descriptors and
+bfloat16.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from ..ops import costvol as costvol_ops
 from ..ops import costvol_cuda, fused_cuda, pyramid_cuda
 from ..ops import pool as pool_ops
 from ..ops._dispatch import check_route
+from ..ops.pyramid_cuda import descend as backtrack_from
 from . import descriptors
 
 _SENTINEL = torch.iinfo(torch.int32).min // 2
@@ -64,23 +73,25 @@ def backtrack(maps: List[torch.Tensor], args: List[torch.Tensor]
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense top-down argmax propagation -> (disp int32, score f32)."""
     k = torch.argmax(maps[len(args)], dim=-1)       # first max wins ties
-    for arg in reversed(args):
-        kr = k.repeat_interleave(2, -2).repeat_interleave(2, -1)
-        k = 2 * kr + torch.gather(arg, -1, kr[..., None])[..., 0]
+    k = backtrack_from(k, args, dim=-1)
     score = torch.gather(maps[0], -1, k[..., None])[..., 0]
     return k.to(torch.int32), score
+
+
+def match_dmajor(cost_dm: torch.Tensor, levels: int, lam: float,
+                 fast: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pyramid + backtracking on a D-major (..., D0, H0, W0) volume too
+    large for K3's tile: K5 aggregates level by level in device memory,
+    then a first-max argmax over the top map, the descent and the score
+    gather from the level-0 volume run in torch (`match_dmajor_xla`).
+    fast=True defers the power (the fused large-D route)."""
+    top, args = pyramid_cuda.aggregate_dmajor(cost_dm, levels, lam, fast)
+    return pyramid_cuda.backtrack_top(cost_dm, top, args)
 
 
 # ---------------------------------------------------------------------------
 # Single direction on a padded grayscale pair
 # ---------------------------------------------------------------------------
-
-
-def _exact_covered(geom: Geometry) -> None:
-    if not pyramid_cuda.supported(geom.disparities, geom.levels):
-        raise NotImplementedError(
-            f"D0={geom.disparities} at L={geom.levels} exceeds the pyramid "
-            "kernel's tile (the large-D route is not ported yet)")
 
 
 def match_from_descriptors(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
@@ -91,11 +102,13 @@ def match_from_descriptors(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
     if check_route(route) == "fused":
         route = "exact"     # descriptor-level callers cannot use K1
     if route == "exact":
-        _exact_covered(geom)
         cost_dm = costvol_cuda.cost_volume_dmajor(
             desc_src, desc_tgt, geom.disparities, cfg.patch_size,
             cfg.max_disparity, reverse=reverse, origin_offset=origin_offset)
-        return pyramid_cuda.pyramid_backtrack(cost_dm, geom.levels, cfg.lam)
+        if pyramid_cuda.supported(geom.disparities, geom.levels):
+            return pyramid_cuda.pyramid_backtrack(cost_dm, geom.levels,
+                                                  cfg.lam)
+        return match_dmajor(cost_dm, geom.levels, cfg.lam)
     cost0 = costvol_ops.cost_volume(
         desc_src, desc_tgt, geom.disparities, cfg.patch_size,
         cfg.max_disparity, reverse=reverse, origin_offset=origin_offset)
@@ -108,11 +121,16 @@ def one_direction(left: torch.Tensor, right: torch.Tensor, cfg: Config,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., Hp, Wp) padded pairs -> (disp_patch, score), (..., H0, W0).
 
-    'fused' runs the fused kernel where `fused_cuda.supported` says it
-    covers the config, else the 'exact' route — decided by the config.
+    'fused' runs K1 where `fused_cuda.supported` says it covers the
+    config, else K4 -> K5 where `fused_cuda.cost_supported` does, else
+    the 'exact' route — decided by the config.
     """
-    if check_route(route) == "fused" and fused_cuda.supported(cfg, geom):
-        return fused_cuda.match_rows(left, right, cfg, geom)
+    if check_route(route) == "fused":
+        if fused_cuda.supported(cfg, geom):
+            return fused_cuda.match_rows(left, right, cfg, geom)
+        if fused_cuda.cost_supported(cfg, geom):
+            cost_dm = fused_cuda.cost_volume_rows(left, right, cfg, geom)
+            return match_dmajor(cost_dm, geom.levels, cfg.lam, fast=True)
     desc_src = descriptors.left_descriptors(left, cfg)
     desc_tgt = descriptors.right_sliding_descriptors(right, cfg)
     return match_from_descriptors(desc_src, desc_tgt, cfg, geom, route)

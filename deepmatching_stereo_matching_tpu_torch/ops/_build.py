@@ -2,10 +2,12 @@
 
 All kernels compile, with nvcc for sm_90a, into ONE shared library with a
 plain C interface, loaded with `ctypes` — no PyTorch headers, so a build
-takes seconds.  The library lands in `_build/` beside the package (not
-committed), named by a hash of the sources so an edited source is never
-served a stale build.  Nothing is built at import time: the first kernel
-launch calls `library()`.  A failed build raises with nvcc's output.
+takes seconds.  Each source compiles in its own nvcc process, all started
+together, and one more links them.  The library lands in `_build/`
+beside the package (not committed), named by a hash of the sources so an
+edited source is never served a stale build.  Nothing is built at
+import time: the first kernel launch calls `library()`.  A failed build
+raises with nvcc's output.
 
 `--use_fast_math` is deliberately absent: it changes the rounding of
 sqrtf, division and powf, and that rounding decides argmax ties.
@@ -18,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -25,20 +28,32 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points: name -> argtypes (every one returns a cudaError_t as int).
+# C entry points: name -> argtypes.  Every one returns an int: the launch
+# functions a cudaError_t, the *_smem ones a block's shared memory in bytes.
 _SIGNATURES = {
+    # p, d0, max_d, levels, magbin
+    "dm_fused_smem": [_I, _I, _I, _I, _I],
+    # p, max_d
+    "dm_cost_rows_smem": [_I, _I],
     # src, tgt, out, n, h0, w0, wt, c, d0, p, max_d, reverse, origin_offset, stream
     "dm_costvol_dmajor": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # cost, disp, score, n, d0, h0, w0, levels, lam, stream
     "dm_pyramid_backtrack": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # left, right, disp, score, n, hp, wp, p, d0, max_d, levels, lam, stream
-    "dm_fused_match": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # left, right, lbin, rbin, disp, score, n, hp, wp, p, d0, max_d, levels,
+    # lam, stream
+    "dm_fused_match": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                       _P],
+    # left, right, out, n, hp, wp, p, d0, max_d, stream
+    "dm_cost_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # cur, next, arg, n, d, h, w, pow_pooled, pow_merged, lam, stream
+    "dm_aggregate_level": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -80,13 +95,27 @@ def build(force: bool = False) -> Path:
     cus, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    _log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{_log}")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs = [str(Path(objdir) / (cu.stem + ".o")) for cu in cus]
+        cmds = [[nvcc(), *NVCC_FLAGS, "-c", str(cu), "-o", obj]
+                for cu, obj in zip(cus, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = [p.communicate()[0] for p in procs]     # waits for all
+        _log = "".join(outs)
+        for c, p in zip(cmds, procs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed (exit {p.returncode}): "
+                                   f"{' '.join(c)}\n{_log}")
+        cmd = [nvcc(), *ARCH, "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc link failed (exit {proc.returncode}): "
+                f"{' '.join(cmd)}\n{_log}")
     os.replace(tmp, so)
     return so
 

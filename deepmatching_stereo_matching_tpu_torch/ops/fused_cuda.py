@@ -1,128 +1,248 @@
-"""K1: the fused image->disparity kernel (csrc/fused.cu) and its plain
-version `match_rows_torch`.
+"""K1/K1b: the fused image->disparity kernel (csrc/fused.cu), K4: the
+image->cost-volume kernel (csrc/costrows.cu), and their plain versions.
 
-Replaces `deepmatching_stereo_matching_tpu/ops/fused_pallas.py:_kernel`
-(patch form, via `_match_rows` / `match_rows`).  The TPU kernel's
-selection-matmul phasing and split-bf16 scheme were workarounds for
-Mosaic and the MXU, so `Config.fused_dot_precision` is accepted and
-ignored: the kernel reads pixels directly in f32.  What bounds it on the
-card and how it is laid out: see the note at the top of csrc/fused.cu.
+K1 replaces `deepmatching_stereo_matching_tpu/ops/fused_pallas.py:_kernel`
+(via `_match_rows` / `match_rows`) in its patch form, K1b in its magbin
+form (grad_hist descriptors as (magnitude, bin) plane pairs); K4 replaces
+`fused_pallas.py:_cost_only_kernel` (via `cost_volume_rows`), the
+large-D route's prologue.  The TPU kernels' selection-matmul phasing and
+split-bf16 scheme were workarounds for Mosaic and the MXU, so
+`Config.fused_dot_precision` is accepted and ignored: the kernels read
+pixels directly in f32.  The cost code of all three is csrc/cost.cuh;
+what bounds each on the card: see the notes at the top of the .cu files.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from deepmatching_stereo_matching_tpu.config import Config, Geometry
 
+from ..models import descriptors
 from . import _build
 from ._dispatch import run_kernel
 from .pyramid_cuda import MAX_SMEM, pyramid_body, scratch_bytes
 
 _EPS = 1e-8
+# Mirrors csrc/costrows.cu (kTh, kTw): K4's tile in patches.
+COST_TILE = (8, 32)
 
 
-def smem_bytes(p: int, d0: int, max_d: int, levels: int) -> int:
-    """Shared memory of one K1 block (mirrors csrc/fused.cu:fused_layout)."""
-    t = 2 ** levels
-    pt = p * t
-    rw = pt + max_d - 1
+def _tile_floats(p: int, th: int, tw: int, max_d: int, magbin: bool) -> int:
+    """Floats of one cost tile's shared buffers (csrc/cost.cuh)."""
+    lw = p * tw
+    rw = lw + max_d - 1
     nwin = rw - p + 1
-    images = pt * pt + pt * rw + t * nwin + t * t
+    return (2 if magbin else 1) * p * th * (lw + rw) + th * nwin + th * tw
+
+
+def smem_bytes(p: int, d0: int, max_d: int, levels: int,
+               magbin: bool = False) -> int:
+    """Shared memory of one K1/K1b block (csrc/fused.cu:fused_layout).
+    A mirror, so that routing needs no build; chip_smoke.py holds it to
+    the library's own `dm_fused_smem`."""
+    t = 2 ** levels
+    images = _tile_floats(p, t, t, max_d, magbin)
     scratch = (max(images, scratch_bytes(d0, t, levels) // 4) + 3) & ~3
     return 4 * (d0 * t * t + scratch)
 
 
+def cost_smem_bytes(p: int, max_d: int) -> int:
+    """Shared memory of one K4 block; mirrors `dm_cost_rows_smem`
+    (csrc/costrows.cu), and chip_smoke.py holds the two equal."""
+    return 4 * _tile_floats(p, *COST_TILE, max_d, False)
+
+
+def _magbin(cfg: Config) -> bool:
+    return cfg.descriptor == "grad_hist"
+
+
 def supported(cfg: Config, geom: Geometry) -> bool:
-    """True when the fused kernel covers this configuration: patch
-    descriptors, not centred, float32, a patch grid and D0 aligned to the
-    2^L quadtree tile, and the tile's working set inside one block's
-    shared memory (the KITTI large-D route is not)."""
-    if (cfg.descriptor != "patch" or cfg.center_descriptors
-            or cfg.dtype != "float32"):
+    """True when K1 (patch) or K1b (grad_hist) covers this configuration:
+    not centred, float32, a patch grid and D0 aligned to the 2^L
+    quadtree tile, and the tile's working set (with the bin planes for
+    grad_hist) inside one block's shared memory — the KITTI large-D
+    geometry is not."""
+    if cfg.center_descriptors or cfg.dtype != "float32":
         return False
     unit = 2 ** geom.levels
     if geom.grid_h % unit or geom.grid_w % unit or geom.disparities % unit:
         return False
     return smem_bytes(cfg.patch_size, geom.disparities, cfg.max_disparity,
-                      geom.levels) <= MAX_SMEM
+                      geom.levels, _magbin(cfg)) <= MAX_SMEM
 
 
-def cost_volume_torch(left_p: torch.Tensor, right_p: torch.Tensor,
-                      cfg: Config, geom: Geometry) -> torch.Tensor:
-    """(..., Hp, Wp) padded pixels -> (..., D0, H0, W0) cost volume with
-    the kernel's algebraic normalisation: relu(raw * invL * invR)."""
+def cost_supported(cfg: Config, geom: Geometry) -> bool:
+    """True when K4 covers this configuration: patch descriptors, not
+    centred, float32, and its fixed tile's pixels inside one block's
+    shared memory (any grid; ragged edges are masked)."""
+    return (cfg.descriptor == "patch" and not cfg.center_descriptors
+            and cfg.dtype == "float32"
+            and cost_smem_bytes(cfg.patch_size, cfg.max_disparity)
+            <= MAX_SMEM)
+
+
+def cost_volume_torch(left: torch.Tensor, right: torch.Tensor,
+                      cfg: Config, geom: Geometry,
+                      left_bin: Optional[torch.Tensor] = None,
+                      right_bin: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """(..., Hp, Wp) padded planes -> (..., D0, H0, W0) cost volume with
+    the kernels' algebraic normalisation: relu(raw * invL * invR).  The
+    planes are the pixels (patch), or the gradient magnitudes with their
+    orientation bins (grad_hist: raw sums mag_L * mag_R where the bins
+    are equal)."""
     p, d0, max_d = cfg.patch_size, geom.disparities, cfg.max_disparity
-    *lead, hp, wp = left_p.shape
+    *lead, hp, wp = left.shape
     h0, w0 = hp // p, wp // p
-    lpatch = left_p.reshape(*lead, h0, p, w0, p)          # [i, dr, j, dc]
+    lpatch = left.reshape(*lead, h0, p, w0, p)             # [i, dr, j, dc]
     invl = 1.0 / (lpatch * lpatch).sum(-1).sum(-2).sqrt().clamp_min(_EPS)
-    rrows = right_p.reshape(*lead, h0, p, wp)              # [i, dr, x]
+    rrows = right.reshape(*lead, h0, p, wp)                # [i, dr, x]
     col = (rrows * rrows).sum(-2)                          # over patch rows
     invr = 1.0 / col.unfold(-1, p, 1).sum(-1).sqrt().clamp_min(_EPS)
     rwin = rrows.unfold(-1, p, 1)                          # [i, dr, x0, dc]
-    jj = torch.arange(w0, device=left_p.device)
-    zero = torch.zeros((*lead, h0, w0), dtype=left_p.dtype,
-                       device=left_p.device)
+    if left_bin is not None:
+        lbpatch = left_bin.reshape(*lead, h0, p, w0, p)
+        rbwin = right_bin.reshape(*lead, h0, p, wp).unfold(-1, p, 1)
+    jj = torch.arange(w0, device=left.device)
+    zero = torch.zeros((*lead, h0, w0), dtype=left.dtype, device=left.device)
     planes = []
     for d in range(d0):
         if d >= max_d:
             planes.append(zero)
             continue
         x0 = (p * jj - d).clamp_min(0)
-        raw = (lpatch * rwin.index_select(-2, x0)).sum(-1).sum(-2)
+        prod = lpatch * rwin.index_select(-2, x0)
+        if left_bin is not None:
+            prod = torch.where(lbpatch == rbwin.index_select(-2, x0), prod,
+                               torch.zeros((), dtype=prod.dtype,
+                                           device=prod.device))
+        raw = prod.sum(-1).sum(-2)
         corr = raw * invl * invr.index_select(-1, x0)
         planes.append(torch.where(p * jj >= d, corr.clamp_min(0.0), zero))
     return torch.stack(planes, dim=-3)
 
 
-def match_rows_torch(left_p: torch.Tensor, right_p: torch.Tensor,
-                     cfg: Config, geom: Geometry
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the fused kernel: the cost volume above through
-    the fast pyramid (deferred power rectification)."""
-    return pyramid_body(cost_volume_torch(left_p, right_p, cfg, geom),
+def match_planes_torch(left: torch.Tensor, right: torch.Tensor, cfg: Config,
+                       geom: Geometry, left_bin: Optional[torch.Tensor] = None,
+                       right_bin: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K1/K1b: the cost volume above through the fast
+    pyramid (deferred power rectification)."""
+    return pyramid_body(cost_volume_torch(left, right, cfg, geom, left_bin,
+                                          right_bin),
                         geom.levels, cfg.lam, fast=True)
+
+
+def _check_pair(left: torch.Tensor, right: torch.Tensor,
+                geom: Geometry) -> None:
+    if tuple(right.shape) != tuple(left.shape):
+        raise ValueError(f"left/right shapes differ: {tuple(left.shape)} "
+                         f"vs {tuple(right.shape)}")
+    if tuple(left.shape[-2:]) != (geom.padded_height, geom.padded_width):
+        raise ValueError(f"padded pair {tuple(left.shape[-2:])} does not "
+                         f"match geometry "
+                         f"{(geom.padded_height, geom.padded_width)}")
+
+
+def _check_f32(*tensors: torch.Tensor) -> None:
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise NotImplementedError("the fused kernels take float32 planes")
+
+
+def match_planes(left: torch.Tensor, right: torch.Tensor, cfg: Config,
+                 geom: Geometry, left_bin: Optional[torch.Tensor] = None,
+                 right_bin: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., Hp, Wp) f32 padded planes -> (disp int32, score f32),
+    (..., H0, W0), one pair-direction per leading index: K1 on pixel
+    pairs (patch), K1b on (magnitude, bin) pairs (grad_hist)."""
+    p = cfg.patch_size
+    *lead, hp, wp = left.shape
+    planes = [x for x in (left, right, left_bin, right_bin) if x is not None]
+    for x in planes[1:]:
+        _check_pair(left, x, geom)
+    if ((left_bin is None) != (right_bin is None)
+            or (left_bin is not None) != _magbin(cfg)):
+        raise ValueError("bin planes come for both images exactly when "
+                         "descriptor='grad_hist'")
+    if not run_kernel(*planes):
+        return match_planes_torch(left, right, cfg, geom, left_bin,
+                                  right_bin)
+    if not supported(cfg, geom):
+        raise NotImplementedError(
+            f"the fused kernel does not cover {cfg} at {geom}")
+    _check_f32(*planes)
+    n = math.prod(lead)
+    lval, rval, lbin, rbin = (x.contiguous() if x is not None else None
+                              for x in (left, right, left_bin, right_bin))
+    h0, w0 = hp // p, wp // p
+    disp = torch.empty((*lead, h0, w0), dtype=torch.int32, device=lval.device)
+    score = torch.empty((*lead, h0, w0), dtype=torch.float32,
+                        device=lval.device)
+    if n:
+        stream = torch.cuda.current_stream(lval.device).cuda_stream
+        rc = _build.library().dm_fused_match(
+            lval.data_ptr(), rval.data_ptr(),
+            lbin.data_ptr() if lbin is not None else None,
+            rbin.data_ptr() if rbin is not None else None,
+            disp.data_ptr(), score.data_ptr(), n, hp, wp, p,
+            geom.disparities, cfg.max_disparity, geom.levels, cfg.lam,
+            stream)
+        _build.check(rc, "fused kernel launch")
+        if lbin is not None:
+            match_planes.magbin_launches += 1
+        else:
+            match_planes.launches += 1
+    return disp, score
+
+
+match_planes.launches = 0          # K1, patch form
+match_planes.magbin_launches = 0   # K1b, magbin form
 
 
 def match_rows(left_p: torch.Tensor, right_p: torch.Tensor, cfg: Config,
                geom: Geometry) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., Hp, Wp) f32 padded pixel pairs -> (disp int32, score f32),
-    (..., H0, W0), one pair-direction per leading index."""
-    p = cfg.patch_size
+    (..., H0, W0), one pair-direction per leading index.  For grad_hist
+    the (magnitude, bin) planes of both images are built here in torch
+    and run through K1b."""
+    if cfg.descriptor == "grad_hist":
+        lmag, lbin = descriptors.grad_hist_magbin(left_p)
+        rmag, rbin = descriptors.grad_hist_magbin(right_p)
+        return match_planes(lmag, rmag, cfg, geom, lbin, rbin)
+    return match_planes(left_p, right_p, cfg, geom)
+
+
+def cost_volume_rows(left_p: torch.Tensor, right_p: torch.Tensor,
+                     cfg: Config, geom: Geometry) -> torch.Tensor:
+    """(..., Hp, Wp) f32 padded pixel pairs -> (..., D0, H0, W0) f32
+    D-major cost volume through K4 (patch descriptors)."""
+    p, d0 = cfg.patch_size, geom.disparities
     *lead, hp, wp = left_p.shape
-    if tuple(right_p.shape) != tuple(left_p.shape):
-        raise ValueError(f"left/right shapes differ: {tuple(left_p.shape)} "
-                         f"vs {tuple(right_p.shape)}")
-    if (hp, wp) != (geom.padded_height, geom.padded_width):
-        raise ValueError(f"padded pair {(hp, wp)} does not match geometry "
-                         f"{(geom.padded_height, geom.padded_width)}")
+    _check_pair(left_p, right_p, geom)
     if not run_kernel(left_p, right_p):
-        return match_rows_torch(left_p, right_p, cfg, geom)
-    if not supported(cfg, geom):
+        return cost_volume_torch(left_p, right_p, cfg, geom)
+    if not cost_supported(cfg, geom):
         raise NotImplementedError(
-            f"the fused kernel does not cover {cfg} at {geom}")
-    if left_p.dtype != torch.float32 or right_p.dtype != torch.float32:
-        raise NotImplementedError("the fused kernel takes float32 images")
+            f"the cost-volume kernel does not cover {cfg} at {geom}")
+    _check_f32(left_p, right_p)
     n = math.prod(lead)
     left = left_p.contiguous()
     right = right_p.contiguous()
-    h0, w0 = hp // p, wp // p
-    disp = torch.empty((*lead, h0, w0), dtype=torch.int32, device=left.device)
-    score = torch.empty((*lead, h0, w0), dtype=torch.float32,
-                        device=left.device)
-    if n:
+    out = torch.empty((*lead, d0, hp // p, wp // p), dtype=torch.float32,
+                      device=left.device)
+    if out.numel():
         stream = torch.cuda.current_stream(left.device).cuda_stream
-        rc = _build.library().dm_fused_match(
-            left.data_ptr(), right.data_ptr(), disp.data_ptr(),
-            score.data_ptr(), n, hp, wp, p, geom.disparities,
-            cfg.max_disparity, geom.levels, cfg.lam, stream)
-        _build.check(rc, "fused kernel launch")
-        match_rows.launches += 1
-    return disp, score
+        rc = _build.library().dm_cost_rows(
+            left.data_ptr(), right.data_ptr(), out.data_ptr(), n, hp, wp, p,
+            d0, cfg.max_disparity, stream)
+        _build.check(rc, "cost-volume rows kernel launch")
+        cost_volume_rows.launches += 1
+    return out
 
 
-match_rows.launches = 0
+cost_volume_rows.launches = 0

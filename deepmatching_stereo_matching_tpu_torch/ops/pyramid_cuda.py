@@ -1,17 +1,23 @@
-"""K3: the pyramid + backtracking kernel (csrc/pyramid.cu) and its plain
-version `pyramid_body`.
+"""K3: the pyramid + backtracking kernel (csrc/pyramid.cu), K5: the
+level-aggregation kernel (csrc/aggregate.cu), and their plain versions.
 
-Replaces `deepmatching_stereo_matching_tpu/ops/pyramid_pallas.py:_kernel`
-(via `pyramid_backtrack`).  The device-side pyramid lives in
-csrc/pyramid.cuh, which the fused kernel (ops/fused_cuda.py) includes
-too; what bounds it on the card: see the note at the top of
-csrc/pyramid.cu.
+K3 replaces `deepmatching_stereo_matching_tpu/ops/pyramid_pallas.py:_kernel`
+(via `pyramid_backtrack`); its device-side pyramid lives in
+csrc/pyramid.cuh, which the fused kernel (ops/fused_cuda.py) includes too.
+K5 replaces `pyramid_pallas.py:_slab_kernel` (via `aggregate_slabs`): the
+same aggregation on volumes whose quadtree tile does not fit one block's
+shared memory (the large-D route), one launch per level through device
+memory.  What bounds each on the card: see the notes at the top of the
+.cu files.
+
+The plain versions share one definition of the pool, the merge
+(`aggregate_dmajor_torch`) and the descent (`descend`, `backtrack_top`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -43,13 +49,16 @@ def supported(d0: int, levels: int) -> bool:
     return d0 % (2 ** levels) == 0 and smem_bytes(d0, levels) <= MAX_SMEM
 
 
-def pyramid_body(cost: torch.Tensor, levels: int, lam: float,
-                 fast: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: (..., D0, H0, W0) -> (disp int32, score f32), (..., H0, W0).
+def aggregate_dmajor_torch(cost: torch.Tensor, levels: int, lam: float,
+                           fast: bool = False
+                           ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Plain K5: (..., D0, H0, W0) -> (top, args).
 
-    fast=False rectifies after every merge (the exact path); fast=True
-    defers each level's x**lam past the next level's pool and skips it at
-    the top, as the fused kernel does.
+    top is the (..., D0>>L, H0>>L, W0>>L) map; args[l] the int8 pool
+    offsets (..., D0>>(l+1), H0>>l, W0>>l).  fast=False rectifies after
+    every merge (the exact path); fast=True defers each level's x**lam
+    past the next level's pool and skips it at the top (max commutes
+    with the monotone power, so the winners are the same).
     """
     args = []
     cur = cost
@@ -60,13 +69,39 @@ def pyramid_body(cost: torch.Tensor, levels: int, lam: float,
             pooled = torch.pow(pooled, lam)
         merged = pool.quad_mean(pooled, -2)
         cur = merged if fast else torch.pow(merged, lam)
-    k = torch.argmax(cur, dim=-3)                  # first max wins ties
+    return cur, args
+
+
+def descend(k: torch.Tensor, args: List[torch.Tensor], dim: int = -3
+            ) -> torch.Tensor:
+    """Walk the (..., H, W) bins `k` of level len(args) down to level 0.
+
+    Each step doubles the spatial grid and refines the bin by the
+    recorded pool offset: k = 2k + arg[k].  `dim` is the disparity axis
+    of the args: -3 for D-major (..., D, H, W), -1 for D-minor.
+    """
     for arg in reversed(args):
         kr = k.repeat_interleave(2, -2).repeat_interleave(2, -1)
-        off = torch.gather(arg, -3, kr.unsqueeze(-3)).squeeze(-3)
+        off = torch.gather(arg, dim, kr.unsqueeze(dim)).squeeze(dim)
         k = 2 * kr + off
+    return k
+
+
+def backtrack_top(cost: torch.Tensor, top: torch.Tensor,
+                  args: List[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """First-max argmax over the top map, the descent, and the level-0
+    score gather: -> (disp int32, score f32), (..., H0, W0)."""
+    k = descend(torch.argmax(top, dim=-3), args)   # first max wins ties
     score = torch.gather(cost, -3, k.unsqueeze(-3)).squeeze(-3)
     return k.to(torch.int32), score
+
+
+def pyramid_body(cost: torch.Tensor, levels: int, lam: float,
+                 fast: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K3: (..., D0, H0, W0) -> (disp int32, score f32), (..., H0, W0)."""
+    return backtrack_top(cost, *aggregate_dmajor_torch(cost, levels, lam,
+                                                       fast))
 
 
 def _check_aligned(d0: int, h0: int, w0: int, levels: int) -> None:
@@ -74,6 +109,11 @@ def _check_aligned(d0: int, h0: int, w0: int, levels: int) -> None:
     if h0 % unit or w0 % unit or d0 % unit:
         raise ValueError(f"cost volume (D={d0}, H0={h0}, W0={w0}) not "
                          f"aligned to 2**levels={unit}")
+
+
+def _check_f32(cost_dm: torch.Tensor, what: str) -> None:
+    if cost_dm.dtype != torch.float32:
+        raise NotImplementedError(f"the {what} kernel takes float32 only")
 
 
 def pyramid_backtrack(cost_dm: torch.Tensor, levels: int, lam: float
@@ -88,8 +128,7 @@ def pyramid_backtrack(cost_dm: torch.Tensor, levels: int, lam: float
             f"pyramid kernel: a (D0={d0}, 2^{levels} x 2^{levels}) tile needs "
             f"{smem_bytes(d0, levels)} B of shared memory, more than "
             f"{MAX_SMEM}")
-    if cost_dm.dtype != torch.float32:
-        raise NotImplementedError("the pyramid kernel takes float32 only")
+    _check_f32(cost_dm, "pyramid")
     n = math.prod(lead)
     cost = cost_dm.contiguous()
     disp = torch.empty((*lead, h0, w0), dtype=torch.int32, device=cost.device)
@@ -106,3 +145,42 @@ def pyramid_backtrack(cost_dm: torch.Tensor, levels: int, lam: float
 
 
 pyramid_backtrack.launches = 0
+
+
+def aggregate_dmajor(cost_dm: torch.Tensor, levels: int, lam: float,
+                     fast: bool = False
+                     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(..., D0, H0, W0) f32 D-major volume -> (top, args) as
+    `aggregate_dmajor_torch`, through K5: one launch per level, every
+    level's map and offsets in device memory.  Any D0 and shape aligned
+    to 2**levels; no shared-memory limit."""
+    *lead, d0, h0, w0 = cost_dm.shape
+    _check_aligned(d0, h0, w0, levels)
+    if not run_kernel(cost_dm):
+        return aggregate_dmajor_torch(cost_dm, levels, lam, fast)
+    _check_f32(cost_dm, "aggregation")
+    n = math.prod(lead)
+    cur = cost_dm.contiguous()
+    if cur.data_ptr() % 16:         # the kernel reads 8-byte child pairs
+        cur = cur.clone()
+    dev = cur.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = []
+    for lvl in range(levels):
+        d, h, w = d0 >> lvl, h0 >> lvl, w0 >> lvl
+        nxt = torch.empty((*lead, d // 2, h // 2, w // 2),
+                          dtype=torch.float32, device=dev)
+        arg = torch.empty((*lead, d // 2, h, w), dtype=torch.int8,
+                          device=dev)
+        if n:
+            rc = _build.library().dm_aggregate_level(
+                cur.data_ptr(), nxt.data_ptr(), arg.data_ptr(), n, d, h, w,
+                int(fast and lvl > 0), int(not fast), lam, stream)
+            _build.check(rc, "aggregation kernel launch")
+            aggregate_dmajor.launches += 1
+        args.append(arg)
+        cur = nxt
+    return cur, args
+
+
+aggregate_dmajor.launches = 0

@@ -5,10 +5,12 @@ a CPU tensor each kernel wrapper of the port runs its plain PyTorch
 version, so these tests hold the plain K1/K2/K3 (and the stock-op
 modules around them) to the JAX functions; the JAX side runs its Pallas
 kernels in interpreter mode, as its own tests do.  Tolerances: 1e-6 for
-descriptors and cost volumes (f32 sums in another order), bitwise for
-pools and pyramid decisions, rtol 1e-5 for maps through x**1.4 (pow is
-not bitwise across libraries), 2e-5 for fused-kernel scores
-(algebraic normalisation).
+patch descriptors and cost volumes (f32 sums in another order), 1e-5 for
+grad_hist descriptors (the oracle's own contract), bitwise for gradients,
+orientation bins, pools, pool offsets and pyramid decisions, rtol 1e-5
+for maps through x**1.4 (pow is not bitwise across libraries), 2e-5 for
+fused-kernel scores and the image->volume kernel (algebraic
+normalisation).
 """
 
 import numpy as np
@@ -18,13 +20,17 @@ import torch
 import jax.numpy as jnp
 
 from deepmatching_stereo_matching_tpu import Config, Geometry
+from deepmatching_stereo_matching_tpu.data import synthetic
 from deepmatching_stereo_matching_tpu.models import descriptors as jdesc
+from deepmatching_stereo_matching_tpu.models import pipeline as jpipeline
+from deepmatching_stereo_matching_tpu.oracle import reference as oracle
 from deepmatching_stereo_matching_tpu.ops import costvol as jcostvol
 from deepmatching_stereo_matching_tpu.ops import costvol_pallas
 from deepmatching_stereo_matching_tpu.ops import fused_pallas
 from deepmatching_stereo_matching_tpu.ops import pool as jpool
 from deepmatching_stereo_matching_tpu.ops import pyramid_pallas
 from deepmatching_stereo_matching_tpu_torch.models import descriptors
+from deepmatching_stereo_matching_tpu_torch.models import pipeline
 from deepmatching_stereo_matching_tpu_torch.ops import (
     costvol, costvol_cuda, fused_cuda, pool, pyramid_cuda)
 
@@ -57,10 +63,55 @@ def test_descriptors_match_jax():
 
 def test_unported_descriptor_modes_raise():
     img = torch.zeros(16, 16)
-    with pytest.raises(NotImplementedError, match="grad_hist"):
-        descriptors.left_descriptors(img, Config(descriptor="grad_hist"))
-    with pytest.raises(NotImplementedError):
-        descriptors.left_descriptors(img, Config(center_descriptors=True))
+    for mode in ("patch", "grad_hist"):
+        with pytest.raises(NotImplementedError, match="center_descriptors"):
+            descriptors.left_descriptors(
+                img, Config(descriptor=mode, center_descriptors=True))
+
+
+def _gradient_images():
+    rng = np.random.default_rng(11)
+    smooth = rng.uniform(0, 1, (2, 20, 24)).astype(np.float32)
+    # Quantised intensities give zero and equal |gx|, |gy|: the binning's
+    # tie branches.
+    steps = (rng.integers(0, 3, (2, 20, 24)) * 0.25).astype(np.float32)
+    return {"smooth": smooth, "steps": steps}
+
+
+@pytest.mark.parametrize("kind", ["smooth", "steps"])
+def test_gradient_and_magbin_bitwise(kind):
+    imgs = _gradient_images()[kind]
+    for axis in (0, 1):
+        want = np.gradient(imgs[0], axis=axis)
+        np.testing.assert_array_equal(
+            descriptors._gradient_1d(t(imgs[0]), axis).numpy(), want)
+        np.testing.assert_array_equal(
+            descriptors._gradient_1d(t(imgs[0]), axis).numpy(),
+            np.asarray(jdesc._gradient_1d(jnp.asarray(imgs[0]), axis)))
+    mag, idx = descriptors.grad_hist_magbin(t(imgs))      # batched
+    for b in range(2):
+        jm, ji = jdesc.grad_hist_magbin(jnp.asarray(imgs[b]))
+        np.testing.assert_array_equal(mag[b].numpy(), np.asarray(jm))
+        np.testing.assert_array_equal(idx[b].numpy(), np.asarray(ji))
+        hist = descriptors.grad_hist_pixels(t(imgs[b])).numpy()
+        np.testing.assert_array_equal(
+            hist, np.asarray(jdesc.grad_hist_pixels(jnp.asarray(imgs[b]))))
+        np.testing.assert_array_equal(hist, oracle._grad_hist_pixels(imgs[b]))
+    if kind == "steps":
+        assert len(np.unique(idx.numpy())) == 8
+
+
+def test_grad_hist_descriptors_match_jax_and_oracle():
+    rng = np.random.default_rng(5)
+    cfg = Config(max_disparity=16, descriptor="grad_hist")
+    img = rng.uniform(0, 1, (32, 64)).astype(np.float32)
+    for fn in ("left_descriptors", "right_sliding_descriptors"):
+        got = getattr(descriptors, fn)(t(img), cfg).numpy()
+        assert got.shape[-1] == 4 * 4 * 8
+        for want in (np.asarray(getattr(jdesc, fn)(jnp.asarray(img), cfg)),
+                     getattr(oracle, fn)(img, cfg)):
+            assert got.shape == want.shape
+            np.testing.assert_allclose(got, want, atol=1e-5)
 
 
 def _desc_pair(seed, h0=8, w0=16, p=4):
@@ -198,6 +249,27 @@ def test_pyramid_misaligned_rejected():
         pyramid_cuda.pyramid_backtrack(torch.zeros(8, 6, 10), 2, 1.4)
 
 
+def test_kernel_coverage_gates_new_paths():
+    """KITTI at D=128/256 needs the large-D route (K1 and K3 tiles do not
+    fit a block; K4's fixed tile does); grad_hist at the bench geometry
+    runs K1b, whose block holds the bin planes too."""
+    for max_d in (128, 256):
+        cfg = Config(max_disparity=max_d)
+        geom = cfg.geometry(375, 1242)
+        assert (geom.levels, geom.grid_h, geom.grid_w, geom.disparities) \
+            == (5, 96, 384, max_d)
+        assert not fused_cuda.supported(cfg, geom)
+        assert not pyramid_cuda.supported(geom.disparities, geom.levels)
+        assert fused_cuda.cost_supported(cfg, geom)
+    assert fused_cuda.cost_smem_bytes(4, 256) == 78592
+    gh = Config(max_disparity=64, descriptor="grad_hist")
+    geom = gh.geometry(375, 450)
+    assert fused_cuda.supported(gh, geom)
+    assert not fused_cuda.cost_supported(gh, geom)
+    assert fused_cuda.smem_bytes(4, 64, 64, 4) == 123392
+    assert fused_cuda.smem_bytes(4, 64, 64, 4, magbin=True) == 172288
+
+
 def test_kernel_coverage_gates():
     assert pyramid_cuda.supported(64, 4)
     assert not pyramid_cuda.supported(192, 5)   # KITTI large-D tile
@@ -275,3 +347,111 @@ def test_plain_fused_batched_equals_single():
         d, s = fused_cuda.match_rows(t(l), t(r), cfg, geom)
         np.testing.assert_array_equal(bd[i].numpy(), d.numpy())
         np.testing.assert_array_equal(bs[i].numpy(), s.numpy())
+
+
+@pytest.mark.parametrize("kind", ["patch", "grad_hist"])
+def test_plain_fused_magbin_matches_pallas(kind):
+    """Plain K1b (and K1 on the same pair) vs fused_pallas.match_rows in
+    interpret mode, at the JAX package's magbin test geometry."""
+    h, w, max_d = 96, 128, 16
+    cfg = Config(max_disparity=max_d, descriptor=kind)
+    geom = cfg.geometry(h, w)
+    rng = np.random.default_rng(12)
+    field = synthetic.block_disparity_field(h, w, max_d, rng, block=16)
+    left, right, _ = synthetic.make_pair(h, w, field, seed=12)
+    lp = oracle.pad_image(oracle.to_grayscale_f32(left), geom)
+    rp = oracle.pad_image(oracle.to_grayscale_f32(right), geom)
+    wd, ws = fused_pallas.match_rows(jnp.asarray(lp), jnp.asarray(rp), cfg,
+                                     geom)
+    gd, gs = fused_cuda.match_rows(t(lp), t(rp), cfg, geom)
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+    np.testing.assert_allclose(gs.numpy(), np.asarray(ws), rtol=1e-4,
+                               atol=1e-5)
+
+
+def _cost_rows_pair(h, w, max_d, levels, seed):
+    cfg = Config(max_disparity=max_d, levels=levels)
+    geom = cfg.geometry(h, w)
+    rng = np.random.default_rng(seed)
+    field = synthetic.block_disparity_field(h, w, max_d, rng, block=16)
+    left, right, _ = synthetic.make_pair(h, w, field, seed=seed)
+    lp = oracle.pad_image(oracle.to_grayscale_f32(left), geom)
+    rp = oracle.pad_image(oracle.to_grayscale_f32(right), geom)
+    return cfg, geom, lp, rp
+
+
+@pytest.mark.parametrize("h,w,max_d,levels", [(96, 128, 24, 2),
+                                              (64, 128, 13, 3)])
+def test_plain_cost_rows_matches_pallas(h, w, max_d, levels):
+    """Plain K4 vs fused_pallas.cost_volume_rows (interpret mode)."""
+    cfg, geom, lp, rp = _cost_rows_pair(h, w, max_d, levels, 4)
+    assert fused_pallas.cost_supported(cfg, geom)
+    assert fused_cuda.cost_supported(cfg, geom)
+    want = np.asarray(fused_pallas.cost_volume_rows(
+        jnp.asarray(lp), jnp.asarray(rp), cfg, geom))
+    got = fused_cuda.cost_volume_rows(t(np.stack([lp, rp])),
+                                      t(np.stack([rp, lp])), cfg, geom)
+    assert got.shape == (2,) + want.shape
+    np.testing.assert_allclose(got[0].numpy(), want, atol=2e-5)
+    assert not got[0, max_d:].any()
+
+
+def _volume(seed, d, h0, w0):
+    rng = np.random.default_rng(seed)
+    return np.maximum(rng.standard_normal((d, h0, w0)), 0.0
+                      ).astype(np.float32)
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("levels,d,h0,w0", [(2, 64, 16, 32), (3, 64, 16, 32),
+                                            (5, 64, 32, 32)])
+def test_plain_aggregate_matches_slabs(levels, d, h0, w0, fast):
+    """Plain K5 vs pyramid_pallas.aggregate_slabs: JAX keeps every level
+    at full resolution (duplicated cells), so its maps are subsampled by
+    2**l; its bf16 offsets are cast to int."""
+    cost = _volume(levels + d, d, h0, w0)
+    wtop, wargs = pyramid_pallas.aggregate_slabs(jnp.asarray(cost), levels,
+                                                 1.4, fast=fast)
+    gtop, gargs = pyramid_cuda.aggregate_dmajor(t(np.stack([cost, cost])),
+                                                levels, 1.4, fast=fast)
+    s = 2 ** levels
+    assert gtop.shape == (2, d // s, h0 // s, w0 // s)
+    np.testing.assert_allclose(gtop[0].numpy(),
+                               np.asarray(wtop)[:, ::s, ::s], rtol=1e-5)
+    np.testing.assert_array_equal(gtop[0].numpy(), gtop[1].numpy())
+    assert len(gargs) == levels
+    for lvl, (ga, wa) in enumerate(zip(gargs, wargs)):
+        assert ga.dtype == torch.int8
+        sl = 2 ** lvl
+        np.testing.assert_array_equal(
+            ga[0].numpy(),
+            np.asarray(wa.astype(jnp.int32))[:, ::sl, ::sl])
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("levels,d,h0,w0", [(2, 64, 16, 32),
+                                            (5, 64, 32, 32)])
+def test_match_dmajor_matches_xla(levels, d, h0, w0, fast):
+    cost = _volume(7 * levels, d, h0, w0)
+    wk, ws = jpipeline.match_dmajor_xla(jnp.asarray(cost), levels, 1.4,
+                                        fast=fast)
+    gk, gs = pipeline.match_dmajor(t(cost), levels, 1.4, fast=fast)
+    assert gk.dtype == torch.int32 and gk.shape == (h0, w0)
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+    np.testing.assert_allclose(gs.numpy(), np.asarray(ws), rtol=1e-5)
+    # The same volume through K3's plain version (its tile fits at these
+    # sizes) picks the same winners.
+    kd, _ = pyramid_cuda.pyramid_body(t(cost), levels, 1.4, fast=fast)
+    np.testing.assert_array_equal(kd.numpy(), gk.numpy())
+
+
+def test_descend_d_minor_equals_d_major():
+    cost = t(np.stack([_volume(s, 16, 8, 8) for s in (1, 2)]))
+    top, args = pyramid_cuda.aggregate_dmajor_torch(cost, 2, 1.4)
+    k = t(np.random.default_rng(3).integers(0, top.shape[-3], (2, 2, 2)))
+    dmajor = pyramid_cuda.descend(k, args)
+    dminor = pipeline.backtrack_from(
+        k, [a.movedim(-3, -1).contiguous() for a in args], dim=-1)
+    np.testing.assert_array_equal(dmajor.numpy(), dminor.numpy())
+    assert dmajor.shape == (2, 8, 8)
+    assert 0 <= int(dmajor.min()) and int(dmajor.max()) < 16

@@ -4,8 +4,12 @@ the CPU.
 The port's three routes run batched through `match_padded_core` and are
 held to the JAX `match_padded` of the corresponding implementation
 ('fused' -> 'fused', 'exact' -> 'pallas', 'torch' -> 'jnp'): decisions,
-validity and right disparities equal, scores at rtol 1e-5.  On CPU
-tensors the kernel routes run the kernels' plain versions.
+validity and right disparities equal, scores at rtol 1e-5.  The two
+paths this slice adds, KITTI-like large D (K4 -> K5 on 'fused', K2 -> K5
+on 'exact') and grad_hist (K1b on 'fused'), are held to the JAX 'jnp'
+path and to the oracle: 'exact' decisions equal, 'fused' at most 0.5%
+of decisions flipped (the bench's gate).  On CPU tensors the kernel
+routes run the kernels' plain versions.
 """
 
 import os
@@ -25,31 +29,48 @@ from deepmatching_stereo_matching_tpu.models import pipeline as jpipeline
 from deepmatching_stereo_matching_tpu.oracle import reference as oracle
 from deepmatching_stereo_matching_tpu_torch import api
 from deepmatching_stereo_matching_tpu_torch.models import pipeline
-from deepmatching_stereo_matching_tpu_torch.ops import _build, _dispatch
+from deepmatching_stereo_matching_tpu_torch.ops import (
+    _build, _dispatch, fused_cuda, pyramid_cuda)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_IMPL = {"fused": "fused", "exact": "pallas", "torch": "jnp"}
 H, W, MAX_D = 96, 128, 16
+FUSED_DECISION_TOL = 0.005
+# The slice's new paths: (cfg, height, width, field disparity range).
+# large_d: L=5 and D0=128 on a 32x32 patch grid, where neither K1's nor
+# K3's tile fits a block, as at KITTI D=128.
+NEW_PATHS = {
+    "large_d": (Config(max_disparity=128, levels=5), 128, 128, 48),
+    "grad_hist": (Config(max_disparity=MAX_D, descriptor="grad_hist"),
+                  H, W, MAX_D),
+}
 
 
-def padded_pairs(cfg, seeds):
-    geom = cfg.geometry(H, W)
-    out = []
-    for seed in seeds:
-        rng = np.random.default_rng(seed)
-        field = synthetic.block_disparity_field(H, W, MAX_D, rng, block=16)
-        left, right, _ = synthetic.make_pair(H, W, field, seed=seed)
-        out.append(tuple(oracle.pad_image(oracle.to_grayscale_f32(x), geom)
-                         for x in (left, right)))
-    return out
+def synthetic_pair(seed, h=H, w=W, field_d=MAX_D):
+    rng = np.random.default_rng(seed)
+    field = synthetic.block_disparity_field(h, w, field_d, rng, block=16)
+    return synthetic.make_pair(h, w, field, seed=seed)
 
 
-def assert_outputs_match(got, want):
+def padded_pairs(cfg, seeds, h=H, w=W, field_d=MAX_D):
+    geom = cfg.geometry(h, w)
+    return [tuple(oracle.pad_image(oracle.to_grayscale_f32(x), geom)
+                  for x in synthetic_pair(seed, h, w, field_d)[:2])
+            for seed in seeds]
+
+
+def assert_outputs_match(got, want, score_atol=1e-7):
     for k in ("disparity_raw", "valid", "disparity_right"):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     np.testing.assert_array_equal(got["disparity"], want["disparity"])
     np.testing.assert_allclose(got["score"], want["score"], rtol=1e-5,
-                               atol=1e-7)
+                               atol=score_atol)
+
+
+def assert_within_fused_gate(got, want):
+    for k in ("disparity_raw", "valid", "disparity_right"):
+        rate = np.mean(np.asarray(got[k]) != np.asarray(want[k]))
+        assert rate <= FUSED_DECISION_TOL, (k, rate)
 
 
 @pytest.mark.parametrize("lr_check", [True, False], ids=["flip", "no_lr"])
@@ -145,6 +166,16 @@ def test_cuda_device_raises_without_a_card(monkeypatch):
         api.match_stereo(left, right, Config(max_disparity=16))
 
 
+def test_profile_steps_needs_a_card(monkeypatch, capsys):
+    from deepmatching_stereo_matching_tpu_torch import profile_steps
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert profile_steps.main(["--cells", "kitti128"]) == 2
+    assert "needs a CUDA device" in capsys.readouterr().err
+    assert set(profile_steps.CELLS) == {"bench", "grad_hist", "kitti128",
+                                        "kitti256"}
+
+
 def test_kernel_modules_import_without_nvcc():
     """Importing and running on CPU tensors builds nothing."""
     code = (
@@ -168,8 +199,10 @@ def test_kernel_modules_import_without_nvcc():
     (Config(max_disparity=16, lr_mode="direct"), 64, 64, "lr_mode"),
     (Config(max_disparity=16, median_filter=3), 64, 64, "post-filter"),
     (Config(max_disparity=16, dtype="bfloat16"), 64, 64, "float32"),
-    (Config(max_disparity=16, descriptor="grad_hist"), 64, 64, "grad_hist"),
-    (Config(max_disparity=192), 375, 1242, "large-D"),
+    (Config(max_disparity=16, center_descriptors=True), 64, 64,
+     "center_descriptors"),
+    (Config(max_disparity=16, descriptor="grad_hist",
+            center_descriptors=True), 64, 64, "center_descriptors"),
 ])
 @pytest.mark.parametrize("route", ["fused", "exact"])
 def test_uncovered_configs_raise(cfg, height, width, match, route):
@@ -177,3 +210,100 @@ def test_uncovered_configs_raise(cfg, height, width, match, route):
     img = torch.zeros(1, geom.padded_height, geom.padded_width)
     with pytest.raises(NotImplementedError, match=match):
         pipeline.match_padded_core(img, img, cfg, geom, route)
+
+
+@pytest.mark.parametrize("path", ["large_d", "grad_hist"])
+@pytest.mark.parametrize("route", ["fused", "exact"])
+def test_new_paths_batched_match_jax(route, path):
+    """Two pairs through `match_padded_core` at once vs JAX 'jnp'."""
+    cfg, h, w, field_d = NEW_PATHS[path]
+    geom = cfg.geometry(h, w)
+    if path == "large_d":
+        assert (geom.levels, geom.disparities) == (5, 128)
+        assert not fused_cuda.supported(cfg, geom)
+        assert not pyramid_cuda.supported(geom.disparities, geom.levels)
+        assert fused_cuda.cost_supported(cfg, geom)
+    else:
+        assert fused_cuda.supported(cfg, geom)
+    pairs = padded_pairs(cfg, (3, 4), h, w, field_d)
+    lb = torch.from_numpy(np.stack([l for l, _ in pairs]))
+    rb = torch.from_numpy(np.stack([r for _, r in pairs]))
+    out = pipeline.crop(pipeline.match_padded_core(lb, rb, cfg, geom, route),
+                        h, w)
+    assert out["disparity_raw"].dtype == torch.int32
+    assert out["disparity"].shape == (2, h, w)
+    for i, (l, r) in enumerate(pairs):
+        got = {k: v[i].numpy() for k, v in out.items()}
+        want = {k: np.asarray(v) for k, v in jpipeline.match_padded(
+            jnp.asarray(l), jnp.asarray(r), cfg, h, w, "jnp").items()}
+        if route == "exact":
+            # grad_hist descriptors hold the oracle at atol 1e-5, not
+            # bitwise; so do the scores built from them.
+            assert_outputs_match(got, want, 2e-5 if path == "grad_hist"
+                                 else 1e-7)
+        else:
+            assert_within_fused_gate(got, want)
+            same = got["disparity_raw"] == want["disparity_raw"]
+            np.testing.assert_allclose(got["score"][same],
+                                       want["score"][same], atol=2e-5)
+
+
+@pytest.mark.parametrize("path", ["large_d", "grad_hist"])
+@pytest.mark.parametrize("route", ["fused", "exact"])
+def test_new_paths_api_match_oracle(route, path):
+    cfg, h, w, field_d = NEW_PATHS[path]
+    left, right, gt = synthetic_pair(5, h, w, field_d)
+    got = api.match_stereo(left, right, cfg, impl=route, device="cpu")
+    ora = oracle.match_stereo(left, right, cfg)
+    assert got.disparity.shape == (h, w)
+    assert np.isfinite(got.score).all()
+    got_d = {"disparity_raw": got.disparity_raw, "valid": got.valid,
+             "disparity_right": got.disparity_right}
+    want_d = {"disparity_raw": ora.disparity_raw, "valid": ora.valid,
+              "disparity_right": ora.disparity_right}
+    if route == "exact":
+        for k in got_d:
+            np.testing.assert_array_equal(got_d[k], want_d[k], err_msg=k)
+        np.testing.assert_allclose(got.score, ora.score, rtol=1e-5,
+                                   atol=2e-5)
+    else:
+        assert_within_fused_gate(got_d, want_d)
+    from deepmatching_stereo_matching_tpu.utils import metrics
+    bad_g = metrics.bad_pixel_rate(got.disparity, gt, count_invalid=False)
+    bad_o = metrics.bad_pixel_rate(ora.disparity, gt, count_invalid=False)
+    assert abs(bad_g - bad_o) <= FUSED_DECISION_TOL
+
+
+@pytest.mark.parametrize("path,route,called", [
+    ("large_d", "fused", ["cost_volume_rows", "aggregate_dmajor(fast)"]),
+    ("large_d", "exact", ["cost_volume_dmajor", "aggregate_dmajor(exact)"]),
+    ("grad_hist", "fused", ["match_rows"]),
+    ("grad_hist", "exact", ["cost_volume_dmajor", "pyramid_backtrack"]),
+])
+def test_routes_pick_kernels_by_config(monkeypatch, path, route, called):
+    """Which kernel wrappers each new path reaches (on the card each is
+    one kernel); the CPU runs the same wrappers' plain versions."""
+    from deepmatching_stereo_matching_tpu_torch.ops import costvol_cuda
+    seen = []
+
+    def spy(mod, name):
+        real = getattr(mod, name)
+
+        def wrapped(*a, **kw):
+            tag = name
+            if name == "aggregate_dmajor":      # (cost, levels, lam, fast)
+                tag += "(fast)" if a[3] else "(exact)"
+            seen.append(tag)
+            return real(*a, **kw)
+        monkeypatch.setattr(mod, name, wrapped)
+
+    spy(fused_cuda, "match_rows")
+    spy(fused_cuda, "cost_volume_rows")
+    spy(costvol_cuda, "cost_volume_dmajor")
+    spy(pyramid_cuda, "pyramid_backtrack")
+    spy(pyramid_cuda, "aggregate_dmajor")
+    cfg, h, w, field_d = NEW_PATHS[path]
+    (l, r), = padded_pairs(cfg, (6,), h, w, field_d)
+    pipeline.match_padded_core(torch.from_numpy(l), torch.from_numpy(r), cfg,
+                               cfg.geometry(h, w), route)
+    assert seen == called
