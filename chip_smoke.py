@@ -21,6 +21,12 @@ Phases, each printing its own lines (any failure exits nonzero):
        max_d=99), atol 2e-5;
      - each block's shared memory as the library computes it equals the
        mirror that fused_cuda's routing rules use (K1, K1b, K4);
+     - the row-layout slab cost volume (K6) at KITTI D=256 (4 pairs x 2
+       directions), whole range and the four 64-bin slabs at d_offset 0,
+       64, 128, 192, forward and reverse: atol 1e-6, and the slabs joined
+       along D bitwise equal to K2's volume; at the bench shapes on a
+       halo-extended target (origin_offset = halo_q = 16): atol 1e-6 and
+       bitwise equal to K2 on the unextended target;
   4. main path through `api.match_stereo` against the NumPy oracle: two
      bench pairs (patch: 'fused' within the bench's 0.5% decision gate,
      'exact' bitwise on decisions), one KITTI pair at D=128 (the
@@ -33,15 +39,28 @@ Phases, each printing its own lines (any failure exits nonzero):
   5. timing with CUDA events (any sample <= 0 fails): the batched
      `match_padded_core` step per route for the bench (32 pairs), grad_hist
      (32 pairs) and KITTI (D=128 x 8 pairs, D=256 x 4 pairs), and peak
-     device memory.
-Then one JSON line with the kernels' numbers, and as the last line
-{"ok": true, "device": {...}}.  Needs one CUDA device; imports no JAX.
+     device memory;
+  6. the sharded strategies (`parallel.match_batch_sharded`) on a world
+     of one rank over NCCL, bench pairs 100 and 101, lr_mode 'flip' and
+     'direct': tiled ('fused'), dslab, ringd, wtiled with merge_level 1
+     and None ('exact'), each bitwise on every key to the unsharded
+     pipeline at the strategy's padded extents on the same route
+     (wtiled merge_level 1: decisions bitwise, scores rtol 1e-5, its
+     merge levels running the torch pyramid); dslab and ringd raw_neq =
+     valid_neq = 0 against the oracle; launch counts zeroed before each
+     strategy: tiled K1 ('direct': K2, K3), dslab K6, K5, ringd K6,
+     wtiled(1) K6, wtiled(None) K2, K3; then each strategy's step at
+     KITTI D=256 x 4 pairs ('flip'), timed as in 5.
+Then the total wall time, one JSON line with the kernels' numbers, and as
+the last line {"ok": true, "device": {...}}.  Needs one CUDA device;
+imports no JAX.
 """
 
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -53,6 +72,7 @@ KITTI = {128: 8, 256: 4}               # max_disparity -> batch of pairs
 KITTI_SEED = 7
 RAGGED_HW, RAGGED_D = (100, 300), 99   # L=2: a 28x76-patch grid, D0=100
 MAIN_PATH_SEEDS = (100, 101)
+SLAB = 64                              # K6 check: D=256 in four slabs
 FUSED_DECISION_TOL = 0.005
 PKG = "deepmatching_stereo_matching_tpu_torch"
 JAX_PKG = "deepmatching_stereo_matching_tpu"
@@ -105,6 +125,7 @@ def cuda_ms(torch, fn, reps, warmup=1):
 def main():
     import torch
 
+    wall0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -112,11 +133,17 @@ def main():
     from deepmatching_stereo_matching_tpu.config import Config
     from deepmatching_stereo_matching_tpu.oracle import reference as oracle
     from deepmatching_stereo_matching_tpu.utils import metrics
+    import torch.distributed as dist
+    import torch.nn.functional as F
     from deepmatching_stereo_matching_tpu_torch import api
     from deepmatching_stereo_matching_tpu_torch.models import descriptors
     from deepmatching_stereo_matching_tpu_torch.models import pipeline
     from deepmatching_stereo_matching_tpu_torch.ops import (
-        _build, costvol_cuda, fused_cuda, pyramid_cuda)
+        _build, costvol, costvol_cuda, fused_cuda, pyramid_cuda)
+    from deepmatching_stereo_matching_tpu_torch.parallel import (
+        launch, mesh as mesh_lib, sharded, wtiled)
+    from deepmatching_stereo_matching_tpu_torch.profile_steps import (
+        STRATEGIES as STRATEGY_RUNS)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -323,6 +350,71 @@ def main():
           f"max |kernel - plain| = {err4r:.3e}")
     require(err4r <= 2e-5, f"K4 disagrees with its plain version on a "
             f"ragged grid: {err4r}")
+
+    # 3c. K6, the row-layout slab cost volume: KITTI D=256, whole range and
+    # 64-bin slabs, against its plain version and K2.
+    kcfg6, kgeom6, klp6, krp6 = kitti[256]
+    kl6, kr6 = both_directions(klp6, krp6)      # (2, 4, Hp, Wp): 8 instances
+    ds6 = descriptors.left_descriptors(kl6, kcfg6)
+    dt6 = descriptors.right_sliding_descriptors(kr6, kcfg6)
+    d6, args6 = kgeom6.disparities, (kcfg6.patch_size, kcfg6.max_disparity)
+
+    def k6_vs_plain(label, src, tgt, d, p_max, **kw):
+        vol = costvol_cuda.cost_volume_rows(src, tgt, d, *p_max, **kw)
+        sync()
+        err = float((vol - costvol.cost_volume_rows_torch(
+            src, tgt, d, *p_max, **kw)).abs().max())
+        print(f"K6 {label} {tuple(vol.shape)}: max |kernel - plain| = "
+              f"{err:.3e}")
+        require(err <= 1e-6, f"K6 {label} disagrees with its plain version: "
+                f"{err}")
+        return vol, err
+
+    err6 = 0.0
+    for reverse in (False, True):
+        way = "reverse" if reverse else "forward"
+        whole, err = k6_vs_plain(f"D={d6} {way}", ds6, dt6, d6, args6,
+                                 reverse=reverse)
+        err6 = max(err6, err)
+        slabs = []
+        for k in range(d6 // SLAB):
+            vol, err = k6_vs_plain(f"slab d_offset={k * SLAB} {way}", ds6,
+                                   dt6, SLAB, args6, reverse=reverse,
+                                   d_offset=k * SLAB)
+            slabs.append(vol)
+            err6 = max(err6, err)
+        k2 = costvol_cuda.cost_volume_dmajor(ds6, dt6, d6, *args6,
+                                             reverse=reverse)
+        joined = torch.equal(torch.cat(slabs, -2).movedim(-2, -3), k2)
+        same = torch.equal(whole.movedim(-2, -3), k2)
+        print(f"K6 {way}: slabs joined along D bitwise equal to K2 {joined}; "
+              f"whole range bitwise equal to K2 {same}")
+        require(joined and same, "K6 is not bitwise K2's volume")
+        del whole, slabs, k2
+    record("K6", err6,
+           lambda: costvol_cuda.cost_volume_rows(ds6, dt6, d6, *args6),
+           lambda: costvol.cost_volume_rows_torch(ds6, dt6, d6, *args6),
+           plain_reps=1)
+    del ds6, dt6
+    # At the bench shapes, on a target extended by a W-tile's halo.
+    halo_q = wtiled.halo_patches(cfg)
+    dsb = descriptors.left_descriptors(lefts, cfg)
+    dtb = descriptors.right_sliding_descriptors(rights, cfg)
+    pad_px = cfg.patch_size * halo_q
+    dtb_ext = F.pad(dtb, (0, 0, pad_px, pad_px))
+    for reverse in (False, True):
+        vol, err = k6_vs_plain(
+            f"bench halo origin_offset={halo_q} "
+            f"{'reverse' if reverse else 'forward'}", dsb, dtb_ext,
+            geom.disparities, (cfg.patch_size, cfg.max_disparity),
+            reverse=reverse, origin_offset=halo_q)
+        err6 = max(err6, err)
+        same = torch.equal(vol.movedim(-2, -3), costvol_cuda.cost_volume_dmajor(
+            dsb, dtb, *args2, reverse=reverse))
+        print(f"  bitwise equal to K2 on the unextended target: {same}")
+        require(same, "K6 on a halo target is not K2's volume")
+    rows["K6"]["err"] = err6
+    del dsb, dtb, dtb_ext, vol
     for k in ("K1", "K1b", "K2", "K3"):
         print(f"  {k}: kernel {rows[k]['ms']:.4f} ms, plain "
               f"{rows[k]['plain']:.4f} ms per 64-instance bench call {card}")
@@ -332,6 +424,9 @@ def main():
     print(f"  K5: kernel {rows['K5']['ms']:.4f} ms, plain "
           f"{rows['K5']['plain']:.4f} ms per 16-instance KITTI D=128 call "
           f"(fast, 5 levels) {card}")
+    print(f"  K6: kernel {rows['K6']['ms']:.4f} ms, plain "
+          f"{rows['K6']['plain']:.4f} ms per 8-instance KITTI D=256 call "
+          f"(whole range) {card}")
     print(flush=True)
 
     # 4. Main path through the public API, against the oracle.
@@ -351,7 +446,8 @@ def main():
                 "K2": (costvol_cuda.cost_volume_dmajor, "launches"),
                 "K3": (pyramid_cuda.pyramid_backtrack, "launches"),
                 "K4": (fused_cuda.cost_volume_rows, "launches"),
-                "K5": (pyramid_cuda.aggregate_dmajor, "launches")}
+                "K5": (pyramid_cuda.aggregate_dmajor, "launches"),
+                "K6": (costvol_cuda.cost_volume_rows, "launches")}
     # The kernels each path launches, and no others (routing is decided by
     # the configuration).  Each path's counts are set to 0 just before it
     # runs and read just after.
@@ -377,7 +473,6 @@ def main():
         require(launched == expected,
                 f"path [{path}, {route}] launched {sorted(launched)}, "
                 f"expected {sorted(expected)}")
-    launches = {k: sum(c[k] for c in path_launches.values()) for k in counters}
     for case, seed, ccfg, (left, right, gt) in cases:
         w_ = want[case, seed]
         hh, ww = left.shape[:2]
@@ -442,7 +537,136 @@ def main():
                   f"Mpx/s {card}")
     peak = torch.cuda.max_memory_allocated()
     print(f"peak device memory over the timed steps: {peak / 2**20:.1f} MiB {card}")
+    print(flush=True)
+
+    # 6. The sharded strategies on a world of one rank over NCCL: the
+    # collectives degenerate, the shard bodies and their kernels run.
+    def strategy_kernels(strategy, merge_level, mode):
+        if strategy == "tiled":     # 'direct' takes the descriptor route
+            return {"K1"} if mode == "flip" else {"K2", "K3"}
+        if strategy == "dslab":
+            return {"K6", "K5"}
+        if strategy == "wtiled" and merge_level is None:
+            return {"K2", "K3"}
+        return {"K6"}
+
+    def label_of(strategy, merge_level):
+        return (f"wtiled({merge_level})" if strategy == "wtiled"
+                else strategy)
+
+    strategy_ms = {}
+    spairs = [make_pair(s) for s in MAIN_PATH_SEEDS]
+    torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory() as rdzv:
+        launch.init("nccl", 0, 1, os.path.join(rdzv, "rendezvous"),
+                    timeout=120)
+        try:
+            meshes = {"2d": mesh_lib.make_mesh(1, 1),
+                      "3d": mesh_lib.make_mesh2d(1, 1, 1)}
+            for mode in ("flip", "direct"):
+                scfg = Config(max_disparity=MAX_D, lr_mode=mode)
+                ora = [want["bench", s] if mode == "flip"
+                       else oracle.match_stereo(l, r, scfg)
+                       for s, (l, r, _) in zip(MAIN_PATH_SEEDS, spairs)]
+                for strategy, route, ml in STRATEGY_RUNS.values():
+                    mesh = meshes["3d" if strategy == "wtiled" else "2d"]
+                    label = label_of(strategy, ml)
+                    sl, sr = (sharded.pad_batch([x[i] for x in spairs], scfg,
+                                                H, W, mesh, strategy, ml)
+                              for i in (0, 1))
+                    for fn, attr in counters.values():
+                        setattr(fn, attr, 0)
+                    got = sharded.match_batch_sharded(sl, sr, scfg, H, W,
+                                                      mesh, strategy, route,
+                                                      ml)
+                    sync()
+                    counts = {k: getattr(fn, attr)
+                              for k, (fn, attr) in counters.items()}
+                    path_launches[f"{label} {mode}"] = counts
+                    glob = sharded.strategy_geometry(scfg, H, W, mesh,
+                                                     strategy, ml)
+                    ref = pipeline.apply_postfilter(pipeline.crop(
+                        pipeline.match_padded_core(
+                            torch.from_numpy(sl).to(dev),
+                            torch.from_numpy(sr).to(dev), scfg, glob, route),
+                        H, W), scfg)
+                    g = {k: v.cpu().numpy() for k, v in got.items()}
+                    r = {k: v.cpu().numpy() for k, v in ref.items()}
+                    neq = {k: float(np.mean(g[k] != r[k])) for k in
+                           ("disparity_raw", "valid", "disparity_right")}
+                    disp_eq = np.array_equal(g["disparity"], r["disparity"],
+                                             equal_nan=True)
+                    score_eq = np.array_equal(g["score"], r["score"])
+                    score_close = np.allclose(g["score"], r["score"],
+                                              rtol=1e-5)
+                    print(f"strategy [{label}, {route}, {mode}] pairs "
+                          f"{MAIN_PATH_SEEDS} {tuple(g['disparity'].shape)} "
+                          f"vs unsharded at {glob.padded_height}x"
+                          f"{glob.padded_width} D0={glob.disparities}: "
+                          f"mismatch rates {neq}, disparity equal {disp_eq}, "
+                          f"scores bitwise {score_eq}; launches {counts}")
+                    decisions_eq = disp_eq and not any(neq.values())
+                    if strategy == "wtiled" and ml is not None:
+                        # Its merge levels run the torch pyramid (torch.pow)
+                        # where K3 runs powf: scores rtol 1e-5, and decisions
+                        # within the 0.5% gate if the two pows disagree.
+                        require(score_close or not decisions_eq,
+                                f"{label} scores beyond rtol 1e-5")
+                        require(max(neq.values()) <= FUSED_DECISION_TOL,
+                                f"{label} beyond the decision gate")
+                    else:
+                        require(decisions_eq and score_eq,
+                                f"{label} {mode} is not bitwise the "
+                                f"unsharded pipeline")
+                    if strategy in ("dslab", "ringd"):
+                        for seed, o, i in zip(MAIN_PATH_SEEDS, ora, range(2)):
+                            raw_neq = float(np.mean(g["disparity_raw"][i]
+                                                    != o.disparity_raw))
+                            val_neq = float(np.mean(g["valid"][i] != o.valid))
+                            print(f"  vs oracle pair {seed}: raw_neq="
+                                  f"{raw_neq:.3e} valid_neq={val_neq:.3e}")
+                            require(raw_neq == 0.0 and val_neq == 0.0,
+                                    f"{label} {mode} off the oracle")
+                    launched = {k for k, v in counts.items() if v > 0}
+                    expected = strategy_kernels(strategy, ml, mode)
+                    require(launched == expected,
+                            f"{label} {mode} launched {sorted(launched)}, "
+                            f"expected {sorted(expected)}")
+            print(flush=True)
+
+            kcfg, kgeom, klp, krp = kitti[256]
+            for strategy, route, ml in STRATEGY_RUNS.values():
+                mesh = meshes["3d" if strategy == "wtiled" else "2d"]
+                label = label_of(strategy, ml)
+                glob = sharded.strategy_geometry(kcfg, KH, KW, mesh,
+                                                 strategy, ml)
+                require((glob.padded_height, glob.padded_width,
+                         glob.disparities) == (kgeom.padded_height,
+                                               kgeom.padded_width,
+                                               kgeom.disparities),
+                        f"{label} pads KITTI differently: {glob}")
+
+                def sstep(strategy=strategy, route=route, ml=ml, mesh=mesh):
+                    return sharded.match_batch_sharded(
+                        klp, krp, kcfg, KH, KW, mesh, strategy, route, ml)
+                sstep()
+                sync()
+                samples = [cuda_ms(torch, sstep, 1, warmup=0)
+                           for _ in range(5)]
+                med = float(np.median(samples))
+                strategy_ms[f"kitti D=256 {label} {route}"] = med
+                n = klp.shape[0]
+                print(f"strategy step [{label}, {route}] {n} pairs {KW}x{KH} "
+                      f"D=256, one rank: median {med:.4f} ms "
+                      f"[{min(samples):.4f}..{max(samples):.4f}] over 5 "
+                      f"samples = {n * KH * KW * 1e-6 / (med * 1e-3):.1f} "
+                      f"Mpx/s (unsharded: fused "
+                      f"{step_ms['kitti D=256 fused']:.4f} ms, exact "
+                      f"{step_ms['kitti D=256 exact']:.4f} ms) {card}")
+        finally:
+            dist.destroy_process_group()
     require("jax" not in sys.modules, "jax was imported")
+    launches = {k: sum(c[k] for c in path_launches.values()) for k in counters}
 
     sources = {
         "K1": ("K1 fused image->disparity (patch)", "csrc/fused.cu",
@@ -457,6 +681,8 @@ def main():
                "ops/fused_pallas.py:808"),
         "K5": ("K5 level aggregation", "csrc/aggregate.cu",
                "ops/pyramid_pallas.py:346"),
+        "K6": ("K6 row-layout slab cost volume", "csrc/costvol.cu",
+               "ops/costvol_pallas.py:57"),
     }
     kernels = [
         {"name": label, "route": "cuda", "source": f"{PKG}/{src}",
@@ -466,8 +692,10 @@ def main():
          "max_abs_err": rows[k]["err"], "ms": rows[k]["ms"],
          "plain_ms": rows[k]["plain"]}
         for k, (label, src, rep) in sources.items()]
+    print(f"chip_smoke wall time: {time.perf_counter() - wall0:.1f} s {card}")
     print(json.dumps({"kernels": kernels, "step_ms": step_ms,
-                      "peak_bytes": peak, "card": card_line}))
+                      "strategy_ms": strategy_ms, "peak_bytes": peak,
+                      "card": card_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -19,6 +19,11 @@ Routes (`ops/_dispatch.py`):
     (ops/pyramid_cuda.py), or the level-aggregation kernel for large D;
   * 'torch' — stock torch ops only, the counterpart of the JAX 'jnp' path.
 
+The sharded strategies (`parallel/`: tiled, dslab, ringd, wtiled) run on
+torch.distributed, one process per rank: NCCL on CUDA, gloo on the CPU.
+Their slab and merge volumes come from the row-layout form of the
+cost-volume kernel (ops/costvol_cuda.py:cost_volume_rows).
+
 The system has no learned parameters, so there are no weights to convert
 between the packages: the shared state is the `Config`/`Geometry` object
 (the same class, imported from the JAX package's JAX-free `config`

@@ -9,7 +9,7 @@ Centred descriptors are not ported yet.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -105,23 +105,32 @@ def patch_descriptors(feat: torch.Tensor, cfg: Config) -> torch.Tensor:
     return _normalize(desc)
 
 
-def sliding_descriptors(feat: torch.Tensor, cfg: Config) -> torch.Tensor:
+def sliding_descriptors(feat: torch.Tensor, cfg: Config, col0: int = 0,
+                        width_global: Optional[int] = None) -> torch.Tensor:
     """(..., Hp, W', F) features -> (..., H0, W', C) descriptors at every
     column.
 
-    Entry [i, x] describes the patch with top-left pixel (p*i, x);
-    windows overrunning the right edge (x > W' - p) are all-zero.
+    Entry [i, x] describes the patch with top-left pixel (p*i, col0 + x)
+    in global coordinates; windows whose global start lies outside
+    [0, width_global - p] are all-zero.  With col0 = 0 and width_global =
+    W' (the defaults) that is the unsharded rule: windows overrunning the
+    right edge are zero.  A W-tile passes its halo-extended slab with
+    col0 = tile start - halo (parallel/wtiled.py), so that out-of-image
+    halo columns correlate to 0, as out-of-range targets do unsharded.
     """
     check_supported(cfg)
     p = cfg.patch_size
     *lead, h, w, f = feat.shape
+    if width_global is None:
+        width_global = w
     h0 = h // p
     rows = feat[..., : h0 * p, :, :].reshape(*lead, h0, p, w, f)
     # windows[..., i, x0, dr, dc, f] = rows[..., i, dr, x0 + dc, f]
     shifted = [F.pad(rows[..., dc:, :], (0, 0, 0, dc)) for dc in range(p)]
     windows = torch.stack(shifted, dim=-2)        # (..., H0, p, W', p, F)
     desc = windows.transpose(-4, -3).reshape(*lead, h0, w, p * p * f)
-    ok = torch.arange(w, device=feat.device) <= w - p
+    xg = col0 + torch.arange(w, device=feat.device)
+    ok = (xg >= 0) & (xg <= width_global - p)
     desc = torch.where(ok[:, None], desc, torch.zeros((), dtype=desc.dtype,
                                                       device=desc.device))
     return _normalize(desc)

@@ -16,14 +16,16 @@ decided by the config and geometry, as in the JAX package:
            `pyramid_cuda.supported` holds, else K5 (exact) and
            `match_dmajor`.
 
-Not ported yet, raising NotImplementedError: lr_mode='direct', the
-post-filter (median_filter, fill_invalid), centred descriptors and
-bfloat16.
+lr_mode='direct' matches right->left on shared descriptors with +d
+targets (K2 with reverse=True), so 'fused' takes the 'exact' route there,
+as in JAX.  The post-filter runs on the cropped outputs
+(`apply_postfilter`).  Not ported yet, raising NotImplementedError:
+centred descriptors and bfloat16.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -32,6 +34,7 @@ from deepmatching_stereo_matching_tpu.config import Config, Geometry
 from ..ops import costvol as costvol_ops
 from ..ops import costvol_cuda, fused_cuda, pyramid_cuda
 from ..ops import pool as pool_ops
+from ..ops import postfilter as postfilter_ops
 from ..ops._dispatch import check_route
 from ..ops.pyramid_cuda import descend as backtrack_from
 from . import descriptors
@@ -44,10 +47,6 @@ def check_supported(cfg: Config) -> None:
     descriptors.check_supported(cfg)
     if cfg.dtype != "float32":
         raise NotImplementedError(f"dtype={cfg.dtype!r}: the port is float32 only")
-    if cfg.lr_check and cfg.lr_mode != "flip":
-        raise NotImplementedError(f"lr_mode={cfg.lr_mode!r} is not ported yet")
-    if cfg.median_filter or cfg.fill_invalid:
-        raise NotImplementedError("the post-filter is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -161,9 +160,13 @@ def lr_consistency_patch(disp_l: torch.Tensor, disp_r: torch.Tensor,
 
 def lr_consistency_patch_padded(disp_l: torch.Tensor, padded: torch.Tensor,
                                 tau: float, num_disparities: int,
-                                patch_size: int) -> torch.Tensor:
+                                patch_size: int, col0_patches: int = 0
+                                ) -> torch.Tensor:
     """`lr_consistency_patch` on a pre-padded (..., H0, n_q + 1 + W0) right
-    map whose first n_q + 1 columns lie left of the checked range.
+    map whose first n_q + 1 columns lie left of the checked range: the
+    sentinel fill unsharded, the left W-neighbour's trailing columns in a
+    W-tile (parallel/wtiled.py).  `col0_patches` is the global patch
+    column of disp_l's first column, for the in-range test x >= dL.
 
     With dL = p*q + r, pixel column x = p*J + c reads dR's patch column
     J - q when c >= r, else J - q - 1: two gathers on patch maps.
@@ -180,41 +183,60 @@ def lr_consistency_patch_padded(disp_l: torch.Tensor, padded: torch.Tensor,
     ok_a = (disp_l - d_r_a).abs() <= tau
     ok_b = (disp_l - d_r_b).abs() <= tau
     c = torch.arange(p, device=disp_l.device)
-    xs = jj[:, None] * p + c                        # (W0, p)
+    xs = (col0_patches + jj[:, None]) * p + c       # (W0, p)
     valid = torch.where(c >= r_l[..., None], ok_a[..., None], ok_b[..., None])
     valid &= dl[..., None] <= xs
     return valid.reshape(*lead, h0, w0 * p).repeat_interleave(p, -2)
 
 
-def match_padded_core(left_p: torch.Tensor, right_p: torch.Tensor,
-                      cfg: Config, geom: Geometry, route: str = "fused"
-                      ) -> Dict[str, torch.Tensor]:
-    """(..., Hp, Wp) padded pairs -> PADDED (..., Hp, Wp) outputs.
+MatchFn = Callable[[torch.Tensor, torch.Tensor, bool],
+                   Tuple[torch.Tensor, torch.Tensor]]
 
-    With lr_check (lr_mode='flip'), the L->R pass and the R->L pass on
-    the flipped PADDED pair run as one batch of pair-directions, so the
-    fused route launches its kernel once for the whole batch.
+
+def lr_directions(left: torch.Tensor, right: torch.Tensor, cfg: Config,
+                  match: MatchFn,
+                  flip: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                             Optional[torch.Tensor]]:
+    """The matching directions `cfg` asks for, each through
+    `match(srcs, tgts, reverse) -> (disp_patch, score)`.
+
+      flip:   L->R and the R->L pass on the flipped padded pair as one
+              batch (a new leading dim of 2), so a kernel launches once;
+      direct: L->R, then R->L with +d targets (reverse=True), no flip;
+      no LR:  L->R only.
+
+    `flip` is the horizontal flip of an image or a patch map (default:
+    the local one; a W-sharded caller passes the global one).
+    Returns (disp_fwd, score, disp_r_patch), the last None without LR.
     """
-    check_supported(cfg)
-    if cfg.lr_check:
-        lefts = torch.stack([left_p, right_p.flip(-1)])
-        rights = torch.stack([right_p, left_p.flip(-1)])
-        disp_patch, score_patch = one_direction(lefts, rights, cfg, geom,
-                                                route)
-        disp_fwd, score = disp_patch[0], score_patch[0]
+    if cfg.lr_check and cfg.lr_mode == "flip":
+        flip = flip or (lambda x: x.flip(-1))
+        disp, score = match(torch.stack([left, flip(right)]),
+                            torch.stack([right, flip(left)]), False)
         # densify(x).flip(-1) == densify(x.flip(-1)) on patch-aligned widths.
-        disp_r_patch = disp_patch[1].flip(-1)
-    else:
-        disp_fwd, score = one_direction(left_p, right_p, cfg, geom, route)
+        return disp[0], score[0], flip(disp[1])
+    disp_fwd, score = match(left, right, False)
+    if not cfg.lr_check:
+        return disp_fwd, score, None
+    disp_rev, _ = match(right, left, True)
+    return disp_fwd, score, disp_rev
 
+
+def pixel_outputs(disp_fwd: torch.Tensor, score: torch.Tensor, cfg: Config,
+                  disp_r_patch: Optional[torch.Tensor] = None,
+                  lr_valid: Optional[torch.Tensor] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """(..., H0, W0) patch decisions -> the five (..., Hp, Wp) outputs;
+    `lr_valid` is the LR check's pixel validity when disp_r_patch is
+    given."""
     disp_px = densify(disp_fwd, cfg.patch_size)
     score_px = densify(score, cfg.patch_size)
     valid = torch.ones(disp_px.shape, dtype=torch.bool, device=disp_px.device)
     disp_r_px = torch.zeros_like(disp_px)
-    if cfg.lr_check:
+    if disp_r_patch is not None:
         disp_r_px = densify(disp_r_patch, cfg.patch_size)
-        valid &= lr_consistency_patch(disp_fwd, disp_r_patch, cfg.tau,
-                                      geom.disparities, cfg.patch_size)
+        valid &= lr_valid
     if cfg.min_score > 0.0:
         valid &= score_px >= cfg.min_score
     out = torch.where(valid, disp_px.to(torch.float32),
@@ -229,17 +251,54 @@ def match_padded_core(left_p: torch.Tensor, right_p: torch.Tensor,
     }
 
 
+def match_padded_core(left_p: torch.Tensor, right_p: torch.Tensor,
+                      cfg: Config, geom: Geometry, route: str = "fused"
+                      ) -> Dict[str, torch.Tensor]:
+    """(..., Hp, Wp) padded pairs -> PADDED (..., Hp, Wp) outputs.
+
+    lr_mode='flip' and no LR run `one_direction`; 'direct' builds each
+    image's patch and sliding descriptors once and runs
+    `match_from_descriptors` both ways ('fused' becomes 'exact' there).
+    """
+    check_supported(cfg)
+    if cfg.lr_check and cfg.lr_mode == "direct":
+        def match(srcs, tgts, reverse):
+            return match_from_descriptors(
+                descriptors.left_descriptors(srcs, cfg),
+                descriptors.right_sliding_descriptors(tgts, cfg), cfg, geom,
+                route, reverse=reverse)
+    else:
+        def match(srcs, tgts, reverse):
+            return one_direction(srcs, tgts, cfg, geom, route)
+    disp_fwd, score, disp_r_patch = lr_directions(left_p, right_p, cfg, match)
+    lr_valid = None
+    if disp_r_patch is not None:
+        lr_valid = lr_consistency_patch(disp_fwd, disp_r_patch, cfg.tau,
+                                        geom.disparities, cfg.patch_size)
+    return pixel_outputs(disp_fwd, score, cfg, disp_r_patch, lr_valid)
+
+
 def crop(outputs: Dict[str, torch.Tensor], height: int, width: int
          ) -> Dict[str, torch.Tensor]:
     """Crop padded (..., Hp, Wp) outputs back to the true image size."""
     return {k: v[..., :height, :width] for k, v in outputs.items()}
 
 
+def apply_postfilter(out: Dict[str, torch.Tensor], cfg: Config
+                     ) -> Dict[str, torch.Tensor]:
+    """C13 on cropped outputs (leading batch dims allowed): the configured
+    median and fill on "disparity"; the other keys stay raw."""
+    if not (cfg.median_filter or cfg.fill_invalid):
+        return out
+    return {**out, "disparity": postfilter_ops.postfilter(
+        out["disparity"], cfg.median_filter, cfg.fill_invalid)}
+
+
 def match_padded(left_p: torch.Tensor, right_p: torch.Tensor, cfg: Config,
                  height: int, width: int, route: str = "fused"
                  ) -> Dict[str, torch.Tensor]:
-    """Padded f32 pairs -> cropped outputs (the post-filter is a no-op
-    under the default Config and raises otherwise)."""
+    """Padded f32 pairs -> cropped, post-filtered outputs."""
     geom = cfg.geometry(height, width)
-    return crop(match_padded_core(left_p, right_p, cfg, geom, route),
-                height, width)
+    return apply_postfilter(
+        crop(match_padded_core(left_p, right_p, cfg, geom, route), height,
+             width), cfg)

@@ -44,6 +44,10 @@ _SIGNATURES = {
     "dm_cost_rows_smem": [_I, _I],
     # src, tgt, out, n, h0, w0, wt, c, d0, p, max_d, reverse, origin_offset, stream
     "dm_costvol_dmajor": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # src, tgt, out, n, h0, w0, wt, c, d0, p, max_d, reverse, origin_offset,
+    # d_offset, stream
+    "dm_costvol_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P],
     # cost, disp, score, n, d0, h0, w0, levels, lam, stream
     "dm_pyramid_backtrack": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # left, right, lbin, rbin, disp, score, n, hp, wp, p, d0, max_d, levels,

@@ -11,7 +11,7 @@ which rounds like `np.power` only to ~2 ULP.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,28 +20,39 @@ def _pool(lo_first: torch.Tensor, even: torch.Tensor, odd: torch.Tensor,
           dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
     lo = torch.cat([lo_first, odd.narrow(dim, 0, odd.shape[dim] - 1)], dim)
     pooled = torch.maximum(torch.maximum(lo, even), odd)
+    # masked_fill_, not boolean-mask assignment: the latter waits for the
+    # device to count the mask.
     arg = torch.ones(pooled.shape, dtype=torch.int8, device=pooled.device)
-    arg[pooled == even] = 0
-    arg[pooled == lo] = -1      # lo wins ties, then even, then odd
+    arg.masked_fill_(pooled == even, 0)
+    arg.masked_fill_(pooled == lo, -1)  # lo wins ties, then even, then odd
     return pooled, arg
 
 
-def pool3_subsample(maps: torch.Tensor
+def pool3_subsample(maps: torch.Tensor,
+                    lo_pad: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., H, W, D) -> (pooled, arg), both (..., H, W, D//2).
 
     arg[..., k] in {-1, 0, +1} is the offset of the pool winner around
     d = 2k; the -1.0 pad below bin 0 never wins against a correlation.
+    `lo_pad` (..., H, W) replaces that pad: a disparity slab of a sharded
+    volume passes the previous slab's last odd plane, so that its pool
+    equals the unsharded one (parallel/ringd.py).
     """
     even, odd = maps[..., 0::2], maps[..., 1::2]
-    return _pool(torch.full_like(odd[..., :1], -1.0), even, odd, -1)
+    lo = (torch.full_like(odd[..., :1], -1.0) if lo_pad is None
+          else lo_pad.to(maps.dtype)[..., None])
+    return _pool(lo, even, odd, -1)
 
 
-def pool3_subsample_dmajor(maps: torch.Tensor
+def pool3_subsample_dmajor(maps: torch.Tensor,
+                           lo_pad: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`pool3_subsample` on the D-major (..., D, H, W) layout."""
     even, odd = maps[..., 0::2, :, :], maps[..., 1::2, :, :]
-    return _pool(torch.full_like(odd[..., :1, :, :], -1.0), even, odd, -3)
+    lo = (torch.full_like(odd[..., :1, :, :], -1.0) if lo_pad is None
+          else lo_pad.to(maps.dtype)[..., None, :, :])
+    return _pool(lo, even, odd, -3)
 
 
 def quad_mean(sub: torch.Tensor, h_dim: int) -> torch.Tensor:

@@ -2,7 +2,7 @@
 
     python -m deepmatching_stereo_matching_tpu_torch.profile_steps \
         [--cells bench,grad_hist,kitti128,kitti256] [--routes fused,exact] \
-        [--steps 5]
+        [--steps 5] [--strategies tiled,dslab,ringd,wtiled,wtiled1]
     python deepmatching_stereo_matching_tpu_torch/profile_steps.py --k1 \
         [--root CHECKOUT]
 
@@ -12,7 +12,10 @@ grad_hist descriptors), kitti128 and kitti256 (1242x375 at D=128 x 8
 pairs and D=256 x 4 pairs, tools/bench_large.py's recipe).
 
 For each cell and route, `--steps` calls of `match_padded_core` run once
-unprofiled and once under torch.profiler.  Of the profiled steps it
+unprofiled and once under torch.profiler; with `--strategies`, so do
+`parallel.match_batch_sharded` calls of each named sharded strategy on a
+world of one rank over NCCL (tiled on 'fused', the others on 'exact';
+wtiled1 is wtiled with merge_level 1).  Of the profiled steps it
 prints, per step:
   span: device time from a CUDA event recorded before the first step to
       one recorded after the last;
@@ -47,6 +50,13 @@ CELLS = {  # name -> (height, width, max_disparity, descriptor, pairs, block, se
     "kitti128": (375, 1242, 128, "patch", 8, 48, 0),
     "kitti256": (375, 1242, 256, "patch", 4, 48, 0),
 }
+STRATEGIES = {  # name -> (strategy, route, merge_level)
+    "tiled": ("tiled", "fused", None),
+    "dslab": ("dslab", "exact", None),
+    "ringd": ("ringd", "exact", None),
+    "wtiled": ("wtiled", "exact", None),
+    "wtiled1": ("wtiled", "exact", 1),
+}
 
 
 def _padded_pairs(cell):
@@ -70,7 +80,29 @@ def _padded_pairs(cell):
             torch.from_numpy(np.stack(rights)).cuda())
 
 
-def profile_cells(cells, routes, steps):
+def _strategy_steps(cfg, geom, lp, rp, names):
+    """(label, step) for each named strategy on the one-rank world."""
+    from deepmatching_stereo_matching_tpu_torch.parallel import (
+        mesh as mesh_lib, sharded)
+
+    meshes = {2: mesh_lib.make_mesh(1, 1), 3: mesh_lib.make_mesh2d(1, 1, 1)}
+    for name in names:
+        strategy, route, ml = STRATEGIES[name]
+        mesh = meshes[3 if strategy == "wtiled" else 2]
+        glob = sharded.strategy_geometry(cfg, geom.height, geom.width, mesh,
+                                         strategy, ml)
+        if (glob.padded_height, glob.padded_width, glob.disparities) != (
+                geom.padded_height, geom.padded_width, geom.disparities):
+            raise ValueError(f"{name} pads this cell differently: {glob}")
+
+        def step(strategy=strategy, route=route, ml=ml, mesh=mesh):
+            return sharded.match_batch_sharded(
+                lp, rp, cfg, geom.height, geom.width, mesh, strategy, route,
+                ml)
+        yield f"{name} [{route}]", step
+
+
+def profile_cells(cells, routes, steps, strategies=()):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -92,9 +124,11 @@ def profile_cells(cells, routes, steps):
 
     for cell in cells:
         cfg, geom, lp, rp = _padded_pairs(cell)
-        for route in routes:
-            def step():
-                return pipeline.match_padded_core(lp, rp, cfg, geom, route)
+        todo = [(f"[{route}]",
+                 lambda route=route: pipeline.match_padded_core(
+                     lp, rp, cfg, geom, route)) for route in routes]
+        todo += list(_strategy_steps(cfg, geom, lp, rp, strategies))
+        for label, step in todo:
             for _ in range(3):
                 step()
             plain_span, plain_enq = timed(step)
@@ -110,7 +144,7 @@ def profile_cells(cells, routes, steps):
                             e.count // steps, e.key) for e in rows
                            if e.self_cpu_time_total > 0), reverse=True)
             kernels = sum(ms for ms, _, _ in dev)
-            print(f"\n== {cell} [{route}] {lp.shape[0]} pairs, per step over "
+            print(f"\n== {cell} {label} {lp.shape[0]} pairs, per step over "
                   f"{steps} profiled steps: span {span:.4f} ms, kernels "
                   f"{kernels:.4f} ms, idle {1 - kernels / span:+.4f}, "
                   f"enqueue {enq:.4f} ms; unprofiled: span "
@@ -157,6 +191,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cells", default=",".join(CELLS))
     ap.add_argument("--routes", default="fused,exact")
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--strategies", default="",
+                    help=f"sharded strategies to profile too, of "
+                         f"{','.join(STRATEGIES)}")
     ap.add_argument("--k1", action="store_true",
                     help="time K1 alone at the bench shapes")
     ap.add_argument("--root", type=Path,
@@ -178,9 +215,26 @@ def main(argv=None) -> int:
         return 2
     if args.k1:
         time_k1()
-    else:
-        profile_cells(args.cells.split(","), args.routes.split(","),
-                      args.steps)
+        return 0
+    cells = args.cells.split(",")
+    routes = [r for r in args.routes.split(",") if r]
+    strategies = [s for s in args.strategies.split(",") if s]
+    if not strategies:
+        profile_cells(cells, routes, args.steps)
+        return 0
+    import tempfile
+
+    import torch.distributed as dist
+
+    from deepmatching_stereo_matching_tpu_torch.parallel import launch
+
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as rdzv:
+        launch.init("nccl", 0, 1, str(Path(rdzv) / "rendezvous"))
+        try:
+            profile_cells(cells, routes, args.steps, strategies)
+        finally:
+            dist.destroy_process_group()
     return 0
 
 

@@ -455,3 +455,173 @@ def test_descend_d_minor_equals_d_major():
     np.testing.assert_array_equal(dmajor.numpy(), dminor.numpy())
     assert dmajor.shape == (2, 8, 8)
     assert 0 <= int(dmajor.min()) and int(dmajor.max()) < 16
+
+
+# ---------------------------------------------------------------------------
+# What the sharded strategies add: K6 slabs, pool halos, halo descriptors,
+# the post-filter
+# ---------------------------------------------------------------------------
+
+
+def _halo_pair(seed, halo_q):
+    """Descriptors with the target extended by halo_q zero patch columns
+    on each side, as a W-tile carries them."""
+    src, tgt = _desc_pair(seed)
+    z = np.zeros((tgt.shape[0], 4 * halo_q, tgt.shape[2]), np.float32)
+    return src, np.concatenate([z, tgt, z], axis=1)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("d_local,d_offset", [(16, 0), (8, 0), (8, 8),
+                                              (4, 12)])
+def test_plain_slab_kernel_matches_pallas_slab(reverse, d_local, d_offset):
+    """Plain K6 on a patch-aligned slab vs costvol_pallas.cost_volume_slab
+    and costvol.cost_volume(d_offset=) (max_d 13: the last slab holds
+    masked bins), with a batch dim."""
+    src, tgt = _desc_pair(5)
+    args = (d_local, 4, 13)
+    want = np.asarray(costvol_pallas.cost_volume_slab(
+        jnp.asarray(src), jnp.asarray(tgt), *args, reverse=reverse,
+        d_offset=d_offset))
+    ref = np.asarray(jcostvol.cost_volume(
+        jnp.asarray(src), jnp.asarray(tgt), *args, reverse=reverse,
+        d_offset=d_offset))
+    rows = costvol_cuda.cost_volume_rows(
+        t(np.stack([src, src])), t(np.stack([tgt, tgt])), *args,
+        reverse=reverse, d_offset=d_offset)
+    assert rows.shape == (2, 8, d_local, 16)
+    got = costvol_cuda.cost_volume(t(src), t(tgt), *args, reverse=reverse,
+                                   d_offset=d_offset).numpy()
+    np.testing.assert_array_equal(got, rows[1].transpose(-1, -2).numpy())
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    np.testing.assert_allclose(got, ref, atol=1e-6)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("d_local,d_offset", [(2, 0), (2, 6), (6, 10)])
+def test_plain_slab_kernel_unaligned_slab(reverse, d_local, d_offset):
+    """Slabs that are not a multiple of the patch size (the Pallas slab
+    kernel raises on them) vs costvol.cost_volume(d_offset=)."""
+    src, tgt = _desc_pair(6)
+    want = np.asarray(jcostvol.cost_volume(
+        jnp.asarray(src), jnp.asarray(tgt), d_local, 4, 16, reverse=reverse,
+        d_offset=d_offset))
+    got = costvol_cuda.cost_volume(t(src), t(tgt), d_local, 4, 16,
+                                   reverse=reverse, d_offset=d_offset)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_plain_slab_kernel_halo_target(reverse):
+    """K6 on a halo-extended target (origin_offset = halo_q) vs
+    costvol_pallas.cost_volume and costvol.cost_volume."""
+    halo_q = 4
+    src, tgt = _halo_pair(7, halo_q)
+    args = (16, 4, 16)
+    want = np.asarray(costvol_pallas.cost_volume(
+        jnp.asarray(src), jnp.asarray(tgt), *args, reverse=reverse,
+        origin_offset=halo_q))
+    ref = np.asarray(jcostvol.cost_volume(
+        jnp.asarray(src), jnp.asarray(tgt), *args, reverse=reverse,
+        origin_offset=halo_q))
+    got = costvol_cuda.cost_volume(t(src), t(tgt), *args, reverse=reverse,
+                                   origin_offset=halo_q).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    np.testing.assert_allclose(got, ref, atol=1e-6)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_slabs_concatenate_to_dmajor_volume_bitwise(reverse):
+    """Four K6 slabs, concatenated along D, are K2's D-major volume bit
+    for bit (the sharded strategies' bitwise contract rests on it)."""
+    src, tgt = _desc_pair(8)
+    whole = costvol_cuda.cost_volume_dmajor(t(src), t(tgt), 16, 4, 13,
+                                            reverse=reverse)
+    slabs = [costvol_cuda.cost_volume_rows(t(src), t(tgt), 4, 4, 13,
+                                           reverse=reverse, d_offset=4 * k)
+             for k in range(4)]
+    joined = torch.cat(slabs, dim=-2).movedim(-2, -3)
+    np.testing.assert_array_equal(joined.numpy(), whole.numpy())
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_pool3_subsample_lo_pad_bitwise(kind):
+    """The halo plane replaces the -1 pad, in both layouts, and a slab
+    pooled with its predecessor's last odd plane equals the unsharded
+    pool's half."""
+    rng = np.random.default_rng(9)
+    shape = (4, 6, 16)
+    maps = (_tie_volume(rng, shape) if kind == "ties" else
+            rng.uniform(0, 1, shape).astype(np.float32))
+    halo = maps[:, :, 7]
+    wp, wa = jpool.pool3_subsample(jnp.asarray(maps[..., 8:]),
+                                   lo_pad=jnp.asarray(halo))
+    gp, ga = pool.pool3_subsample(t(maps[..., 8:]), lo_pad=t(halo))
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    np.testing.assert_array_equal(ga.numpy(), np.asarray(wa))
+    fp, fa = pool.pool3_subsample(t(maps))
+    np.testing.assert_array_equal(gp.numpy(), fp[..., 4:].numpy())
+    np.testing.assert_array_equal(ga.numpy(), fa[..., 4:].numpy())
+    dm = np.ascontiguousarray(maps[..., 8:].transpose(2, 0, 1))
+    wp, wa = jpool.pool3_subsample_dmajor(jnp.asarray(dm),
+                                          lo_pad=jnp.asarray(halo))
+    gp, ga = pool.pool3_subsample_dmajor(t(dm), lo_pad=t(halo))
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    np.testing.assert_array_equal(ga.numpy(), np.asarray(wa))
+
+
+@pytest.mark.parametrize("descriptor", ["patch", "grad_hist"])
+@pytest.mark.parametrize("col0,width_global", [(0, None), (-8, 32),
+                                               (12, 48), (-3, 20)])
+def test_sliding_descriptors_global_window(descriptor, col0, width_global):
+    """The global-window mask zeroes exactly JAX's windows; values hold
+    JAX at 1e-6 (normalisation sums in another order), and a slab cut
+    from a wider map with its col0 gives the wide map's descriptors bit
+    for bit wherever its window lies inside the slab."""
+    rng = np.random.default_rng(10)
+    cfg = Config(max_disparity=16, descriptor=descriptor)
+    f = 1 if descriptor == "patch" else 8
+    feat = rng.uniform(0, 1, (16, 40, f)).astype(np.float32)
+    want = np.asarray(jdesc.sliding_descriptors(
+        jnp.asarray(feat), cfg, col0=col0, width_global=width_global))
+    got = descriptors.sliding_descriptors(t(feat), cfg, col0=col0,
+                                          width_global=width_global).numpy()
+    np.testing.assert_array_equal((got == 0).all(-1), (want == 0).all(-1))
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    wide = np.zeros((16, 80, f), np.float32)
+    wide[:, 20:60] = feat
+    whole = descriptors.sliding_descriptors(
+        t(wide), cfg, col0=col0 - 20,
+        width_global=width_global or 40).numpy()
+    inside = slice(20, 20 + 40 - 3)
+    np.testing.assert_array_equal(got[:, : 40 - 3], whole[:, inside])
+
+
+def _postfilter_maps():
+    rng = np.random.default_rng(13)
+    disp = rng.integers(0, 16, (2, 12, 17)).astype(np.float32)
+    disp[rng.random(disp.shape) < 0.3] = np.nan
+    disp[0, 3, :] = np.nan                  # a row with nothing valid
+    disp[1, :, 5] = np.inf
+    return disp
+
+
+@pytest.mark.parametrize("fn,args", [
+    ("median_valid", (3, True)), ("median_valid", (3, False)),
+    ("median_valid", (5, True)), ("fill_background", ()),
+    ("postfilter", (3, True)), ("postfilter", (5, False)),
+    ("postfilter", (0, True)),
+])
+def test_postfilter_bitwise(fn, args):
+    """Batched torch post-filter == JAX's and the oracle's, per map."""
+    from deepmatching_stereo_matching_tpu.ops import postfilter as jpost
+    from deepmatching_stereo_matching_tpu_torch.ops import postfilter as post
+
+    disp = _postfilter_maps()
+    got = getattr(post, fn)(t(disp), *args).numpy()
+    assert got.shape == disp.shape and got.dtype == np.float32
+    for b in range(2):
+        for want in (np.asarray(getattr(jpost, fn)(jnp.asarray(disp[b]),
+                                                   *args)),
+                     getattr(oracle, fn)(disp[b], *args)):
+            np.testing.assert_array_equal(got[b], want)

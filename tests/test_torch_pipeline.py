@@ -43,6 +43,7 @@ NEW_PATHS = {
     "large_d": (Config(max_disparity=128, levels=5), 128, 128, 48),
     "grad_hist": (Config(max_disparity=MAX_D, descriptor="grad_hist"),
                   H, W, MAX_D),
+    "direct": (Config(max_disparity=MAX_D, lr_mode="direct"), H, W, MAX_D),
 }
 
 
@@ -73,10 +74,15 @@ def assert_within_fused_gate(got, want):
         assert rate <= FUSED_DECISION_TOL, (k, rate)
 
 
-@pytest.mark.parametrize("lr_check", [True, False], ids=["flip", "no_lr"])
+@pytest.mark.parametrize("lr_check,lr_mode", [(True, "flip"),
+                                              (False, "flip"),
+                                              (True, "direct")],
+                         ids=["flip", "no_lr", "direct"])
 @pytest.mark.parametrize("route", ["fused", "exact", "torch"])
-def test_match_padded_core_batched_matches_jax(route, lr_check):
-    cfg = Config(max_disparity=MAX_D, lr_check=lr_check)
+def test_match_padded_core_batched_matches_jax(route, lr_check, lr_mode):
+    """'direct' matches R->L with +d targets on shared descriptors; on
+    'fused' it takes the 'exact' route, as in JAX."""
+    cfg = Config(max_disparity=MAX_D, lr_check=lr_check, lr_mode=lr_mode)
     geom = cfg.geometry(H, W)
     pairs = padded_pairs(cfg, (3, 4))
     lb = torch.from_numpy(np.stack([l for l, _ in pairs]))
@@ -102,6 +108,23 @@ def test_lr_consistency_patch_matches_jax():
     got = pipeline.lr_consistency_patch(torch.from_numpy(dl),
                                         torch.from_numpy(dr), 1.0, 32, 4)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("col0_patches", [0, 5])
+def test_lr_consistency_patch_padded_matches_jax(col0_patches):
+    """A W-tile's check: the left neighbour's trailing columns in the pad,
+    the tile's global patch column in the in-range test x >= dL."""
+    rng = np.random.default_rng(1)
+    dl = rng.integers(0, 32, (2, 6, 16)).astype(np.int32)
+    padded = rng.integers(0, 32, (2, 6, 8 + 1 + 16)).astype(np.int32)
+    got = pipeline.lr_consistency_patch_padded(
+        torch.from_numpy(dl), torch.from_numpy(padded), 1.0, 32, 4,
+        col0_patches)
+    for b in range(2):
+        want = np.asarray(jpipeline.lr_consistency_patch_padded(
+            jnp.asarray(dl[b]), jnp.asarray(padded[b]), 1.0, 32, 4,
+            col0_patches))
+        np.testing.assert_array_equal(got[b].numpy(), want)
 
 
 @pytest.mark.parametrize("route", ["fused", "exact", "torch"])
@@ -142,7 +165,9 @@ def test_port_imports_no_jax():
         "from deepmatching_stereo_matching_tpu_torch import Config\n"
         "from deepmatching_stereo_matching_tpu_torch.api import match_stereo\n"
         "from deepmatching_stereo_matching_tpu_torch.ops import "
-        "fused_cuda, costvol_cuda, pyramid_cuda\n"
+        "fused_cuda, costvol_cuda, pyramid_cuda, postfilter\n"
+        "from deepmatching_stereo_matching_tpu_torch.parallel import "
+        "launch, ringd, sharded, wtiled\n"
         "from deepmatching_stereo_matching_tpu.data.synthetic import "
         "make_block_pair\n"
         "l, r, _ = make_block_pair(64, 96, max_disparity=16, seed=0)\n"
@@ -195,9 +220,29 @@ def test_kernel_modules_import_without_nvcc():
     assert not _build.loaded()
 
 
+@pytest.mark.parametrize("cfg", [
+    Config(max_disparity=16, lr_mode="direct"),
+    Config(max_disparity=16, median_filter=3),
+], ids=["lr_mode", "post-filter"])
+@pytest.mark.parametrize("route", ["fused", "exact"])
+def test_formerly_uncovered_configs_match_jax(cfg, route):
+    """lr_mode='direct' and the post-filter, which raised before they
+    were ported: `api.match_stereo` vs JAX's and the oracle's."""
+    left, right, _ = synthetic_pair(2, 64, 64, 16)
+    got = api.match_stereo(left, right, cfg, impl=route, device="cpu")
+    want = japi.match_stereo(left, right, cfg, impl=JAX_IMPL[route])
+    ora = oracle.match_stereo(left, right, cfg)
+    for ref in (want, ora):
+        np.testing.assert_array_equal(got.disparity_raw, ref.disparity_raw)
+        np.testing.assert_array_equal(got.valid, ref.valid)
+        np.testing.assert_array_equal(got.disparity, ref.disparity)
+        np.testing.assert_array_equal(got.disparity_right,
+                                      ref.disparity_right)
+        np.testing.assert_allclose(got.score, ref.score, rtol=1e-5,
+                                   atol=2e-5)
+
+
 @pytest.mark.parametrize("cfg,height,width,match", [
-    (Config(max_disparity=16, lr_mode="direct"), 64, 64, "lr_mode"),
-    (Config(max_disparity=16, median_filter=3), 64, 64, "post-filter"),
     (Config(max_disparity=16, dtype="bfloat16"), 64, 64, "float32"),
     (Config(max_disparity=16, center_descriptors=True), 64, 64,
      "center_descriptors"),
@@ -279,6 +324,7 @@ def test_new_paths_api_match_oracle(route, path):
     ("large_d", "exact", ["cost_volume_dmajor", "aggregate_dmajor(exact)"]),
     ("grad_hist", "fused", ["match_rows"]),
     ("grad_hist", "exact", ["cost_volume_dmajor", "pyramid_backtrack"]),
+    ("direct", "fused", ["cost_volume_dmajor", "pyramid_backtrack"] * 2),
 ])
 def test_routes_pick_kernels_by_config(monkeypatch, path, route, called):
     """Which kernel wrappers each new path reaches (on the card each is
