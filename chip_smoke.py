@@ -27,6 +27,12 @@ Phases, each printing its own lines (any failure exits nonzero):
        along D bitwise equal to K2's volume; at the bench shapes on a
        halo-extended target (origin_offset = halo_q = 16): atol 1e-6 and
        bitwise equal to K2 on the unextended target;
+  3d. the streaming probes P1-P3 through their entry point
+     (`tools.vpu_probe`, counts zeroed before it: exactly P1, P2, P3), each
+     bitwise equal to its plain version at its full repetitions, timed,
+     and failing above 1.05 of the 67 TFLOP/s float32 peak; where
+     `cuobjdump` exists, each probe kernel's SASS holds 256 FMUL and no
+     FFMA (no product merged or contracted);
   4. main path through `api.match_stereo` against the NumPy oracle: two
      bench pairs (patch: 'fused' within the bench's 0.5% decision gate,
      'exact' bitwise on decisions), one KITTI pair at D=128 (the
@@ -35,7 +41,12 @@ Phases, each printing its own lines (any failure exits nonzero):
      pairs with grad_hist (both routes within the 0.5% gate); each path
      and route runs with the launch counts set to 0 just before it, and
      must launch exactly its kernels: bench K1 | K2, K3; KITTI K4, K5 |
-     K2, K5; grad_hist K1b | K2, K3 ('fused' | 'exact');
+     K2, K5; grad_hist K1b | K2, K3 ('fused' | 'exact'); centred
+     descriptors on bench pairs 100/101 ('fused': exactly K2, K3;
+     raw_neq = valid_neq = 0); `utils.checks.checked_match_padded` on pair
+     100 ('fused': equal to the unchecked pipeline; raises naming the
+     non-finite input on a NaN plane); the CLI (`--demo -o DIR`) in a
+     subprocess: exit 0, five files, impl 'fused';
   5. timing with CUDA events (any sample <= 0 fails): the batched
      `match_padded_core` step per route for the bench (32 pairs), grad_hist
      (32 pairs) and KITTI (D=128 x 8 pairs, D=256 x 4 pairs), and peak
@@ -50,10 +61,19 @@ Phases, each printing its own lines (any failure exits nonzero):
      valid_neq = 0 against the oracle; launch counts zeroed before each
      strategy: tiled K1 ('direct': K2, K3), dslab K6, K5, ringd K6,
      wtiled(1) K6, wtiled(None) K2, K3; then each strategy's step at
-     KITTI D=256 x 4 pairs ('flip'), timed as in 5.
-Then the total wall time, one JSON line with the kernels' numbers, and as
-the last line {"ok": true, "device": {...}}.  Needs one CUDA device;
-imports no JAX.
+     KITTI D=256 x 4 pairs ('flip'), timed as in 5; then the stream
+     (`parallel.run_stream`, tiled, 'fused', batch 32) over 69 bench
+     pairs (seeds 100-168: two batches and a tail of 5), every pair bitwise
+     to the unsharded pipeline, 3 `batch_done` and one `tail_batch` log
+     events, its Mpx/s beside the step's; again with a match step that
+     fails once (1 retry, same outputs); and through
+     `parallel.pairs_from_paths` over the pairs written as PGM (the native
+     loader must build; planes bitwise equal to the in-memory path's).
+Then the total wall time, one JSON line with the kernels' numbers (each
+with its bound: the larger of its bytes, each input read once and each
+output written once, over 3.35 TB/s and its operations over 67 TFLOP/s),
+and as the last line {"ok": true, "device": {...}}.  Needs one CUDA
+device; imports nothing of JAX or the JAX package.
 """
 
 import json
@@ -74,6 +94,12 @@ RAGGED_HW, RAGGED_D = (100, 300), 99   # L=2: a 28x76-patch grid, D0=100
 MAIN_PATH_SEEDS = (100, 101)
 SLAB = 64                              # K6 check: D=256 in four slabs
 FUSED_DECISION_TOL = 0.005
+STREAM_PAIRS, STREAM_TAIL = 69, 5       # two batches of BATCH and a tail
+HBM_BYTES_PER_S, PEAK_F32 = 3.35e12, 67e12   # H100 SXM data sheet
+PROBE_SASS = {"P1": "stream_kernelILi384", "P2": "stream_kernelILi96",
+              "P3": "shift_kernel"}
+PROBE_NAMES = {"P1": "stream", "P2": "small", "P3": "shift"}
+KEYS = ("disparity", "disparity_raw", "valid", "score", "disparity_right")
 PKG = "deepmatching_stereo_matching_tpu_torch"
 JAX_PKG = "deepmatching_stereo_matching_tpu"
 
@@ -89,7 +115,7 @@ def require(ok, msg):
 
 def make_pair(seed):
     """The bench's synthetic pair recipe (seed 100 + i)."""
-    from deepmatching_stereo_matching_tpu.data import synthetic
+    from deepmatching_stereo_matching_tpu_torch.data import synthetic
 
     rng = np.random.default_rng(seed)
     field = synthetic.block_disparity_field(H, W, MAX_D, rng, block=32)
@@ -98,11 +124,63 @@ def make_pair(seed):
 
 def make_kitti_pair(seed, max_d):
     """tools/bench_large.py's KITTI-size recipe."""
-    from deepmatching_stereo_matching_tpu.data import synthetic
+    from deepmatching_stereo_matching_tpu_torch.data import synthetic
 
     rng = np.random.default_rng(seed)
     field = synthetic.block_disparity_field(KH, KW, max_d, rng, block=48)
     return synthetic.make_pair(KH, KW, field, seed=seed)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def cost_flops(volume_elems, terms):
+    """A correlation's multiply-adds: 2 per descriptor term per bin (the
+    norms, the relu and the division are left out: a lower bound)."""
+    return 2 * terms * volume_elems
+
+
+def pyramid_flops(volume_elems, levels):
+    """Per element of each level above 0: the 3-pool (2 max), the 4-child
+    mean (3 add, 1 mul) and the pow (1)."""
+    return sum(7 * volume_elems // 8 ** lvl for lvl in range(1, levels + 1))
+
+
+def bound(work):
+    """(ms, 'bytes' | 'operations'): the least time the card could take,
+    the larger of bytes over its memory rate and operations over its
+    float32 peak."""
+    bytes_, flops = work
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / PEAK_F32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def probe_sass(so):
+    """{kernel: {FMUL, FADD, FFMA: count}} of the probe kernels in the
+    built library's SASS, or None where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    proc = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True)
+    counts, cur = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            cur = next((k for k, tag in PROBE_SASS.items() if tag in fn),
+                       None)
+            if cur is not None:
+                counts[cur] = dict.fromkeys(("FMUL", "FADD", "FFMA"), 0)
+        elif cur is not None:
+            for op in counts[cur]:
+                if re.search(rf"\b{op}\b", line):
+                    counts[cur][op] += 1
+    return counts
 
 
 def cuda_ms(torch, fn, reps, warmup=1):
@@ -130,18 +208,20 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from deepmatching_stereo_matching_tpu.config import Config
-    from deepmatching_stereo_matching_tpu.oracle import reference as oracle
-    from deepmatching_stereo_matching_tpu.utils import metrics
     import torch.distributed as dist
     import torch.nn.functional as F
-    from deepmatching_stereo_matching_tpu_torch import api
+    from deepmatching_stereo_matching_tpu_torch import api, native
+    from deepmatching_stereo_matching_tpu_torch.config import Config
+    from deepmatching_stereo_matching_tpu_torch.oracle import reference as oracle
+    from deepmatching_stereo_matching_tpu_torch.utils import checks, metrics
+    from deepmatching_stereo_matching_tpu_torch.utils.logging import JsonlLogger
     from deepmatching_stereo_matching_tpu_torch.models import descriptors
     from deepmatching_stereo_matching_tpu_torch.models import pipeline
     from deepmatching_stereo_matching_tpu_torch.ops import (
-        _build, costvol, costvol_cuda, fused_cuda, pyramid_cuda)
+        _build, costvol, costvol_cuda, fused_cuda, probe_cuda, pyramid_cuda)
     from deepmatching_stereo_matching_tpu_torch.parallel import (
-        launch, mesh as mesh_lib, sharded, wtiled)
+        launch, mesh as mesh_lib, runner, sharded, wtiled)
+    from deepmatching_stereo_matching_tpu_torch.tools import vpu_probe
     from deepmatching_stereo_matching_tpu_torch.profile_steps import (
         STRATEGIES as STRATEGY_RUNS)
 
@@ -184,9 +264,11 @@ def main():
 
     rows = {}
 
-    def record(key, err, kernel_fn, plain_fn, reps=10, plain_reps=3):
+    def record(key, err, kernel_fn, plain_fn, work, reps=10, plain_reps=3):
+        """`work` = (bytes moved, operations) of one kernel call."""
         rows[key] = dict(err=err, ms=cuda_ms(torch, kernel_fn, reps),
-                         plain=cuda_ms(torch, plain_fn, plain_reps))
+                         plain=cuda_ms(torch, plain_fn, plain_reps),
+                         work=work)
 
     def fused_vs_plain(key, lefts, rights, cfg, geom):
         """K1 on pixel planes, K1b on (magnitude, bin) planes."""
@@ -194,8 +276,10 @@ def main():
             (lm, lb), (rm, rb) = map(descriptors.grad_hist_magbin,
                                      (lefts, rights))
             planes = (lm, rm, cfg, geom, lb, rb)
+            inputs = (lm, rm, lb, rb)
         else:
             planes = (lefts, rights, cfg, geom)
+            inputs = (lefts, rights)
         d, s = fused_cuda.match_planes(*planes)
         sync()
         dp, sp = fused_cuda.match_planes_torch(*planes)
@@ -207,8 +291,11 @@ def main():
               f"max |score diff| where equal {serr:.3e}")
         require(flips <= FUSED_DECISION_TOL and serr <= 2e-5,
                 f"{key} disagrees with its plain version")
+        volume = d.numel() * geom.disparities
         record(key, serr, lambda: fused_cuda.match_planes(*planes),
-               lambda: fused_cuda.match_planes_torch(*planes))
+               lambda: fused_cuda.match_planes_torch(*planes),
+               (nbytes(*inputs, d, s),
+                cost_flops(volume, cfg.patch_size ** 2)))
 
     # 3a. Kernels vs their plain versions at the bench shapes.
     cfg = Config(max_disparity=MAX_D)
@@ -233,7 +320,8 @@ def main():
     del vol_p
     record("K2", err2,
            lambda: costvol_cuda.cost_volume_dmajor(ds, dt, *args2),
-           lambda: costvol_cuda.cost_volume_dmajor_torch(ds, dt, *args2))
+           lambda: costvol_cuda.cost_volume_dmajor_torch(ds, dt, *args2),
+           (nbytes(ds, dt, vol), cost_flops(vol.numel(), ds.shape[-1])))
 
     d3, s3 = pyramid_cuda.pyramid_backtrack(vol, geom.levels, cfg.lam)
     sync()
@@ -246,7 +334,8 @@ def main():
     require(flip3 == 0.0 and serr3 == 0.0, "K3 disagrees with its plain version")
     record("K3", serr3,
            lambda: pyramid_cuda.pyramid_backtrack(vol, geom.levels, cfg.lam),
-           lambda: pyramid_cuda.pyramid_body(vol, geom.levels, cfg.lam))
+           lambda: pyramid_cuda.pyramid_body(vol, geom.levels, cfg.lam),
+           (nbytes(vol, d3, s3), pyramid_flops(vol.numel(), geom.levels)))
     del vol, ds, dt
 
     def smem_agrees(label, lib_bytes, mirror_bytes):
@@ -309,6 +398,8 @@ def main():
             record("K4", err4,
                    lambda: fused_cuda.cost_volume_rows(kl, kr, kcfg, kgeom),
                    lambda: fused_cuda.cost_volume_torch(kl, kr, kcfg, kgeom),
+                   (nbytes(kl, kr, kvol),
+                    cost_flops(kvol.numel(), kcfg.patch_size ** 2)),
                    plain_reps=1)
         for fast in (True, False):
             top, args = pyramid_cuda.aggregate_dmajor(kvol, kgeom.levels,
@@ -328,7 +419,9 @@ def main():
                        lambda: pyramid_cuda.aggregate_dmajor(
                            kvol, kgeom.levels, kcfg.lam, True),
                        lambda: pyramid_cuda.aggregate_dmajor_torch(
-                           kvol, kgeom.levels, kcfg.lam, True))
+                           kvol, kgeom.levels, kcfg.lam, True),
+                       (nbytes(kvol, top, *args),
+                        pyramid_flops(kvol.numel(), kgeom.levels)))
         del kvol, top, top_p, args, args_p
 
     # K4 on a grid of ragged 8x32-patch tiles, with a masked plane.
@@ -370,12 +463,14 @@ def main():
                 f"{err}")
         return vol, err
 
-    err6 = 0.0
+    err6, work6 = 0.0, None
     for reverse in (False, True):
         way = "reverse" if reverse else "forward"
         whole, err = k6_vs_plain(f"D={d6} {way}", ds6, dt6, d6, args6,
                                  reverse=reverse)
         err6 = max(err6, err)
+        work6 = (nbytes(ds6, dt6, whole),
+                 cost_flops(whole.numel(), ds6.shape[-1]))
         slabs = []
         for k in range(d6 // SLAB):
             vol, err = k6_vs_plain(f"slab d_offset={k * SLAB} {way}", ds6,
@@ -394,7 +489,7 @@ def main():
     record("K6", err6,
            lambda: costvol_cuda.cost_volume_rows(ds6, dt6, d6, *args6),
            lambda: costvol.cost_volume_rows_torch(ds6, dt6, d6, *args6),
-           plain_reps=1)
+           work6, plain_reps=1)
     del ds6, dt6
     # At the bench shapes, on a target extended by a W-tile's halo.
     halo_q = wtiled.halo_patches(cfg)
@@ -429,6 +524,87 @@ def main():
           f"(whole range) {card}")
     print(flush=True)
 
+    counters = {"K1": (fused_cuda.match_planes, "launches"),
+                "K1b": (fused_cuda.match_planes, "magbin_launches"),
+                "K2": (costvol_cuda.cost_volume_dmajor, "launches"),
+                "K3": (pyramid_cuda.pyramid_backtrack, "launches"),
+                "K4": (fused_cuda.cost_volume_rows, "launches"),
+                "K5": (pyramid_cuda.aggregate_dmajor, "launches"),
+                "K6": (costvol_cuda.cost_volume_rows, "launches"),
+                "P1": (probe_cuda.stream, "launches"),
+                "P2": (probe_cuda.small, "launches"),
+                "P3": (probe_cuda.shift, "launches")}
+    path_launches = {}
+
+    def run_path(label, expected, fn):
+        """fn() with every count set to 0 just before and read just after;
+        the path must launch exactly the `expected` kernels."""
+        for f, attr in counters.values():
+            setattr(f, attr, 0)
+        out = fn()
+        sync()
+        counts = {k: getattr(f, attr) for k, (f, attr) in counters.items()}
+        path_launches[label] = counts
+        launched = {k for k, v in counts.items() if v > 0}
+        print(f"launch counts [{label}]: {counts}")
+        require(launched == set(expected),
+                f"path [{label}] launched {sorted(launched)}, expected "
+                f"{sorted(expected)}")
+        return out
+
+    # 3d. P1-P3 through the probe's entry point, then each against its
+    # plain version at its full repetitions.
+    sass = probe_sass(so)
+    if sass is None:
+        print("probe SASS: no cuobjdump in the toolkit, not checked")
+    for key in PROBE_SASS:
+        if sass is not None:
+            c = sass.get(key)
+            print(f"probe SASS {key}: {c}")
+            require(c is not None and c["FFMA"] == 0 and c["FMUL"] >= 256
+                    and c["FMUL"] % 256 == 0,
+                    f"{key}: products merged or contracted in SASS: {c}")
+    with tempfile.TemporaryDirectory() as tmp:
+        probe_out = os.path.join(tmp, "probe.jsonl")
+        probe_rc = run_path("probe", PROBE_NAMES,
+                            lambda: vpu_probe.main(["--out", probe_out]))
+        with open(probe_out) as f:
+            probe_rows = [json.loads(line) for line in f]
+    require(probe_rc == 0, f"vpu_probe exited {probe_rc}")
+    probe_rows = {r["probe"]: r for r in probe_rows}
+    for key, probe in PROBE_NAMES.items():
+        r = probe_rows[probe]
+        require(r["fraction_of_67_tflops"] <= vpu_probe.MERGED_WORK,
+                f"{key} above {vpu_probe.MERGED_WORK} of 67 TFLOP/s")
+        a = probe_cuda.make_input(probe, dev)
+        got = probe_cuda.KERNELS[probe](a)
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = probe_cuda.PLAIN[probe](a)
+        end.record()
+        sync()
+        same = torch.equal(got, want)
+        err = float((got - want).abs().max())
+        print(f"{key} probe [{probe}] {tuple(a.shape)} -> {tuple(got.shape)} "
+              f"x{r['repetitions']} ({r['repetitions_per_thread']} per "
+              f"thread): bitwise equal to plain {same}; median "
+              f"{r['seconds']['median'] * 1e3:.4f} ms "
+              f"[{r['seconds']['min'] * 1e3:.4f}.."
+              f"{r['seconds']['max'] * 1e3:.4f}] = "
+              f"{r['achieved_flop_per_s'] / 1e12:.3f} TFLOP/s, "
+              f"{r['fraction_of_67_tflops']:.4f} of 67, "
+              f"{r['fraction_of_33_5_tflops']:.4f} of 33.5 (no FMA); "
+              f"{r['bytes_read']} B read, {r['l2_bytes']} B from L2; plain "
+              f"{start.elapsed_time(end):.1f} ms {card}")
+        require(same, f"{key} disagrees with its plain version: {err}")
+        rows[key] = dict(err=err, ms=r["seconds"]["median"] * 1e3,
+                         plain=start.elapsed_time(end),
+                         work=(probe_cuda.bytes_read(probe) + nbytes(got),
+                               probe_cuda.flops(probe)))
+    print(flush=True)
+
     # 4. Main path through the public API, against the oracle.
     kcfg = kitti[128][0]
     kleft, kright, kgt = make_kitti_pair(KITTI_SEED, 128)
@@ -441,13 +617,6 @@ def main():
         want[case, seed] = oracle.match_stereo(left, right, ccfg)
         print(f"oracle [{case}] pair {seed}: "
               f"{time.perf_counter() - t0:.1f} s (host)")
-    counters = {"K1": (fused_cuda.match_planes, "launches"),
-                "K1b": (fused_cuda.match_planes, "magbin_launches"),
-                "K2": (costvol_cuda.cost_volume_dmajor, "launches"),
-                "K3": (pyramid_cuda.pyramid_backtrack, "launches"),
-                "K4": (fused_cuda.cost_volume_rows, "launches"),
-                "K5": (pyramid_cuda.aggregate_dmajor, "launches"),
-                "K6": (costvol_cuda.cost_volume_rows, "launches")}
     # The kernels each path launches, and no others (routing is decided by
     # the configuration).  Each path's counts are set to 0 just before it
     # runs and read just after.
@@ -457,22 +626,17 @@ def main():
                     ("kitti", "exact"): {"K2", "K5"},
                     ("grad_hist", "fused"): {"K1b"},
                     ("grad_hist", "exact"): {"K2", "K3"}}
-    results, path_launches = {}, {}
-    for (path, route), expected in path_kernels.items():
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
+    results = {}
+
+    def drive(path, route):
         for case, seed, ccfg, (left, right, _) in cases:
             if case == path:
                 results[case, seed, route] = api.match_stereo(
                     left, right, ccfg, impl=route, device="cuda")
-        sync()
-        counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
-        path_launches[f"{path} {route}"] = counts
-        launched = {k for k, v in counts.items() if v > 0}
-        print(f"launch counts [{path}, {route}]: {counts}")
-        require(launched == expected,
-                f"path [{path}, {route}] launched {sorted(launched)}, "
-                f"expected {sorted(expected)}")
+
+    for (path, route), expected in path_kernels.items():
+        run_path(f"{path} {route}", expected,
+                 lambda path=path, route=route: drive(path, route))
     for case, seed, ccfg, (left, right, gt) in cases:
         w_ = want[case, seed]
         hh, ww = left.shape[:2]
@@ -516,6 +680,70 @@ def main():
                         f"decision gate on pair {seed}")
     print(flush=True)
 
+    # 4b. Centred descriptors: 'fused' takes the descriptor route.
+    ccfg = Config(max_disparity=MAX_D, center_descriptors=True)
+    bench_pairs = [c[3] for c in cases if c[0] == "bench"]
+    centred = run_path("centred fused", {"K2", "K3"}, lambda: [
+        api.match_stereo(l, r, ccfg, impl="fused", device="cuda")
+        for l, r, _ in bench_pairs])
+    for seed, (l, r, _), got in zip(MAIN_PATH_SEEDS, bench_pairs, centred):
+        w_ = oracle.match_stereo(l, r, ccfg)
+        raw_neq = float(np.mean(got.disparity_raw != w_.disparity_raw))
+        val_neq = float(np.mean(got.valid != w_.valid))
+        print(f"centred [bench, fused] pair {seed}: raw_neq={raw_neq:.3e} "
+              f"valid_neq={val_neq:.3e} max|dscore|="
+              f"{float(np.abs(got.score - w_.score).max()):.3e}")
+        require(raw_neq == 0.0 and val_neq == 0.0,
+                f"centred descriptors off the oracle on pair {seed}")
+
+    # 4c. The invariant checks on the card, on bench pair 100.
+    l0, r0, _ = bench_pairs[0]
+    lp0, rp0 = (torch.from_numpy(api.preprocess(x, cfg, H, W)).to(dev)
+                for x in (l0, r0))
+    bad = lp0.clone()
+    bad[3, 5] = float("nan")
+
+    def checked():
+        out = checks.checked_match_padded(lp0, rp0, cfg, H, W, "fused")
+        try:
+            checks.checked_match_padded(bad, rp0, cfg, H, W, "fused")
+        except checks.InvariantError as e:
+            return out, str(e)
+        return out, None
+
+    chk, err_msg = run_path("checks fused", {"K1"}, checked)
+    ref = pipeline.match_padded(lp0, rp0, cfg, H, W, "fused")
+    same = all(torch.equal(chk[k], ref[k]) for k in KEYS if k != "disparity")
+    same = same and bool(((chk["disparity"] == ref["disparity"])
+                          | (chk["disparity"].isnan()
+                             & ref["disparity"].isnan())).all())
+    print(f"checked_match_padded [bench, fused] pair {MAIN_PATH_SEEDS[0]}: "
+          f"passes, equal to the unchecked pipeline {same}; on a NaN plane "
+          f"raises: {err_msg}")
+    require(same, "the checked pipeline differs from the unchecked one")
+    require(err_msg is not None and "non-finite values in padded input "
+            "images" in err_msg, "a NaN input passed the checks")
+
+    # 4d. The CLI in its own process on the card.
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"{PKG}.cli", "--demo",
+                               "-o", tmp], cwd=REPO, capture_output=True,
+                              text=True, timeout=600)
+        print(f"cli --demo -o DIR: exit {proc.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s (host): "
+              f"{proc.stdout.strip()[-300:]}")
+        require(proc.returncode == 0, f"the CLI failed:\n{proc.stderr}")
+        files = sorted(os.listdir(tmp))
+        with open(os.path.join(tmp, "metrics.json")) as f:
+            meta = json.load(f)
+    require(files == ["disparity.pfm", "disparity_16bit.png",
+                      "disparity_color.png", "metrics.json", "valid.png"],
+            f"the CLI wrote {files}")
+    require(meta.get("impl") == "fused" and meta.get("engine") == "cuda:0",
+            f"the CLI ran impl {meta.get('impl')} on {meta.get('engine')}")
+    print(flush=True)
+
     # 5. Timing of the batched steps.
     torch.cuda.reset_peak_memory_stats()
     steps = [("bench", cfg, geom, lp, rp), ("grad_hist", gh, geom, lp, rp)]
@@ -553,6 +781,102 @@ def main():
     def label_of(strategy, merge_level):
         return (f"wtiled({merge_level})" if strategy == "wtiled"
                 else strategy)
+
+    def stream_phase(smesh):
+        """run_stream over STREAM_PAIRS bench pairs (tiled, 'fused'), with
+        and without an injected failure, and pairs_from_paths over the
+        same pairs as PGM files; returns the stream's Mpx/s."""
+        stream_pairs = [(l, r) for l, r, _ in pairs]
+        stream_pairs += [make_pair(100 + i)[:2]
+                         for i in range(BATCH, STREAM_PAIRS)]
+        sglob = sharded.strategy_geometry(cfg, H, W, smesh, "tiled")
+        want = []
+        for i in range(0, STREAM_PAIRS, BATCH):
+            chunk = stream_pairs[i:i + BATCH]
+            lps, rps = (torch.from_numpy(sharded.pad_batch(
+                [p[j] for p in chunk], cfg, H, W, smesh, "tiled")).to(dev)
+                for j in (0, 1))
+            out = pipeline.apply_postfilter(pipeline.crop(
+                pipeline.match_padded_core(lps, rps, cfg, sglob, "fused"),
+                H, W), cfg)
+            want.append({k: v.cpu().numpy() for k, v in out.items()})
+
+        def run(source, **kw):
+            got = {}
+            with tempfile.TemporaryDirectory() as tmp:
+                log_path = os.path.join(tmp, "stream.jsonl")
+                with JsonlLogger(log_path) as logger:
+                    rep = runner.run_stream(
+                        source, cfg, H, W, smesh, "tiled", BATCH, "fused",
+                        on_result=lambda i, out: got.update({i: out}),
+                        logger=logger, **kw)
+                with open(log_path) as f:
+                    events = [json.loads(line)["event"] for line in f]
+            same = sorted(got) == list(range(len(want))) and all(
+                np.array_equal(got[b][k], w_[k], equal_nan=k == "disparity")
+                for b, w_ in enumerate(want) for k in KEYS)
+            return rep, events, same
+
+        rep, events, same = run_path("stream tiled fused", {"K1"},
+                                     lambda: run(stream_pairs))
+        print(f"stream [tiled, fused] {STREAM_PAIRS} pairs {W}x{H}, batch "
+              f"{BATCH}: {rep}; log events batch_done "
+              f"{events.count('batch_done')}, tail_batch "
+              f"{events.count('tail_batch')}; every pair bitwise equal to "
+              f"the unsharded pipeline {same}")
+        print(f"  stream {rep.mpx_per_s:.1f} Mpx/s (host wall over the "
+              f"stream, synchronised per batch) beside the step [bench, "
+              f"fused] {step_ms['bench fused']:.4f} ms = "
+              f"{BATCH * H * W * 1e-3 / step_ms['bench fused']:.1f} Mpx/s "
+              f"{card}")
+        require(same and rep.pairs_completed == STREAM_PAIRS
+                and rep.batches_completed == 3 and rep.retries == 0
+                and events.count("batch_done") == 3
+                and events.count("tail_batch") == 1,
+                "the stream's outputs or accounting are wrong")
+        calls = {"n": 0}
+
+        def flaky(lp, rp):
+            calls["n"] += 1
+            if calls["n"] == 2:
+                raise RuntimeError("injected: lost rank")
+            return sharded.match_batch_sharded(lp, rp, cfg, H, W, smesh,
+                                               "tiled", "fused")
+
+        rep2, events2, same2 = run_path(
+            "stream retry", {"K1"}, lambda: run(stream_pairs,
+                                                _match_fn=flaky))
+        print(f"stream with one injected failure: retries {rep2.retries}, "
+              f"pairs {rep2.pairs_completed}, batch_retry events "
+              f"{events2.count('batch_retry')}, outputs the same {same2}")
+        require(rep2.retries == 1 and same2
+                and rep2.pairs_completed == STREAM_PAIRS,
+                "the stream did not recover from one failure")
+
+        built = native.available()
+        print(f"native loader: {'built' if built else native.build_error()}")
+        require(built, f"the native loader did not build: "
+                f"{native.build_error()}")
+        u8 = [tuple(np.round(x * 255).astype(np.uint8) for x in pair)
+              for pair in stream_pairs]
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = ([], [])
+            for i, pair in enumerate(u8):
+                for side, img in enumerate(pair):
+                    path = os.path.join(tmp, f"{i:03d}_{'lr'[side]}.pgm")
+                    native.write_pnm(path, img)
+                    paths[side].append(path)
+            planes = list(runner.pairs_from_paths(*paths, cfg, H, W, smesh,
+                                                  "tiled"))
+        same3 = len(planes) == STREAM_PAIRS and all(
+            np.array_equal(plane, sharded.pad_batch([img], cfg, H, W, smesh,
+                                                    "tiled")[0])
+            for pl, pair in zip(planes, u8) for plane, img in zip(pl, pair))
+        print(f"pairs_from_paths: {len(planes)} pairs from PGM through the "
+              f"native loader, planes bitwise equal to the in-memory path's "
+              f"{same3}")
+        require(same3, "the native loader's planes differ")
+        return rep.mpx_per_s
 
     strategy_ms = {}
     spairs = [make_pair(s) for s in MAIN_PATH_SEEDS]
@@ -663,9 +987,14 @@ def main():
                       f"Mpx/s (unsharded: fused "
                       f"{step_ms['kitti D=256 fused']:.4f} ms, exact "
                       f"{step_ms['kitti D=256 exact']:.4f} ms) {card}")
+            print(flush=True)
+            stream_mpx = stream_phase(meshes["2d"])
         finally:
             dist.destroy_process_group()
-    require("jax" not in sys.modules, "jax was imported")
+    jax_mods = sorted(m for m in sys.modules if m == "jax"
+                      or m.startswith("jax.") or m == JAX_PKG
+                      or m.startswith(JAX_PKG + "."))
+    require(not jax_mods, f"imported {jax_mods}")
     launches = {k: sum(c[k] for c in path_launches.values()) for k in counters}
 
     sources = {
@@ -683,18 +1012,33 @@ def main():
                "ops/pyramid_pallas.py:346"),
         "K6": ("K6 row-layout slab cost volume", "csrc/costvol.cu",
                "ops/costvol_pallas.py:57"),
+        "P1": ("P1 streaming probe (stream)", "csrc/probe.cu",
+               "tools/vpu_ceiling.py:59"),
+        "P2": ("P2 streaming probe (small)", "csrc/probe.cu",
+               "tools/vpu_ceiling.py:120"),
+        "P3": ("P3 streaming probe (shifted window)", "csrc/probe.cu",
+               "tools/vpu_ceiling.py:165"),
     }
-    kernels = [
-        {"name": label, "route": "cuda", "source": f"{PKG}/{src}",
-         "replaces": f"{JAX_PKG}/{rep}", "launches": launches[k],
-         "launches_by_path": {p: c[k] for p, c in path_launches.items()
-                              if c[k]},
-         "max_abs_err": rows[k]["err"], "ms": rows[k]["ms"],
-         "plain_ms": rows[k]["plain"]}
-        for k, (label, src, rep) in sources.items()]
+    kernels = []
+    for k, (label, src, rep) in sources.items():
+        bound_ms, bound_by = bound(rows[k]["work"])
+        kernels.append({
+            "name": label, "route": "cuda", "source": f"{PKG}/{src}",
+            "replaces": rep if k.startswith("P") else f"{JAX_PKG}/{rep}",
+            "launches": launches[k],
+            "launches_by_path": {p: c[k] for p, c in path_launches.items()
+                                 if c[k]},
+            "max_abs_err": rows[k]["err"], "ms": rows[k]["ms"],
+            "plain_ms": rows[k]["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "bytes": rows[k]["work"][0], "operations": rows[k]["work"][1]})
+        print(f"  {k}: kernel {rows[k]['ms']:.4f} ms, bound {bound_ms:.4f} "
+              f"ms ({bound_by}), {rows[k]['ms'] / bound_ms:.1f}x its bound; "
+              f"{launches[k]} launches on the paths {card}")
     print(f"chip_smoke wall time: {time.perf_counter() - wall0:.1f} s {card}")
     print(json.dumps({"kernels": kernels, "step_ms": step_ms,
-                      "strategy_ms": strategy_ms, "peak_bytes": peak,
+                      "strategy_ms": strategy_ms,
+                      "stream_mpx_per_s": stream_mpx, "peak_bytes": peak,
                       "card": card_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -25,15 +25,16 @@ Their slab and merge volumes come from the row-layout form of the
 cost-volume kernel (ops/costvol_cuda.py:cost_volume_rows).
 
 The system has no learned parameters, so there are no weights to convert
-between the packages: the shared state is the `Config`/`Geometry` object
-(the same class, imported from the JAX package's JAX-free `config`
-module) and the padded images, which callers build with numpy and hand
-to either package.  The JAX-free modules of the JAX package (`config`,
-`oracle/reference.py`, `data/synthetic.py`, `utils/metrics.py`) are
-imported, not copied; this package never imports `jax`.
+between the packages: the shared state is the configuration and the
+padded images, which callers build with numpy and hand to either
+package.  The port carries its own copies of the JAX package's JAX-free
+modules (`config`, `oracle/reference.py`, `data/synthetic.py`, `io/`,
+`native/`, `utils/metrics.py`, `utils/logging.py`) and imports nothing
+of the JAX package, nor `jax`; `config.carry_over` turns the JAX
+package's `Config` into this package's.
 """
 
-from deepmatching_stereo_matching_tpu.config import Config, Geometry
+from .config import Config, Geometry, carry_over
 
-__all__ = ["Config", "Geometry"]
+__all__ = ["Config", "Geometry", "carry_over"]
 __version__ = "0.1.0"

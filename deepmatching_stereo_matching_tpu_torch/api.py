@@ -13,8 +13,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from deepmatching_stereo_matching_tpu.config import Config
-from deepmatching_stereo_matching_tpu.oracle import reference as _oracle
+from .config import Config
+from .oracle import reference as _oracle
 
 from .models import pipeline
 from .ops._dispatch import route as current_route
@@ -52,19 +52,27 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 
 def match_stereo(left, right, cfg: Config = Config(),
                  impl: Optional[str] = None,
-                 device: Union[str, torch.device] = "cuda") -> MatchResult:
+                 device: Union[str, torch.device] = "cuda",
+                 debug_checks: bool = False) -> MatchResult:
     """Dense disparity for a rectified pair, computed on `device`.
 
     Accepts uint8/float, grayscale or RGB arrays of equal shape.  `impl`
     overrides the current route ('fused' | 'exact' | 'torch',
-    ops/_dispatch.py) for this call.
+    ops/_dispatch.py) for this call.  `debug_checks` checks the
+    pipeline's invariants on the device (finite inputs and scores,
+    in-range disparity bins, NaN iff invalid; utils/checks.py) on the
+    same route, and raises `checks.InvariantError` if one fails.
     """
     dev = resolve_device(device)
     left, right = checks.validate_images(left, right)
     h, w = left.shape[:2]
     lp = torch.from_numpy(preprocess(left, cfg, h, w)).to(dev)
     rp = torch.from_numpy(preprocess(right, cfg, h, w)).to(dev)
-    out = pipeline.match_padded(lp, rp, cfg, h, w, impl or current_route())
+    route = impl or current_route()
+    if debug_checks:
+        out = checks.checked_match_padded(lp, rp, cfg, h, w, route)
+    else:
+        out = pipeline.match_padded(lp, rp, cfg, h, w, route)
     host = {k: v.cpu().numpy() for k, v in out.items()}
     return MatchResult(
         disparity=host["disparity"],

@@ -3,8 +3,9 @@
 Counterpart of the JAX package's `models/descriptors.py`: raw-intensity
 'patch' descriptors and the dense-SIFT-like 'grad_hist' descriptors,
 L2-normalised with the norm clamped at 1e-8, element order (row, column,
-feature) as in the oracle.  Leading batch dimensions are allowed.
-Centred descriptors are not ported yet.
+feature) as in the oracle, centred on the patch mean first where
+`cfg.center_descriptors` asks for it.  Leading batch dimensions are
+allowed.
 """
 
 from __future__ import annotations
@@ -14,15 +15,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from deepmatching_stereo_matching_tpu.config import Config
+from ..config import Config
 
 _EPS = 1e-8
 _BINS = 8
-
-
-def check_supported(cfg: Config) -> None:
-    if cfg.center_descriptors:
-        raise NotImplementedError("center_descriptors is not ported yet")
 
 
 def _gradient_1d(img: torch.Tensor, dim: int) -> torch.Tensor:
@@ -83,26 +79,27 @@ def grad_hist_magbin(img: torch.Tensor
 def pixel_features(img: torch.Tensor, cfg: Config) -> torch.Tensor:
     """(..., H, W) image -> (..., H, W, F) per-pixel features (F = 1 for
     patch, 8 for grad_hist)."""
-    check_supported(cfg)
     if cfg.descriptor == "patch":
         return img[..., None]
     return grad_hist_pixels(img)
 
 
-def _normalize(desc: torch.Tensor) -> torch.Tensor:
+def _normalize(desc: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """Subtract the patch mean (`center_descriptors`), then L2-normalise."""
+    if cfg.center_descriptors:
+        desc = desc - desc.mean(-1, keepdim=True)
     norm = (desc * desc).sum(-1, keepdim=True).sqrt()
     return desc / norm.clamp_min(_EPS)
 
 
 def patch_descriptors(feat: torch.Tensor, cfg: Config) -> torch.Tensor:
     """(..., Hp, W', F) features -> (..., H0, W0, C) patch descriptors."""
-    check_supported(cfg)
     p = cfg.patch_size
     *lead, h, w, f = feat.shape
     h0, w0 = h // p, w // p
     blocks = feat[..., : h0 * p, : w0 * p, :].reshape(*lead, h0, p, w0, p, f)
     desc = blocks.transpose(-4, -3).reshape(*lead, h0, w0, p * p * f)
-    return _normalize(desc)
+    return _normalize(desc, cfg)
 
 
 def sliding_descriptors(feat: torch.Tensor, cfg: Config, col0: int = 0,
@@ -118,7 +115,6 @@ def sliding_descriptors(feat: torch.Tensor, cfg: Config, col0: int = 0,
     col0 = tile start - halo (parallel/wtiled.py), so that out-of-image
     halo columns correlate to 0, as out-of-range targets do unsharded.
     """
-    check_supported(cfg)
     p = cfg.patch_size
     *lead, h, w, f = feat.shape
     if width_global is None:
@@ -133,7 +129,7 @@ def sliding_descriptors(feat: torch.Tensor, cfg: Config, col0: int = 0,
     ok = (xg >= 0) & (xg <= width_global - p)
     desc = torch.where(ok[:, None], desc, torch.zeros((), dtype=desc.dtype,
                                                       device=desc.device))
-    return _normalize(desc)
+    return _normalize(desc, cfg)
 
 
 def left_descriptors(img: torch.Tensor, cfg: Config) -> torch.Tensor:

@@ -19,8 +19,9 @@ decided by the config and geometry, as in the JAX package:
 lr_mode='direct' matches right->left on shared descriptors with +d
 targets (K2 with reverse=True), so 'fused' takes the 'exact' route there,
 as in JAX.  The post-filter runs on the cropped outputs
-(`apply_postfilter`).  Not ported yet, raising NotImplementedError:
-centred descriptors and bfloat16.
+(`apply_postfilter`).  Centred descriptors take the descriptor route
+(K2 -> K3) on 'fused', as in JAX.  bfloat16 raises NotImplementedError:
+the port is float32 only.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from deepmatching_stereo_matching_tpu.config import Config, Geometry
+from ..config import Config, Geometry
 
 from ..ops import costvol as costvol_ops
 from ..ops import costvol_cuda, fused_cuda, pyramid_cuda
@@ -43,8 +44,7 @@ _SENTINEL = torch.iinfo(torch.int32).min // 2
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for what this port does not cover yet."""
-    descriptors.check_supported(cfg)
+    """Raise NotImplementedError for what this port does not cover."""
     if cfg.dtype != "float32":
         raise NotImplementedError(f"dtype={cfg.dtype!r}: the port is float32 only")
 

@@ -58,6 +58,10 @@ _SIGNATURES = {
     "dm_cost_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # cur, next, arg, n, d, h, w, pow_pooled, pow_merged, lam, stream
     "dm_aggregate_level": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # a, out, inner, copies, stream (P1, P2, P3)
+    "dm_probe_stream": [_P, _P, _I, _I, _P],
+    "dm_probe_small": [_P, _P, _I, _I, _P],
+    "dm_probe_shift": [_P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from deepmatching_stereo_matching_tpu.config import Config, Geometry
+from ..config import Config, Geometry
 
 from ..models import descriptors
 from . import _build

@@ -1,7 +1,14 @@
-"""Meshes and sharded pipelines on torch.distributed (NCCL on CUDA, gloo
-on the CPU).  The stream runner is not ported yet."""
+"""Meshes, sharded pipelines and the batched stream on torch.distributed
+(NCCL on CUDA, gloo on the CPU)."""
 
 from .mesh import auto_mesh, make_mesh, make_mesh2d, tiled_geometry
+from .runner import (
+    StreamReport,
+    init_distributed,
+    pairs_from_paths,
+    run_stream,
+    scaling_sweep,
+)
 from .sharded import (
     input_spec,
     match_batch_dslab,
@@ -17,6 +24,11 @@ __all__ = [
     "make_mesh2d",
     "tiled_geometry",
     "tiled2d_geometry",
+    "StreamReport",
+    "init_distributed",
+    "pairs_from_paths",
+    "run_stream",
+    "scaling_sweep",
     "input_spec",
     "match_batch_dslab",
     "match_batch_sharded",

@@ -7,7 +7,7 @@
 
 plus the two ends of JAX's `shard_map` specs: `shard` cuts this rank's
 block out of a full array, `gather_global` assembles every rank's block
-into the full array on every rank.  A spec is a tuple naming, for each
+into the full array on every rank of the mesh.  A spec is a tuple naming, for each
 dim, the mesh axis it is split over (None: not split); mesh axes a spec
 does not name are replicated.  Every op runs on the tensors' own device
 through the world's backend (NCCL on CUDA, gloo on the CPU).
@@ -95,17 +95,16 @@ def shard(x, mesh: DeviceMesh, spec: Spec) -> torch.Tensor:
 
 def gather_global(x: torch.Tensor, mesh: DeviceMesh, spec: Spec
                   ) -> torch.Tensor:
-    """Every rank's block -> the full array, on every rank."""
+    """Every rank's block -> the full array, on every rank of the mesh:
+    one all_gather along each mesh axis (none at axis size 1)."""
     if x.dtype == torch.bool:       # gloo does not move bool tensors
         return gather_global(x.to(torch.uint8), mesh, spec).bool()
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, x)
     names = list(mesh.mesh_dim_names)
-    # Reorder the list, not the tensor: indexing a device tensor with a
-    # host list copies the index from pageable memory, which syncs.
-    g = torch.stack([parts[r] for r in mesh.mesh.flatten().tolist()])
-    g = g.reshape(*mesh.shape, *x.shape)
+    g = x.contiguous()
+    for name in reversed(names):    # the outermost mesh axis ends first
+        g = g.unsqueeze(0)
+        if axis_size(mesh, name) > 1:
+            g = all_gather(g, mesh, name, 0)
     for i in reversed(range(len(names))):       # replicated: take index 0
         if names[i] not in spec:
             g = g.select(i, 0)

@@ -28,9 +28,12 @@ import torch.multiprocessing as mp
 def init(backend: str, rank: int, world_size: int, rendezvous_file: str,
          timeout: float = 120.0) -> None:
     """Join the world of `world_size` ranks that meet at `rendezvous_file`
-    (a path on a local disk that does not exist yet)."""
+    (a path on a local disk that does not exist yet), or at a URL such as
+    `tcp://host:port` where ranks on several hosts meet."""
+    url = (rendezvous_file if "://" in rendezvous_file
+           else f"file://{rendezvous_file}")
     dist.init_process_group(
-        backend, init_method=f"file://{rendezvous_file}", rank=rank,
+        backend, init_method=url, rank=rank,
         world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout))
 

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's `parallel/mesh.py`.  Each process is one
 rank; a mesh is a `torch.distributed.device_mesh.DeviceMesh` over all of
 them, with the JAX axis names: ("data", "model"), and ("data", "th",
-"tw") for the 2-D tile strategy.  A rank's mesh coordinate along an axis
+"tw") for the 2-D tile strategy; the stream's scaling sweep also builds
+meshes over the leading ranks of a larger world.  A rank's mesh coordinate along an axis
 (`axis_index`, JAX's `lax.axis_index`) is a host int, so slab and tile
 offsets are plain ints here.  The device follows the process group's
 backend: NCCL ranks run on their CUDA device, gloo ranks on the CPU;
@@ -22,32 +23,46 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from deepmatching_stereo_matching_tpu.config import Config, Geometry
+from ..config import Config, Geometry
 
 
 def _device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def _mesh(shape: Tuple[int, ...], names: Tuple[str, ...]) -> DeviceMesh:
+def _mesh(shape: Tuple[int, ...], names: Tuple[str, ...],
+          part_of_world: bool) -> DeviceMesh:
     need = math.prod(shape)
     world = dist.get_world_size()
-    if world != need:
+    if need > world or (need != world and not part_of_world):
         raise ValueError(f"a {shape} mesh needs {need} ranks; the world "
                          f"has {world}")
-    return init_device_mesh(_device_type(), shape, mesh_dim_names=names)
+    if need == world:
+        return init_device_mesh(_device_type(), shape, mesh_dim_names=names)
+    return DeviceMesh(_device_type(), torch.arange(need).reshape(shape),
+                      mesh_dim_names=names)
 
 
-def make_mesh(n_data: int, n_model: int) -> DeviceMesh:
+def make_mesh(n_data: int, n_model: int, part_of_world: bool = False
+              ) -> DeviceMesh:
     """("data", "model") mesh over the whole world (n_data * n_model
-    ranks)."""
-    return _mesh((n_data, n_model), ("data", "model"))
+    ranks), or with `part_of_world` over ranks 0 .. n_data * n_model - 1
+    of a larger one: every rank of the world constructs it, and the ranks
+    outside it (`in_mesh` False) take part in none of its collectives."""
+    return _mesh((n_data, n_model), ("data", "model"), part_of_world)
 
 
-def make_mesh2d(n_data: int, n_th: int, n_tw: int) -> DeviceMesh:
+def make_mesh2d(n_data: int, n_th: int, n_tw: int,
+                part_of_world: bool = False) -> DeviceMesh:
     """("data", "th", "tw") mesh for the 2-D tile strategy; ``tw``, the
-    halo-exchange axis, is minor, so W-neighbours are adjacent ranks."""
-    return _mesh((n_data, n_th, n_tw), ("data", "th", "tw"))
+    halo-exchange axis, is minor, so W-neighbours are adjacent ranks.
+    `part_of_world` as for `make_mesh`."""
+    return _mesh((n_data, n_th, n_tw), ("data", "th", "tw"), part_of_world)
+
+
+def in_mesh(mesh: DeviceMesh) -> bool:
+    """Whether this rank is one of the mesh's."""
+    return dist.get_rank() in mesh.mesh.flatten().tolist()
 
 
 def auto_mesh(n_devices: Optional[int] = None) -> DeviceMesh:

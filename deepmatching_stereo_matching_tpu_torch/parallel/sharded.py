@@ -29,8 +29,8 @@ import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from deepmatching_stereo_matching_tpu.config import Config, Geometry
-from deepmatching_stereo_matching_tpu.oracle import reference as oracle
+from ..config import Config, Geometry
+from ..oracle import reference as oracle
 
 from ..models import descriptors, pipeline
 from ..ops import costvol as costvol_ops

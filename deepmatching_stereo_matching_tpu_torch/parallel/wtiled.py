@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from deepmatching_stereo_matching_tpu.config import Config, Geometry
+from ..config import Config, Geometry
 
 from ..models import descriptors, pipeline
 from ..ops import costvol as costvol_ops

@@ -62,8 +62,8 @@ STRATEGIES = {  # name -> (strategy, route, merge_level)
 def _padded_pairs(cell):
     """(cfg, geom, left, right): the cell's padded pairs on the card."""
     import torch
-    from deepmatching_stereo_matching_tpu.config import Config
-    from deepmatching_stereo_matching_tpu.data import synthetic
+    from deepmatching_stereo_matching_tpu_torch.config import Config
+    from deepmatching_stereo_matching_tpu_torch.data import synthetic
     from deepmatching_stereo_matching_tpu_torch import api
 
     h, w, max_d, desc, n, block, seed0 = CELLS[cell]

@@ -19,7 +19,7 @@ import torch
 
 import jax.numpy as jnp
 
-from deepmatching_stereo_matching_tpu import Config, Geometry
+from deepmatching_stereo_matching_tpu import Config
 from deepmatching_stereo_matching_tpu.data import synthetic
 from deepmatching_stereo_matching_tpu.models import descriptors as jdesc
 from deepmatching_stereo_matching_tpu.models import pipeline as jpipeline
@@ -29,6 +29,7 @@ from deepmatching_stereo_matching_tpu.ops import costvol_pallas
 from deepmatching_stereo_matching_tpu.ops import fused_pallas
 from deepmatching_stereo_matching_tpu.ops import pool as jpool
 from deepmatching_stereo_matching_tpu.ops import pyramid_pallas
+from deepmatching_stereo_matching_tpu_torch.config import Geometry, carry_over
 from deepmatching_stereo_matching_tpu_torch.models import descriptors
 from deepmatching_stereo_matching_tpu_torch.models import pipeline
 from deepmatching_stereo_matching_tpu_torch.ops import (
@@ -56,17 +57,9 @@ def test_descriptors_match_jax():
     img = rng.uniform(0, 1, (32, 64)).astype(np.float32)
     for fn in ("left_descriptors", "right_sliding_descriptors"):
         want = np.asarray(getattr(jdesc, fn)(jnp.asarray(img), cfg))
-        got = getattr(descriptors, fn)(t(img), cfg).numpy()
+        got = getattr(descriptors, fn)(t(img), carry_over(cfg)).numpy()
         assert got.shape == want.shape
         np.testing.assert_allclose(got, want, atol=1e-6)
-
-
-def test_unported_descriptor_modes_raise():
-    img = torch.zeros(16, 16)
-    for mode in ("patch", "grad_hist"):
-        with pytest.raises(NotImplementedError, match="center_descriptors"):
-            descriptors.left_descriptors(
-                img, Config(descriptor=mode, center_descriptors=True))
 
 
 def _gradient_images():
@@ -106,7 +99,7 @@ def test_grad_hist_descriptors_match_jax_and_oracle():
     cfg = Config(max_disparity=16, descriptor="grad_hist")
     img = rng.uniform(0, 1, (32, 64)).astype(np.float32)
     for fn in ("left_descriptors", "right_sliding_descriptors"):
-        got = getattr(descriptors, fn)(t(img), cfg).numpy()
+        got = getattr(descriptors, fn)(t(img), carry_over(cfg)).numpy()
         assert got.shape[-1] == 4 * 4 * 8
         for want in (np.asarray(getattr(jdesc, fn)(jnp.asarray(img), cfg)),
                      getattr(oracle, fn)(img, cfg)):
@@ -254,7 +247,7 @@ def test_kernel_coverage_gates_new_paths():
     fit a block; K4's fixed tile does); grad_hist at the bench geometry
     runs K1b, whose block holds the bin planes too."""
     for max_d in (128, 256):
-        cfg = Config(max_disparity=max_d)
+        cfg = carry_over(Config(max_disparity=max_d))
         geom = cfg.geometry(375, 1242)
         assert (geom.levels, geom.grid_h, geom.grid_w, geom.disparities) \
             == (5, 96, 384, max_d)
@@ -262,7 +255,7 @@ def test_kernel_coverage_gates_new_paths():
         assert not pyramid_cuda.supported(geom.disparities, geom.levels)
         assert fused_cuda.cost_supported(cfg, geom)
     assert fused_cuda.cost_smem_bytes(4, 256) == 78592
-    gh = Config(max_disparity=64, descriptor="grad_hist")
+    gh = carry_over(Config(max_disparity=64, descriptor="grad_hist"))
     geom = gh.geometry(375, 450)
     assert fused_cuda.supported(gh, geom)
     assert not fused_cuda.cost_supported(gh, geom)
@@ -273,11 +266,12 @@ def test_kernel_coverage_gates_new_paths():
 def test_kernel_coverage_gates():
     assert pyramid_cuda.supported(64, 4)
     assert not pyramid_cuda.supported(192, 5)   # KITTI large-D tile
-    cfg = Config(max_disparity=64)
+    cfg = carry_over(Config(max_disparity=64))
     assert fused_cuda.supported(cfg, cfg.geometry(375, 450))
-    assert not fused_cuda.supported(Config(max_disparity=64, center_descriptors=True),
-                                    cfg.geometry(375, 450))
-    big = Config(max_disparity=192)
+    assert not fused_cuda.supported(
+        carry_over(Config(max_disparity=64, center_descriptors=True)),
+        cfg.geometry(375, 450))
+    big = carry_over(Config(max_disparity=192))
     assert not fused_cuda.supported(big, big.geometry(375, 1242))
 
 
@@ -301,7 +295,7 @@ def _fused_both(left, right, max_d, levels, p=4):
         jnp.asarray(left), jnp.asarray(right), p, d0, max_d, levels, cfg.lam,
         fused_pallas.dot_precision(cfg), "float32",
         fused_pallas.use_interpret())
-    gd, gs = fused_cuda.match_rows(t(left), t(right), cfg,
+    gd, gs = fused_cuda.match_rows(t(left), t(right), carry_over(cfg),
                                    _geom(h0, w0, p, d0, levels))
     return (np.asarray(wd), np.asarray(ws)), (gd.numpy(), gs.numpy())
 
@@ -327,7 +321,7 @@ def test_plain_fused_left_edge_out_of_range_zero():
     left, right = rand_pair(rng, 32, 32)
     (wd, ws), (gd, gs) = _fused_both(left, right, 16, 2)
     np.testing.assert_array_equal(gd, wd)
-    cfg = Config(max_disparity=16, levels=2)
+    cfg = carry_over(Config(max_disparity=16, levels=2))
     vol = fused_cuda.cost_volume_torch(t(left), t(right), cfg,
                                        _geom(8, 8, 4, 16, 2)).numpy()
     jj = np.arange(8)
@@ -337,7 +331,7 @@ def test_plain_fused_left_edge_out_of_range_zero():
 
 def test_plain_fused_batched_equals_single():
     rng = np.random.default_rng(9)
-    cfg = Config(max_disparity=16, levels=2)
+    cfg = carry_over(Config(max_disparity=16, levels=2))
     geom = _geom(8, 16, 4, 16, 2)
     pairs = [rand_pair(rng, 32, 64) for _ in range(3)]
     lb = t(np.stack([l for l, _ in pairs]))
@@ -363,7 +357,8 @@ def test_plain_fused_magbin_matches_pallas(kind):
     rp = oracle.pad_image(oracle.to_grayscale_f32(right), geom)
     wd, ws = fused_pallas.match_rows(jnp.asarray(lp), jnp.asarray(rp), cfg,
                                      geom)
-    gd, gs = fused_cuda.match_rows(t(lp), t(rp), cfg, geom)
+    pcfg = carry_over(cfg)
+    gd, gs = fused_cuda.match_rows(t(lp), t(rp), pcfg, pcfg.geometry(h, w))
     np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
     np.testing.assert_allclose(gs.numpy(), np.asarray(ws), rtol=1e-4,
                                atol=1e-5)
@@ -386,11 +381,13 @@ def test_plain_cost_rows_matches_pallas(h, w, max_d, levels):
     """Plain K4 vs fused_pallas.cost_volume_rows (interpret mode)."""
     cfg, geom, lp, rp = _cost_rows_pair(h, w, max_d, levels, 4)
     assert fused_pallas.cost_supported(cfg, geom)
-    assert fused_cuda.cost_supported(cfg, geom)
+    pcfg = carry_over(cfg)
+    pgeom = pcfg.geometry(h, w)
+    assert fused_cuda.cost_supported(pcfg, pgeom)
     want = np.asarray(fused_pallas.cost_volume_rows(
         jnp.asarray(lp), jnp.asarray(rp), cfg, geom))
     got = fused_cuda.cost_volume_rows(t(np.stack([lp, rp])),
-                                      t(np.stack([rp, lp])), cfg, geom)
+                                      t(np.stack([rp, lp])), pcfg, pgeom)
     assert got.shape == (2,) + want.shape
     np.testing.assert_allclose(got[0].numpy(), want, atol=2e-5)
     assert not got[0, max_d:].any()
@@ -584,14 +581,14 @@ def test_sliding_descriptors_global_window(descriptor, col0, width_global):
     feat = rng.uniform(0, 1, (16, 40, f)).astype(np.float32)
     want = np.asarray(jdesc.sliding_descriptors(
         jnp.asarray(feat), cfg, col0=col0, width_global=width_global))
-    got = descriptors.sliding_descriptors(t(feat), cfg, col0=col0,
+    got = descriptors.sliding_descriptors(t(feat), carry_over(cfg), col0=col0,
                                           width_global=width_global).numpy()
     np.testing.assert_array_equal((got == 0).all(-1), (want == 0).all(-1))
     np.testing.assert_allclose(got, want, atol=1e-6)
     wide = np.zeros((16, 80, f), np.float32)
     wide[:, 20:60] = feat
     whole = descriptors.sliding_descriptors(
-        t(wide), cfg, col0=col0 - 20,
+        t(wide), carry_over(cfg), col0=col0 - 20,
         width_global=width_global or 40).numpy()
     inside = slice(20, 20 + 40 - 3)
     np.testing.assert_array_equal(got[:, : 40 - 3], whole[:, inside])

@@ -28,6 +28,7 @@ from deepmatching_stereo_matching_tpu.data import synthetic
 from deepmatching_stereo_matching_tpu.models import pipeline as jpipeline
 from deepmatching_stereo_matching_tpu.oracle import reference as oracle
 from deepmatching_stereo_matching_tpu_torch import api
+from deepmatching_stereo_matching_tpu_torch.config import carry_over
 from deepmatching_stereo_matching_tpu_torch.models import pipeline
 from deepmatching_stereo_matching_tpu_torch.ops import (
     _build, _dispatch, fused_cuda, pyramid_cuda)
@@ -83,12 +84,12 @@ def test_match_padded_core_batched_matches_jax(route, lr_check, lr_mode):
     """'direct' matches R->L with +d targets on shared descriptors; on
     'fused' it takes the 'exact' route, as in JAX."""
     cfg = Config(max_disparity=MAX_D, lr_check=lr_check, lr_mode=lr_mode)
-    geom = cfg.geometry(H, W)
+    pcfg = carry_over(cfg)
     pairs = padded_pairs(cfg, (3, 4))
     lb = torch.from_numpy(np.stack([l for l, _ in pairs]))
     rb = torch.from_numpy(np.stack([r for _, r in pairs]))
-    out = pipeline.crop(pipeline.match_padded_core(lb, rb, cfg, geom, route),
-                        H, W)
+    out = pipeline.crop(pipeline.match_padded_core(
+        lb, rb, pcfg, pcfg.geometry(H, W), route), H, W)
     assert out["disparity_raw"].dtype == torch.int32
     assert out["disparity"].shape == (2, H, W)
     for i, (l, r) in enumerate(pairs):
@@ -132,7 +133,8 @@ def test_api_matches_jax_and_oracle(route):
     left, right, gt = synthetic.make_block_pair(120, 180, max_disparity=24,
                                                 seed=42)
     cfg = Config(max_disparity=24)
-    got = api.match_stereo(left, right, cfg, impl=route, device="cpu")
+    got = api.match_stereo(left, right, carry_over(cfg), impl=route,
+                           device="cpu")
     want = japi.match_stereo(left, right, cfg, impl=JAX_IMPL[route])
     ora = oracle.match_stereo(left, right, cfg)
     for ref in (want, ora):
@@ -148,7 +150,7 @@ def test_api_matches_jax_and_oracle(route):
 def test_route_context_selects_route():
     left, right, _ = synthetic.make_block_pair(64, 64, max_disparity=16,
                                                seed=1)
-    cfg = Config(max_disparity=16)
+    cfg = carry_over(Config(max_disparity=16))
     with _dispatch.set_route("torch"):
         assert _dispatch.route() == "torch"
         a = api.match_stereo(left, right, cfg, device="cpu")
@@ -159,22 +161,32 @@ def test_route_context_selects_route():
         api.match_stereo(left, right, cfg, impl="pallas", device="cpu")
 
 
+JAX_NAMES = ("jax", "deepmatching_stereo_matching_tpu")
+
+
 def test_port_imports_no_jax():
+    """Every module of the port (`pkgutil.walk_packages`) and chip_smoke.py,
+    imported in a fresh process and then run once: neither `jax` nor any
+    module of the JAX package is loaded."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
+        "import deepmatching_stereo_matching_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for name in mods:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
         "from deepmatching_stereo_matching_tpu_torch import Config\n"
         "from deepmatching_stereo_matching_tpu_torch.api import match_stereo\n"
-        "from deepmatching_stereo_matching_tpu_torch.ops import "
-        "fused_cuda, costvol_cuda, pyramid_cuda, postfilter\n"
-        "from deepmatching_stereo_matching_tpu_torch.parallel import "
-        "launch, ringd, sharded, wtiled\n"
-        "from deepmatching_stereo_matching_tpu.data.synthetic import "
+        "from deepmatching_stereo_matching_tpu_torch.data.synthetic import "
         "make_block_pair\n"
         "l, r, _ = make_block_pair(64, 96, max_disparity=16, seed=0)\n"
         "res = match_stereo(l, r, Config(max_disparity=16), device='cpu')\n"
         "assert res.disparity.shape == (64, 96)\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-        "if m.startswith('jax'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{JAX_NAMES!r})\n"
+        "assert not bad, bad\n"
+        "assert len(mods) > 30, mods\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           env={**os.environ, "PYTHONPATH": REPO},
@@ -183,12 +195,38 @@ def test_port_imports_no_jax():
     assert proc.stdout.strip() == "ok"
 
 
+def test_port_sources_import_no_jax():
+    """An ast scan of the port's sources and chip_smoke.py: no import of
+    `jax` or of the JAX package, at any depth of the code."""
+    import ast
+
+    port = os.path.join(REPO, "deepmatching_stereo_matching_tpu_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(port):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 30
+    found = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            found += [(path, node.lineno, n) for n in names
+                      if n.split(".")[0] in JAX_NAMES]
+    assert not found, found
+
+
 def test_cuda_device_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     left, right, _ = synthetic.make_block_pair(64, 64, max_disparity=16,
                                                seed=1)
     with pytest.raises(RuntimeError, match="cuda"):
-        api.match_stereo(left, right, Config(max_disparity=16))
+        api.match_stereo(left, right, carry_over(Config(max_disparity=16)))
 
 
 def test_profile_steps_needs_a_card(monkeypatch, capsys):
@@ -223,13 +261,17 @@ def test_kernel_modules_import_without_nvcc():
 @pytest.mark.parametrize("cfg", [
     Config(max_disparity=16, lr_mode="direct"),
     Config(max_disparity=16, median_filter=3),
-], ids=["lr_mode", "post-filter"])
+    Config(max_disparity=16, center_descriptors=True),
+    Config(max_disparity=16, descriptor="grad_hist", center_descriptors=True),
+], ids=["lr_mode", "post-filter", "centred", "centred-grad_hist"])
 @pytest.mark.parametrize("route", ["fused", "exact"])
 def test_formerly_uncovered_configs_match_jax(cfg, route):
-    """lr_mode='direct' and the post-filter, which raised before they
-    were ported: `api.match_stereo` vs JAX's and the oracle's."""
+    """lr_mode='direct', the post-filter and centred descriptors, which
+    raised before they were ported: `api.match_stereo` vs JAX's and the
+    oracle's."""
     left, right, _ = synthetic_pair(2, 64, 64, 16)
-    got = api.match_stereo(left, right, cfg, impl=route, device="cpu")
+    got = api.match_stereo(left, right, carry_over(cfg), impl=route,
+                           device="cpu")
     want = japi.match_stereo(left, right, cfg, impl=JAX_IMPL[route])
     ora = oracle.match_stereo(left, right, cfg)
     for ref in (want, ora):
@@ -244,17 +286,14 @@ def test_formerly_uncovered_configs_match_jax(cfg, route):
 
 @pytest.mark.parametrize("cfg,height,width,match", [
     (Config(max_disparity=16, dtype="bfloat16"), 64, 64, "float32"),
-    (Config(max_disparity=16, center_descriptors=True), 64, 64,
-     "center_descriptors"),
-    (Config(max_disparity=16, descriptor="grad_hist",
-            center_descriptors=True), 64, 64, "center_descriptors"),
 ])
 @pytest.mark.parametrize("route", ["fused", "exact"])
 def test_uncovered_configs_raise(cfg, height, width, match, route):
-    geom = cfg.geometry(height, width)
+    pcfg = carry_over(cfg)
+    geom = pcfg.geometry(height, width)
     img = torch.zeros(1, geom.padded_height, geom.padded_width)
     with pytest.raises(NotImplementedError, match=match):
-        pipeline.match_padded_core(img, img, cfg, geom, route)
+        pipeline.match_padded_core(img, img, pcfg, geom, route)
 
 
 @pytest.mark.parametrize("path", ["large_d", "grad_hist"])
@@ -262,18 +301,19 @@ def test_uncovered_configs_raise(cfg, height, width, match, route):
 def test_new_paths_batched_match_jax(route, path):
     """Two pairs through `match_padded_core` at once vs JAX 'jnp'."""
     cfg, h, w, field_d = NEW_PATHS[path]
-    geom = cfg.geometry(h, w)
+    pcfg = carry_over(cfg)
+    geom = pcfg.geometry(h, w)
     if path == "large_d":
         assert (geom.levels, geom.disparities) == (5, 128)
-        assert not fused_cuda.supported(cfg, geom)
+        assert not fused_cuda.supported(pcfg, geom)
         assert not pyramid_cuda.supported(geom.disparities, geom.levels)
-        assert fused_cuda.cost_supported(cfg, geom)
+        assert fused_cuda.cost_supported(pcfg, geom)
     else:
-        assert fused_cuda.supported(cfg, geom)
+        assert fused_cuda.supported(pcfg, geom)
     pairs = padded_pairs(cfg, (3, 4), h, w, field_d)
     lb = torch.from_numpy(np.stack([l for l, _ in pairs]))
     rb = torch.from_numpy(np.stack([r for _, r in pairs]))
-    out = pipeline.crop(pipeline.match_padded_core(lb, rb, cfg, geom, route),
+    out = pipeline.crop(pipeline.match_padded_core(lb, rb, pcfg, geom, route),
                         h, w)
     assert out["disparity_raw"].dtype == torch.int32
     assert out["disparity"].shape == (2, h, w)
@@ -298,7 +338,8 @@ def test_new_paths_batched_match_jax(route, path):
 def test_new_paths_api_match_oracle(route, path):
     cfg, h, w, field_d = NEW_PATHS[path]
     left, right, gt = synthetic_pair(5, h, w, field_d)
-    got = api.match_stereo(left, right, cfg, impl=route, device="cpu")
+    got = api.match_stereo(left, right, carry_over(cfg), impl=route,
+                           device="cpu")
     ora = oracle.match_stereo(left, right, cfg)
     assert got.disparity.shape == (h, w)
     assert np.isfinite(got.score).all()
@@ -350,6 +391,7 @@ def test_routes_pick_kernels_by_config(monkeypatch, path, route, called):
     spy(pyramid_cuda, "aggregate_dmajor")
     cfg, h, w, field_d = NEW_PATHS[path]
     (l, r), = padded_pairs(cfg, (6,), h, w, field_d)
-    pipeline.match_padded_core(torch.from_numpy(l), torch.from_numpy(r), cfg,
-                               cfg.geometry(h, w), route)
+    pcfg = carry_over(cfg)
+    pipeline.match_padded_core(torch.from_numpy(l), torch.from_numpy(r), pcfg,
+                               pcfg.geometry(h, w), route)
     assert seen == called

@@ -24,6 +24,7 @@ from deepmatching_stereo_matching_tpu import Config
 from deepmatching_stereo_matching_tpu import parallel as jparallel
 from deepmatching_stereo_matching_tpu.data import synthetic
 from deepmatching_stereo_matching_tpu.oracle import reference as oracle
+from deepmatching_stereo_matching_tpu_torch.config import carry_over
 from deepmatching_stereo_matching_tpu_torch.models import pipeline
 from deepmatching_stereo_matching_tpu_torch.parallel import (
     collectives, launch, mesh as mesh_lib, ringd, sharded, wtiled)
@@ -80,9 +81,13 @@ def make_batch(n_pairs, field_d, seed):
     return lefts, rights
 
 
+def jax_config(name):
+    return Config(**{"max_disparity": D, **CASES[name][4]})
+
+
 def case_inputs(name):
     strategy, shape, route, ml, kw, field_d = CASES[name]
-    cfg = Config(**{"max_disparity": D, **kw})
+    cfg = carry_over(jax_config(name))
     lefts, rights = make_batch(2, field_d, seed=sorted(CASES).index(name))
     return dict(cfg=cfg, strategy=strategy, mesh=shape, route=route,
                 merge_level=ml, height=H, width=W, lefts=lefts,
@@ -140,7 +145,7 @@ def test_sharded_bitwise_to_unsharded_port(world, name):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_sharded_matches_jax_strategy(world, name):
     case = case_inputs(name)
-    cfg, shape, strategy = case["cfg"], case["mesh"], case["strategy"]
+    cfg, shape, strategy = jax_config(name), case["mesh"], case["strategy"]
     mesh = (jparallel.make_mesh(*shape) if len(shape) == 2
             else jparallel.make_mesh2d(*shape))
     sharding = jparallel.input_sharding(mesh, strategy)
@@ -182,7 +187,7 @@ def _rank_units(vals):
             torch.full((1, 1), 10 * d + m) > 0, mesh, ("data", None)),
     }
     img = np.arange(90 * 140, dtype=np.uint8).reshape(90, 140)
-    cfg = Config(max_disparity=16)
+    cfg = carry_over(Config(max_disparity=16))
     padded = sharded.pad_batch([img], cfg, 90, 140, mesh, "tiled")
     got["pad"] = torch.from_numpy(padded)
     got["pad_again"] = torch.from_numpy(sharded.pad_batch(
