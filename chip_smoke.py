@@ -6,13 +6,21 @@
 Phases, each printing its own lines (any failure exits nonzero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds csrc/*.cu from this checkout, one process per
-     source; ptxas reports each kernel's registers, shared memory, spills;
+     source; ptxas reports each kernel's registers, shared memory, spills,
+     and the four fused_kernel instances (p = 4 and runtime p, patch and
+     magbin) must spill nothing;
   3. kernel vs plain PyTorch version on the card, at full width:
      - bench shapes (450x375, D=64 -> padded 384x512, L=4, D0=64; 32
        pairs x 2 directions = 64 instances): cost volume (K2) atol 1e-6,
        pyramid (K3) decisions and scores equal, fused (K1, patch) and
        fused magbin (K1b, grad_hist) at most 0.5% of decisions flipped
-       and scores within 2e-5 where decisions agree;
+       (the count is printed and recorded) and scores within 2e-5 where
+       decisions agree; K1's scores bitwise equal to K4's volume on the
+       same 64 instances gathered at K1's disparities; K1 and K1b each
+       at least 2 blocks per SM (CUDA's occupancy calculator);
+     - K1 and K1b at small tiles (L 2 and 3, max_d 13, 16 and 32, p 4,
+       and the runtime-p instance at p 3 and 8) within the same gate,
+       K1's scores bitwise K4's where p is 4;
      - KITTI shapes (1242x375 -> padded 384x1536, L=5, 96x384 patch grid):
        image->volume (K4) at D=128, 8 pairs x 2 directions, atol 2e-5;
        level aggregation (K5) on that volume and at D=256 (4 pairs x 2),
@@ -94,6 +102,13 @@ RAGGED_HW, RAGGED_D = (100, 300), 99   # L=2: a 28x76-patch grid, D0=100
 MAIN_PATH_SEEDS = (100, 101)
 SLAB = 64                              # K6 check: D=256 in four slabs
 FUSED_DECISION_TOL = 0.005
+# K1 at small tiles: (h0, w0, max_d, levels, patch size); p = 4 as
+# tests/test_torch_ops.py's K1 cases, then the runtime-p instance.
+SMALL_TILES = ((8, 16, 16, 2, 4), (16, 16, 16, 2, 4), (16, 24, 13, 2, 4),
+               (32, 48, 32, 3, 4), (16, 24, 13, 2, 3), (8, 16, 16, 2, 8))
+# K1, K1b and K4 as measured before the fused kernel's redesign (PERF.md,
+# H100 @700 W), printed beside this run's.
+EARLIER_MS = {"K1": 1.5673, "K1b": 2.1742, "K4": 1.3259}
 STREAM_PAIRS, STREAM_TAIL = 69, 5       # two batches of BATCH and a tail
 HBM_BYTES_PER_S, PEAK_F32 = 3.35e12, 67e12   # H100 SXM data sheet
 PROBE_SASS = {"P1": "stream_kernelILi384", "P2": "stream_kernelILi96",
@@ -183,6 +198,32 @@ def probe_sass(so):
     return counts
 
 
+def ptxas_fused(log):
+    """{(p, form): (registers, spill store B, spill load B)} of each
+    fused_kernel instantiation in nvcc's -Xptxas -v output (p 0: the
+    runtime-p instance)."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"fused_kernelILi(\d+)ELb([01])E", m.group(1))
+            cur = ((int(k.group(1)), "magbin" if k.group(2) == "1" else
+                    "patch") if k else None)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur] = (None, int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur in out:
+            out[cur] = (int(m.group(1)),) + out[cur][1:]
+    return out
+
+
 def cuda_ms(torch, fn, reps, warmup=1):
     """Per-call device time of fn() in ms: CUDA events around `reps` calls."""
     for _ in range(warmup):
@@ -253,6 +294,13 @@ def main():
         elif "bytes stack frame" in line:
             print("  " + line.strip())
     _build.library()
+    fused_ptxas = ptxas_fused(_build.build_log())
+    for fn, (regs, spill_st, spill_ld) in sorted(fused_ptxas.items()):
+        print(f"fused_kernel<p={fn[0]}, {fn[1]}>: {regs} registers, spill "
+              f"stores {spill_st} B, spill loads {spill_ld} B")
+    require(len(fused_ptxas) == 4 and all(
+        v[1] == 0 and v[2] == 0 for v in fused_ptxas.values()),
+        f"fused_kernel instantiations missing or spilling: {fused_ptxas}")
     print(flush=True)
 
     def to_dev(imgs, cfg, h, w):
@@ -296,6 +344,26 @@ def main():
                lambda: fused_cuda.match_planes_torch(*planes),
                (nbytes(*inputs, d, s),
                 cost_flops(volume, cfg.patch_size ** 2)))
+        rows[key]["flips"] = flips
+        return d, s
+
+    def witness(label, lefts, rights, cfg, geom, d, s, required=True):
+        """K1's scores against K4's volume on the same planes, gathered at
+        K1's disparities: both compute cost.cuh's arithmetic."""
+        vol = fused_cuda.cost_volume_rows(lefts, rights, cfg, geom)
+        at = vol.gather(-3, d.long().unsqueeze(-3)).squeeze(-3)
+        same = torch.equal(at, s)
+        print(f"{label} scores vs K4's volume at K1's disparities: bitwise "
+              f"{same}, mismatch rate {float((at != s).float().mean()):.3e}, "
+              f"max |diff| {float((at - s).abs().max()):.3e}")
+        require(same or not required,
+                f"{label}: K1's scores are not K4's costs")
+
+    def blocks_agree(label, fcfg, fgeom):
+        n = fused_cuda.blocks_per_sm(fcfg, fgeom)
+        print(f"{label} blocks per SM (occupancy API): {n}")
+        require(n >= 2, f"{label}: {n} blocks per SM, fewer than 2")
+        return n
 
     # 3a. Kernels vs their plain versions at the bench shapes.
     cfg = Config(max_disparity=MAX_D)
@@ -354,16 +422,57 @@ def main():
                     fused_cuda.smem_bytes(*args, magbin=magbin))
 
     fused_smem_agrees("K1 bench", cfg, geom)
-    fused_vs_plain("K1", lefts, rights, cfg, geom)
     gh = Config(max_disparity=MAX_D, descriptor="grad_hist")
     require(fused_cuda.supported(gh, geom), "K1b must cover the bench")
     fused_smem_agrees("K1b bench", gh, geom)
+    rows_occ = {"K1": blocks_agree("K1 bench", cfg, geom),
+                "K1b": blocks_agree("K1b bench", gh, geom)}
+    d1, s1 = fused_vs_plain("K1", lefts, rights, cfg, geom)
+    witness("K1 bench (64 instances)", lefts, rights, cfg, geom, d1, s1)
+    del d1, s1
     fused_vs_plain("K1b", lefts, rights, gh, geom)
+    for k in ("K1", "K1b"):
+        rows[k]["blocks_per_sm"] = rows_occ[k]
     planes_ms = cuda_ms(torch, lambda: (descriptors.grad_hist_magbin(lefts),
                                         descriptors.grad_hist_magbin(rights)),
                         10)
     print(f"  K1b's (magnitude, bin) planes, built in torch before it: "
           f"{planes_ms:.4f} ms per 64-instance call {card}")
+    # Small tiles (levels 2 and 3, where the 2x2 quads fill a warp only in
+    # part), and the runtime-p instance (p 3 and 8).
+    for h0, w0, max_d, levels, p in SMALL_TILES:
+        srng = np.random.default_rng(h0 + w0 + max_d + p)
+        sl_, sr_ = (torch.from_numpy((srng.standard_normal(
+            (4, h0 * p, w0 * p)) * 0.3 + 0.5).astype(np.float32)).to(dev)
+            for _ in range(2))
+        for kind in ("patch", "grad_hist"):
+            scfg = Config(max_disparity=max_d, levels=levels, patch_size=p,
+                          descriptor=kind)
+            sgeom = scfg.geometry(h0 * p, w0 * p)
+            require((sgeom.grid_h, sgeom.grid_w) == (h0, w0)
+                    and fused_cuda.supported(scfg, sgeom),
+                    f"small tile {sgeom} not covered")
+            fused_smem_agrees(f"K1 small p={p} {kind}", scfg, sgeom)
+            if kind == "patch":
+                planes = (sl_, sr_, scfg, sgeom)
+            else:
+                (lm, lb), (rm, rb) = map(descriptors.grad_hist_magbin,
+                                         (sl_, sr_))
+                planes = (lm, rm, scfg, sgeom, lb, rb)
+            d, s_ = fused_cuda.match_planes(*planes)
+            sync()
+            dp, sp = fused_cuda.match_planes_torch(*planes)
+            same = d == dp
+            flips = float((~same).float().mean())
+            serr = float((s_ - sp).abs()[same].max())
+            print(f"K1 small tiles [{kind}] p={p} {h0}x{w0} patches, "
+                  f"max_d={max_d}, L={levels}: decisions flipped "
+                  f"{flips:.3e}, max |score diff| where equal {serr:.3e}")
+            require(flips <= FUSED_DECISION_TOL and serr <= 2e-5,
+                    f"K1 small tiles {kind} p={p} disagree with plain")
+            if kind == "patch":
+                witness(f"K1 small p={p} {h0}x{w0}", sl_, sr_, scfg, sgeom,
+                        d, s_, required=p == 4)
 
     # 3b. K4 and K5 at the KITTI shapes, full width.
     kitti = {}
@@ -511,11 +620,13 @@ def main():
     rows["K6"]["err"] = err6
     del dsb, dtb, dtb_ext, vol
     for k in ("K1", "K1b", "K2", "K3"):
-        print(f"  {k}: kernel {rows[k]['ms']:.4f} ms, plain "
+        was = f" (earlier: {EARLIER_MS[k]} ms)" if k in EARLIER_MS else ""
+        print(f"  {k}: kernel {rows[k]['ms']:.4f} ms{was}, plain "
               f"{rows[k]['plain']:.4f} ms per 64-instance bench call {card}")
-    print(f"  K4: kernel {rows['K4']['ms']:.4f} ms, plain "
-          f"{rows['K4']['plain']:.4f} ms per 16-instance KITTI D=128 call "
-          f"{card}")
+    print(f"  K4: kernel {rows['K4']['ms']:.4f} ms (earlier: "
+          f"{EARLIER_MS['K4']} ms), "
+          f"plain {rows['K4']['plain']:.4f} ms per 16-instance KITTI D=128 "
+          f"call {card}")
     print(f"  K5: kernel {rows['K5']['ms']:.4f} ms, plain "
           f"{rows['K5']['plain']:.4f} ms per 16-instance KITTI D=128 call "
           f"(fast, 5 levels) {card}")
@@ -1031,7 +1142,9 @@ def main():
             "max_abs_err": rows[k]["err"], "ms": rows[k]["ms"],
             "plain_ms": rows[k]["plain"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "bytes": rows[k]["work"][0], "operations": rows[k]["work"][1]})
+            "bytes": rows[k]["work"][0], "operations": rows[k]["work"][1],
+            **{key: rows[k][key] for key in ("flips", "blocks_per_sm")
+               if key in rows[k]}})
         print(f"  {k}: kernel {rows[k]['ms']:.4f} ms, bound {bound_ms:.4f} "
               f"ms ({bound_by}), {rows[k]['ms'] / bound_ms:.1f}x its bound; "
               f"{launches[k]} launches on the paths {card}")

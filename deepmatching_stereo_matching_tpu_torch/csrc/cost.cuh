@@ -1,7 +1,8 @@
 // Level-0 correlation costs of one tile of patches, from padded image
-// pixels staged in shared memory.  Shared by K1 (fused.cu, patch and
-// magbin forms) and K4 (costrows.cu), so the numerics have one
-// definition.
+// pixels staged in shared memory: K4's cost block (costrows.cu), patch
+// descriptors.  K1 (fused.cu) restates this arithmetic on purpose, in
+// registers and with explicit roundings, and K4's volume is its bitwise
+// witness; fused.cu takes only kEps from here.
 //
 // Numerics, in the order of the TPU kernels' shared cost block
 // (deepmatching_stereo_matching_tpu/ops/fused_pallas.py:_cost_block;
@@ -12,10 +13,6 @@
 //          over the patch rows first);
 //   cost = relu(raw * invL * invR) where p*j >= d and d < max_d, else 0;
 //   raw sums each pixel row over its columns first, then over the rows.
-// Magbin form (grad_hist descriptors): the images are L1 gradient
-// magnitude planes, each with a plane of orientation bins (0..7 as f32);
-// a product mag_L * mag_R counts only where the two bins are equal (the
-// one-hot descriptor dot), and the norms are the magnitude planes' own.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,12 +26,11 @@ constexpr float kEps = 1e-8f;
 //   lt (p*th, lw) left pixels, lw = p*tw;
 //   rt (p*th, rw) right pixels from image column p*x0 - (max_d - 1), the
 //      columns the tile's targets reach, rw = lw + max_d - 1;
-//   lb, rb: the bin planes beside them (magbin form only);
 //   invr (th, nwin) per window start w of each patch row, nwin = rw-p+1;
 //   invl (th, tw) per patch.
 struct CostTile {
   int p, th, tw, max_d, lw, rw, nwin;
-  float *lt, *rt, *lb, *rb, *invr, *invl;
+  float *lt, *rt, *invr, *invl;
 };
 
 __host__ __device__ inline CostTile cost_tile(int p, int th, int tw,
@@ -51,43 +47,26 @@ __host__ __device__ inline CostTile cost_tile(int p, int th, int tw,
 }
 
 // Floats of shared memory the tile's buffers take.
-__host__ __device__ inline int cost_tile_floats(const CostTile& c,
-                                                bool magbin) {
-  const int pixels = c.p * c.th * (c.lw + c.rw);
-  return (magbin ? 2 : 1) * pixels + c.th * c.nwin + c.th * c.tw;
+__host__ __device__ inline int cost_tile_floats(const CostTile& c) {
+  return c.p * c.th * (c.lw + c.rw) + c.th * c.nwin + c.th * c.tw;
 }
 
 // Lays the buffers out from `buf` (cost_tile_floats of shared memory).
-__device__ inline void carve(CostTile& c, float* buf, bool magbin) {
+__device__ inline void carve(CostTile& c, float* buf) {
   const int rows = c.p * c.th;
   c.lt = buf;
   c.rt = c.lt + rows * c.lw;
-  float* next = c.rt + rows * c.rw;
-  if (magbin) {
-    c.lb = next;
-    c.rb = c.lb + rows * c.lw;
-    next = c.rb + rows * c.rw;
-  }
-  c.invr = next;
+  c.invr = c.rt + rows * c.rw;
   c.invl = c.invr + c.th * c.nwin;
 }
 
-template <bool MAGBIN>
-__device__ inline float cost_term(const CostTile& c, int l, int r) {
-  const float prod = c.lt[l] * c.rt[r];
-  if (MAGBIN) return c.lb[l] == c.rb[r] ? prod : 0.0f;
-  return prod;
-}
-
 // Stages the tile at patch origin (y0, x0) of one instance's (hp, wp)
-// planes (bins null in patch form) and computes its norms.  Pixels
+// planes and computes its norms.  Pixels
 // outside the image read as 0; they feed only costs that are masked or
 // lie outside the (h0, w0) grid.  Ends with every thread past a barrier.
-template <bool MAGBIN>
-__device__ void stage_tile(CostTile& c, const float* left,
-                           const float* right, const float* lbin,
-                           const float* rbin, int hp, int wp, int y0,
-                           int x0) {
+__device__ inline void stage_tile(CostTile& c, const float* left,
+                                  const float* right, int hp, int wp, int y0,
+                                  int x0) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int p = c.p, rows = p * c.th;
   const int ly = p * y0, lx = p * x0, rx = lx - (c.max_d - 1);
@@ -97,7 +76,6 @@ __device__ void stage_tile(CostTile& c, const float* left,
     const bool ok = gy < hp && gx < wp;
     const size_t g = (size_t)gy * wp + gx;
     c.lt[e] = ok ? left[g] : 0.0f;
-    if (MAGBIN) c.lb[e] = ok ? lbin[g] : 0.0f;
   }
   for (int e = tid; e < rows * c.rw; e += nt) {
     const int y = e / c.rw, x = e - y * c.rw;
@@ -105,7 +83,6 @@ __device__ void stage_tile(CostTile& c, const float* left,
     const bool ok = gy < hp && gx >= 0 && gx < wp;
     const size_t g = (size_t)gy * wp + gx;
     c.rt[e] = ok ? right[g] : 0.0f;
-    if (MAGBIN) c.rb[e] = ok ? rbin[g] : 0.0f;
   }
   __syncthreads();
 
@@ -138,7 +115,6 @@ __device__ void stage_tile(CostTile& c, const float* left,
 
 // Cost of tile patch (i, j), global patch column jg, at disparity d;
 // il = invl of the patch.
-template <bool MAGBIN>
 __device__ inline float patch_cost(const CostTile& c, int i, int j, int jg,
                                    int d, float il) {
   const int p = c.p;
@@ -149,8 +125,8 @@ __device__ inline float patch_cost(const CostTile& c, int i, int j, int jg,
   for (int dr = 0; dr < p; ++dr) {
     const int l = (p * i + dr) * c.lw + p * j;
     const int r = (p * i + dr) * c.rw + w;
-    float s = cost_term<MAGBIN>(c, l, r);
-    for (int dc = 1; dc < p; ++dc) s += cost_term<MAGBIN>(c, l + dc, r + dc);
+    float s = c.lt[l] * c.rt[r];
+    for (int dc = 1; dc < p; ++dc) s += c.lt[l + dc] * c.rt[r + dc];
     raw = dr == 0 ? s : raw + s;
   }
   return fmaxf(raw * il * c.invr[i * c.nwin + w], 0.0f);

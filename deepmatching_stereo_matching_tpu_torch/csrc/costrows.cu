@@ -1,8 +1,8 @@
 // K4: padded image rows -> the D-major level-0 cost volume.
 //
 // Replaces deepmatching_stereo_matching_tpu/ops/fused_pallas.py:
-// _cost_only_kernel (via _cost_volume_rows / cost_volume_rows): K1's cost
-// block (cost.cuh, the same numerics) with the volume written to device
+// _cost_only_kernel (via _cost_volume_rows / cost_volume_rows): the cost
+// block of cost.cuh (K1's numerics) with the volume written to device
 // memory instead of a pyramid run on it, for volumes whose quadtree tile
 // does not fit one block's shared memory (KITTI at D0 = 128 and 256).
 // In: (n, Hp, Wp) f32 left and right images, patch form.  Out:
@@ -35,15 +35,14 @@ costrows_kernel(const float* __restrict__ left,
                 int hp, int wp, int p, int d0, int max_d) {
   extern __shared__ float4 smem4[];
   dm::CostTile c = dm::cost_tile(p, kTh, kTw, max_d);
-  dm::carve(c, reinterpret_cast<float*>(smem4), false);
+  dm::carve(c, reinterpret_cast<float*>(smem4));
   const int h0 = hp / p, w0 = wp / p;
   const int tiles_w = (w0 + kTw - 1) / kTw;
   const int ty = blockIdx.x / tiles_w, tx = blockIdx.x - ty * tiles_w;
   const int n = blockIdx.y;
   const int y0 = ty * kTh, x0 = tx * kTw;
   const size_t img = (size_t)n * hp * wp;
-  dm::stage_tile<false>(c, left + img, right + img, nullptr, nullptr, hp, wp,
-                        y0, x0);
+  dm::stage_tile(c, left + img, right + img, hp, wp, y0, x0);
 
   const int e = threadIdx.x;
   const int i = e / kTw, j = e - i * kTw;
@@ -52,7 +51,7 @@ costrows_kernel(const float* __restrict__ left,
   float* o = out + (size_t)n * d0 * plane + (size_t)(y0 + i) * w0 + x0 + j;
   const float il = c.invl[e];
   for (int d = 0; d < d0; ++d)
-    o[d * plane] = dm::patch_cost<false>(c, i, j, x0 + j, d, il);
+    o[d * plane] = dm::patch_cost(c, i, j, x0 + j, d, il);
 }
 
 }  // namespace
@@ -60,7 +59,7 @@ costrows_kernel(const float* __restrict__ left,
 // Shared memory of one block (mirrored by ops/fused_cuda.py:cost_smem_bytes,
 // which routes on it).
 extern "C" int dm_cost_rows_smem(int p, int max_d) {
-  return 4 * dm::cost_tile_floats(dm::cost_tile(p, kTh, kTw, max_d), false);
+  return 4 * dm::cost_tile_floats(dm::cost_tile(p, kTh, kTw, max_d));
 }
 
 extern "C" int dm_cost_rows(const float* left, const float* right,

@@ -36,9 +36,9 @@ pyramid_kernel(const float* __restrict__ cost, int32_t* __restrict__ disp,
     cost0[e] = src[((size_t)d * h0 + y0 + y) * w0 + x0 + x];
   }
   __syncthreads();
-  dm::pyramid_tile<false>(cost0, cost0 + d0 * t * t, d0, t, levels, lam,
-                          disp + (size_t)n * h0 * w0,
-                          score + (size_t)n * h0 * w0, w0, y0, x0);
+  dm::pyramid_tile(cost0, cost0 + d0 * t * t, d0, t, levels, lam,
+                   disp + (size_t)n * h0 * w0, score + (size_t)n * h0 * w0,
+                   w0, y0, x0);
 }
 
 }  // namespace

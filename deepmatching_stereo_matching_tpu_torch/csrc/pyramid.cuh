@@ -1,7 +1,8 @@
 // Device-side aggregation pyramid + dense backtracking on ONE quadtree
 // tile held in shared memory.  Shared by the pyramid kernel (K3,
-// pyramid.cu, exact mode) and the fused image->disparity kernel (K1,
-// fused.cu, fast mode).
+// pyramid.cu, exact mode: pyramid_tile from level 0) and the fused
+// image->disparity kernel (K1, fused.cu, fast mode: it pools level 0 in
+// registers itself and calls pyramid_up from level 1 and descend_cell).
 //
 // Semantics of deepmatching_stereo_matching_tpu/ops/pyramid_pallas.py:
 // pyramid_body, written as a SHRINKING pyramid (level l is
@@ -14,7 +15,7 @@
 //     the next level and skipped at the top (max commutes with the
 //     monotone power);
 //   * first-max argmax at the top, then k = 2k + offset per level, and
-//     score = cost0[k].
+//     score = cost0[k] (K1 recomputes that cost from its staged pixels).
 // A tile of T = 2^levels patches holds whole quadtrees, so no merge
 // crosses a tile and blocks need nothing from each other.
 #pragma once
@@ -46,24 +47,17 @@ __host__ __device__ inline int pyramid_scratch_bytes(int d0, int t, int levels) 
   return 4 * level_floats(d0, t, levels) + ((arg_bytes(d0, t, levels) + 15) & ~15);
 }
 
-// cost0: (d0, t, t) level-0 tile in shared memory; scratch: at least
-// pyramid_scratch_bytes of shared memory (16-byte aligned).  Writes the
-// tile's disparities and scores to disp/score (one instance's (h0, w0)
-// planes, row stride w0) at patch origin (y0, x0).  Ends with every
-// thread past the block's last use of shared memory.
+// Bottom-up from level `first` (map `cur`, (d0 >> first, t >> first,
+// t >> first) in shared memory) to the top: each level's map goes to
+// `out` and the next, its pool offsets to `arg` and on.  Returns the top
+// map ((d0 >> levels) bins of one spatial cell).  Every level ends with
+// a barrier.
 template <bool FAST>
-__device__ void pyramid_tile(const float* cost0, float* scratch, int d0,
-                             int t, int levels, float lam, int32_t* disp,
-                             float* score, int w0, int y0, int x0) {
+__device__ const float* pyramid_up(const float* cur, float* out, int8_t* arg,
+                                   int d0, int t, int first, int levels,
+                                   float lam) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  float* lv = scratch;
-  int8_t* args = reinterpret_cast<int8_t*>(lv + level_floats(d0, t, levels));
-
-  // Bottom-up: level l -> level l + 1.
-  const float* cur = cost0;
-  float* out = lv;
-  int8_t* arg = args;
-  for (int l = 0; l < levels; ++l) {
+  for (int l = first; l < levels; ++l) {
     const int sl = t >> l, hs = sl >> 1, kn = (d0 >> l) >> 1;
     const int plane = sl * sl, oplane = hs * hs;
     for (int e = tid; e < kn * oplane; e += nt) {
@@ -92,27 +86,51 @@ __device__ void pyramid_tile(const float* cost0, float* scratch, int d0,
     cur = out;
     out += kn * oplane;
   }
+  return cur;
+}
 
-  // Top-down: every level-0 cell walks its own path; cur is the top map
-  // ((d0 >> levels) bins of one spatial cell).
+// Top-down walk of level-0 cell (y, x): first-max argmax over the top
+// map, then k = 2k + offset from level levels - 1 down to level `last`,
+// whose offsets `args` starts with (levels last..levels-1, as pyramid_up
+// laid them out).  Returns the cell's bin at level `last`.
+__device__ inline int descend_cell(const float* top, const int8_t* args,
+                                   int d0, int t, int last, int levels,
+                                   int y, int x) {
   const int dtop = d0 >> levels;
-  for (int cell = tid; cell < t * t; cell += nt) {
+  int k = 0;
+  float best = top[0];
+  for (int d = 1; d < dtop; ++d) {
+    const float v = top[d];
+    if (v > best) {
+      best = v;
+      k = d;
+    }
+  }
+  for (int l = levels - 1; l >= last; --l) {
+    int off = 0;  // offset of level l's args
+    for (int m = last; m < l; ++m) off += (d0 >> (m + 1)) * (t >> m) * (t >> m);
+    const int sl = t >> l;
+    k = 2 * k + args[off + k * sl * sl + (y >> l) * sl + (x >> l)];
+  }
+  return k;
+}
+
+// cost0: (d0, t, t) level-0 tile in shared memory; scratch: at least
+// pyramid_scratch_bytes of shared memory (16-byte aligned).  Writes the
+// tile's disparities and scores to disp/score (one instance's (h0, w0)
+// planes, row stride w0) at patch origin (y0, x0).  Exact mode only (K3;
+// K1 runs the fast pyramid through pyramid_up itself).  Ends with every
+// thread past the block's last use of shared memory.
+__device__ inline void pyramid_tile(const float* cost0, float* scratch,
+                                    int d0, int t, int levels, float lam,
+                                    int32_t* disp, float* score, int w0,
+                                    int y0, int x0) {
+  float* lv = scratch;
+  int8_t* args = reinterpret_cast<int8_t*>(lv + level_floats(d0, t, levels));
+  const float* top = pyramid_up<false>(cost0, lv, args, d0, t, 0, levels, lam);
+  for (int cell = threadIdx.x; cell < t * t; cell += blockDim.x) {
     const int y = cell / t, x = cell - y * t;
-    int k = 0;
-    float best = cur[0];
-    for (int d = 1; d < dtop; ++d) {
-      const float v = cur[d];
-      if (v > best) {
-        best = v;
-        k = d;
-      }
-    }
-    for (int l = levels - 1; l >= 0; --l) {
-      int off = 0;  // offset of level l's args
-      for (int m = 0; m < l; ++m) off += (d0 >> (m + 1)) * (t >> m) * (t >> m);
-      const int sl = t >> l;
-      k = 2 * k + args[off + k * sl * sl + (y >> l) * sl + (x >> l)];
-    }
+    const int k = descend_cell(top, args, d0, t, 0, levels, y, x);
     const size_t o = (size_t)(y0 + y) * w0 + (x0 + x);
     disp[o] = k;
     score[o] = cost0[k * t * t + cell];

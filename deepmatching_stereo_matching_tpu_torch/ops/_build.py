@@ -36,10 +36,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes.  Every one returns an int: the launch
-# functions a cudaError_t, the *_smem ones a block's shared memory in bytes.
+# functions a cudaError_t, the *_smem ones a block's shared memory in bytes,
+# dm_fused_blocks_per_sm the blocks one SM holds (negative: a CUDA error).
 _SIGNATURES = {
     # p, d0, max_d, levels, magbin
     "dm_fused_smem": [_I, _I, _I, _I, _I],
+    "dm_fused_blocks_per_sm": [_I, _I, _I, _I, _I],
     # p, max_d
     "dm_cost_rows_smem": [_I, _I],
     # src, tgt, out, n, h0, w0, wt, c, d0, p, max_d, reverse, origin_offset, stream

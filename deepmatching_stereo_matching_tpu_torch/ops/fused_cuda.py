@@ -8,8 +8,10 @@ form (grad_hist descriptors as (magnitude, bin) plane pairs); K4 replaces
 large-D route's prologue.  The TPU kernels' selection-matmul phasing and
 split-bf16 scheme were workarounds for Mosaic and the MXU, so
 `Config.fused_dot_precision` is accepted and ignored: the kernels read
-pixels directly in f32.  The cost code of all three is csrc/cost.cuh;
-what bounds each on the card: see the notes at the top of the .cu files.
+pixels directly in f32.  K4's cost code is csrc/cost.cuh, whose
+arithmetic fused.cu restates for K1/K1b (K4's volume is their bitwise
+witness); what bounds each on the card: see the notes at the top of the
+.cu files.
 """
 
 from __future__ import annotations
@@ -24,36 +26,66 @@ from ..config import Config, Geometry
 from ..models import descriptors
 from . import _build
 from ._dispatch import run_kernel
-from .pyramid_cuda import MAX_SMEM, pyramid_body, scratch_bytes
+from .pyramid_cuda import (MAX_SMEM, arg_bytes, level_floats, pyramid_body,
+                           scratch_bytes)
 
 _EPS = 1e-8
 # Mirrors csrc/costrows.cu (kTh, kTw): K4's tile in patches.
 COST_TILE = (8, 32)
 
 
-def _tile_floats(p: int, th: int, tw: int, max_d: int, magbin: bool) -> int:
-    """Floats of one cost tile's shared buffers (csrc/cost.cuh)."""
-    lw = p * tw
-    rw = lw + max_d - 1
-    nwin = rw - p + 1
-    return (2 if magbin else 1) * p * th * (lw + rw) + th * nwin + th * tw
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 def smem_bytes(p: int, d0: int, max_d: int, levels: int,
                magbin: bool = False) -> int:
-    """Shared memory of one K1/K1b block (csrc/fused.cu:fused_layout).
-    A mirror, so that routing needs no build; chip_smoke.py holds it to
-    the library's own `dm_fused_smem`."""
+    """Shared memory of one K1/K1b block (csrc/fused.cu:fused_layout): the
+    staged tile (left rows, the right strip from a 4-aligned column, the
+    window and patch norms, the bin planes as bytes for grad_hist), the
+    pyramid levels 1..L, the level-0 pool offsets at 2 bits and those of
+    levels 1..L-1 at one byte.  No level-0 volume.  A mirror, so that
+    routing needs no build; chip_smoke.py holds it to the library's own
+    `dm_fused_smem`."""
     t = 2 ** levels
-    images = _tile_floats(p, t, t, max_d, magbin)
+    rows = lw = p * t
+    lead = _round_up(max_d - 1, 4) if lw % 4 == 0 else max_d + 2
+    right = _round_up(lw + lead, 4)
+    strides = (_round_up(lw, 4), right | 4, ((right + 15) & ~31) + 16)
+    floats = (rows * (strides[0] + strides[1]) + t * strides[2] + t * t
+              + level_floats(d0, t, levels))
+    bins = rows * (_round_up(lw, 16) + 4 * (_round_up(right // 4, 4) | 4))
+    kn = d0 // 2
+    args = (kn + 3) // 4 * t * t + arg_bytes(d0, t, levels) - kn * t * t
+    return _round_up(4 * floats + (bins if magbin else 0) + args, 16)
+
+
+def route_bytes(p: int, d0: int, max_d: int, levels: int,
+                magbin: bool = False) -> int:
+    """Shared memory of a block that holds the whole (D0, T, T) level-0
+    tile beside the larger of the staged tile (bins as f32) and the
+    pyramid scratch: the kernel's earlier layout.  K1/K1b take only the
+    configurations such a block fits, so routing stays as it was: a
+    configuration that only the volume-free layout fits (450x375 at
+    max_disparity 192 and levels 4, say) still goes to K4 -> K5 or the
+    `exact` route."""
+    t = 2 ** levels
+    lw = p * t
+    rw = lw + max_d - 1
+    images = ((2 if magbin else 1) * p * t * (lw + rw) + t * (rw - p + 1)
+              + t * t)
     scratch = (max(images, scratch_bytes(d0, t, levels) // 4) + 3) & ~3
     return 4 * (d0 * t * t + scratch)
 
 
 def cost_smem_bytes(p: int, max_d: int) -> int:
-    """Shared memory of one K4 block; mirrors `dm_cost_rows_smem`
+    """Shared memory of one K4 block, its cost tile's buffers
+    (csrc/cost.cuh:cost_tile_floats); mirrors `dm_cost_rows_smem`
     (csrc/costrows.cu), and chip_smoke.py holds the two equal."""
-    return 4 * _tile_floats(p, *COST_TILE, max_d, False)
+    th, tw = COST_TILE
+    lw = p * tw
+    rw = lw + max_d - 1
+    return 4 * (p * th * (lw + rw) + th * (rw - p + 1) + th * tw)
 
 
 def _magbin(cfg: Config) -> bool:
@@ -63,16 +95,28 @@ def _magbin(cfg: Config) -> bool:
 def supported(cfg: Config, geom: Geometry) -> bool:
     """True when K1 (patch) or K1b (grad_hist) covers this configuration:
     not centred, float32, a patch grid and D0 aligned to the 2^L
-    quadtree tile, and the tile's working set (with the bin planes for
-    grad_hist) inside one block's shared memory — the KITTI large-D
-    geometry is not."""
+    quadtree tile, and `route_bytes` (which bounds `smem_bytes`) inside
+    one block's shared memory — the KITTI large-D geometry is not."""
     if cfg.center_descriptors or cfg.dtype != "float32":
         return False
     unit = 2 ** geom.levels
     if geom.grid_h % unit or geom.grid_w % unit or geom.disparities % unit:
         return False
-    return smem_bytes(cfg.patch_size, geom.disparities, cfg.max_disparity,
-                      geom.levels, _magbin(cfg)) <= MAX_SMEM
+    shape = (cfg.patch_size, geom.disparities, cfg.max_disparity,
+             geom.levels, _magbin(cfg))
+    return max(route_bytes(*shape), smem_bytes(*shape)) <= MAX_SMEM
+
+
+def blocks_per_sm(cfg: Config, geom: Geometry) -> int:
+    """Blocks of K1 (patch) or K1b (grad_hist) that one SM of the current
+    card holds at this configuration (CUDA's occupancy calculator, through
+    `dm_fused_blocks_per_sm`).  Needs the card."""
+    n = _build.library().dm_fused_blocks_per_sm(
+        cfg.patch_size, geom.disparities, cfg.max_disparity, geom.levels,
+        int(_magbin(cfg)))
+    if n < 0:
+        _build.check(-n, "fused kernel occupancy")
+    return n
 
 
 def cost_supported(cfg: Config, geom: Geometry) -> bool:
@@ -159,7 +203,8 @@ def match_planes(left: torch.Tensor, right: torch.Tensor, cfg: Config,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., Hp, Wp) f32 padded planes -> (disp int32, score f32),
     (..., H0, W0), one pair-direction per leading index: K1 on pixel
-    pairs (patch), K1b on (magnitude, bin) pairs (grad_hist)."""
+    pairs (patch), K1b on (magnitude, bin) pairs (grad_hist; the bins
+    are integers 0..7 held as f32, and K1b stages them as bytes)."""
     p = cfg.patch_size
     *lead, hp, wp = left.shape
     planes = [x for x in (left, right, left_bin, right_bin) if x is not None]

@@ -25,7 +25,8 @@ from . import _build
 from . import pool
 from ._dispatch import run_kernel
 
-# Mirrors csrc/pyramid.cuh (kMaxSmem, level_floats, pyramid_scratch_bytes).
+# Mirrors csrc/pyramid.cuh (kMaxSmem, level_floats, arg_bytes,
+# pyramid_scratch_bytes).
 MAX_SMEM = 232448
 
 
@@ -33,9 +34,13 @@ def level_floats(d0: int, t: int, levels: int) -> int:
     return sum((d0 >> l) * (t >> l) ** 2 for l in range(1, levels + 1))
 
 
+def arg_bytes(d0: int, t: int, levels: int) -> int:
+    return sum((d0 >> (l + 1)) * (t >> l) ** 2 for l in range(levels))
+
+
 def scratch_bytes(d0: int, t: int, levels: int) -> int:
-    args = sum((d0 >> (l + 1)) * (t >> l) ** 2 for l in range(levels))
-    return 4 * level_floats(d0, t, levels) + ((args + 15) & ~15)
+    return (4 * level_floats(d0, t, levels)
+            + ((arg_bytes(d0, t, levels) + 15) & ~15))
 
 
 def smem_bytes(d0: int, levels: int) -> int:

@@ -29,10 +29,10 @@ profiler adds host time to every op, so where the host is the bound the
 profiled span is longer than the unprofiled one, which is printed beside
 it.
 
---k1 times K1 alone at the bench shapes (CUDA events, 5 x 20 launches,
-after a forced build) from the port package under --root (default: this
-checkout).  Run as a file, once per checkout in one call (parent,
-change, change, parent), it compares two trees on the same card.
+--k1 times K1 and K1b alone at the bench shapes (CUDA events, 5 x 20
+launches each, after a forced build) from the port package under --root
+(default: this checkout).  Run as a file, once per checkout in one call
+(parent, change, change, parent), it compares two trees on the same card.
 """
 
 from __future__ import annotations
@@ -82,6 +82,8 @@ def _padded_pairs(cell):
 
 def _strategy_steps(cfg, geom, lp, rp, names):
     """(label, step) for each named strategy on the one-rank world."""
+    if not names:       # no process group to build meshes on
+        return
     from deepmatching_stereo_matching_tpu_torch.parallel import (
         mesh as mesh_lib, sharded)
 
@@ -160,14 +162,26 @@ def profile_cells(cells, routes, steps, strategies=()):
 def time_k1():
     import torch
 
+    from deepmatching_stereo_matching_tpu_torch.config import Config
+    from deepmatching_stereo_matching_tpu_torch.models import descriptors
     from deepmatching_stereo_matching_tpu_torch.ops import _build, fused_cuda
 
     _build.build(force=True)
     cfg, geom, lp, rp = _padded_pairs("bench")
     lefts, rights = torch.stack([lp, rp.flip(-1)]), torch.stack([rp, lp.flip(-1)])
+    gh = Config(max_disparity=cfg.max_disparity, descriptor="grad_hist")
+    (lm, lb), (rm, rb) = map(descriptors.grad_hist_magbin, (lefts, rights))
+    runs = {"K1": lambda: fused_cuda.match_planes(lefts, rights, cfg, geom),
+            "K1b": lambda: fused_cuda.match_planes(lm, rm, gh, geom, lb, rb)}
+    for name, fn in runs.items():
+        ms = _median_launch_ms(torch, fn)
+        print(f"{name} {_build.SRC_DIR}: ms per 64-instance call, 5 x 20 "
+              f"launches: " + " ".join(f"{x:.4f}" for x in ms)
+              + f"; median {float(np.median(ms)):.4f}", flush=True)
 
-    def fn():
-        return fused_cuda.match_rows(lefts, rights, cfg, geom)
+
+def _median_launch_ms(torch, fn):
+    """Five samples of the mean time of 20 calls, CUDA events."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -181,9 +195,7 @@ def time_k1():
         end.record()
         torch.cuda.synchronize()
         ms.append(start.elapsed_time(end) / 20)
-    print(f"K1 {_build.SRC_DIR}: ms per 64-instance call, 5 x 20 launches: "
-          + " ".join(f"{x:.4f}" for x in ms)
-          + f"; median {float(np.median(ms)):.4f}", flush=True)
+    return ms
 
 
 def main(argv=None) -> int:
@@ -195,7 +207,7 @@ def main(argv=None) -> int:
                     help=f"sharded strategies to profile too, of "
                          f"{','.join(STRATEGIES)}")
     ap.add_argument("--k1", action="store_true",
-                    help="time K1 alone at the bench shapes")
+                    help="time K1 and K1b alone at the bench shapes")
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parent.parent,
                     help="checkout whose port package --k1 times")

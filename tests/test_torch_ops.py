@@ -259,8 +259,8 @@ def test_kernel_coverage_gates_new_paths():
     geom = gh.geometry(375, 450)
     assert fused_cuda.supported(gh, geom)
     assert not fused_cuda.cost_supported(gh, geom)
-    assert fused_cuda.smem_bytes(4, 64, 64, 4) == 123392
-    assert fused_cuda.smem_bytes(4, 64, 64, 4, magbin=True) == 172288
+    assert fused_cuda.smem_bytes(4, 64, 64, 4) == 72992
+    assert fused_cuda.smem_bytes(4, 64, 64, 4, magbin=True) == 86304
 
 
 def test_kernel_coverage_gates():
