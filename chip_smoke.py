@@ -8,7 +8,8 @@ Phases, each printing its own lines (any failure exits nonzero):
   2. build: nvcc builds csrc/*.cu from this checkout, one process per
      source; ptxas reports each kernel's registers, shared memory, spills,
      and the four fused_kernel instances (p = 4 and runtime p, patch and
-     magbin) must spill nothing;
+     magbin) and the four costvol_kernel instances (D-major and rows,
+     16-byte and 4-byte staging) must spill nothing;
   3. kernel vs plain PyTorch version on the card, at full width:
      - bench shapes (450x375, D=64 -> padded 384x512, L=4, D0=64; 32
        pairs x 2 directions = 64 instances): cost volume (K2) atol 1e-6,
@@ -21,6 +22,17 @@ Phases, each printing its own lines (any failure exits nonzero):
      - K1 and K1b at small tiles (L 2 and 3, max_d 13, 16 and 32, p 4,
        and the runtime-p instance at p 3 and 8) within the same gate,
        K1's scores bitwise K4's where p is 4;
+     - the cost-volume kernel (K2, K6): its shared memory per block as
+       the library computes it equals `costvol_cuda.smem_bytes`, and at
+       least 2 blocks per SM at the bench, grad_hist and KITTI shapes; K2
+       at grad_hist width (C=128, 64 instances) atol 1e-6; both layouts at
+       small ragged shapes on every staging form
+       (`profile_steps.costvol_cases`: p 3-8, C 9 to 512, d_offset not a
+       multiple of p, w0 not a multiple of the 32-column tile, a pair off
+       16-byte alignment) atol 1e-6, each K6 slab bitwise K2's bins; beside
+       K2 (bench and C=128) and K6 (KITTI D=256), a library yardstick the
+       port never calls: the correlation alone as one torch.matmul on an
+       as_strided window view, timed, with the memory it copies;
      - KITTI shapes (1242x375 -> padded 384x1536, L=5, 96x384 patch grid):
        image->volume (K4) at D=128, 8 pairs x 2 directions, atol 2e-5;
        level aggregation (K5) on that volume and at D=256 (4 pairs x 2),
@@ -34,7 +46,8 @@ Phases, each printing its own lines (any failure exits nonzero):
        64, 128, 192, forward and reverse: atol 1e-6, and the slabs joined
        along D bitwise equal to K2's volume; at the bench shapes on a
        halo-extended target (origin_offset = halo_q = 16): atol 1e-6 and
-       bitwise equal to K2 on the unextended target;
+       bitwise equal to K2 on the unextended target; K2 on the KITTI
+       D=256 descriptors, timed beside K6;
   3d. the streaming probes P1-P3 through their entry point
      (`tools.vpu_probe`, counts zeroed before it: exactly P1, P2, P3), each
      bitwise equal to its plain version at its full repetitions, timed,
@@ -51,7 +64,10 @@ Phases, each printing its own lines (any failure exits nonzero):
      must launch exactly its kernels: bench K1 | K2, K3; KITTI K4, K5 |
      K2, K5; grad_hist K1b | K2, K3 ('fused' | 'exact'); centred
      descriptors on bench pairs 100/101 ('fused': exactly K2, K3;
-     raw_neq = valid_neq = 0); `utils.checks.checked_match_padded` on pair
+     raw_neq = valid_neq = 0) and on adversarial pairs (97x141, D=24,
+     seeds 0, 1, 5; 'exact' and 'fused': K2, K3; raw_neq = valid_neq = 0,
+     flat windows centred to exact zeros as in the oracle);
+     `utils.checks.checked_match_padded` on pair
      100 ('fused': equal to the unchecked pipeline; raises naming the
      non-finite input on a NaN plane); the CLI (`--demo -o DIR`) in a
      subprocess: exit 0, five files, impl 'fused';
@@ -79,7 +95,9 @@ Phases, each printing its own lines (any failure exits nonzero):
      loader must build; planes bitwise equal to the in-memory path's).
 Then the total wall time, one JSON line with the kernels' numbers (each
 with its bound: the larger of its bytes, each input read once and each
-output written once, over 3.35 TB/s and its operations over 67 TFLOP/s),
+output written once, over 3.35 TB/s and its operations over 67 TFLOP/s;
+K2 also at C=128 and at KITTI D=256, rows of their own over K2's count;
+library_ms the yardstick where there is one),
 and as the last line {"ok": true, "device": {...}}.  Needs one CUDA
 device; imports nothing of JAX or the JAX package.
 """
@@ -109,6 +127,11 @@ SMALL_TILES = ((8, 16, 16, 2, 4), (16, 16, 16, 2, 4), (16, 24, 13, 2, 4),
 # K1, K1b and K4 as measured before the fused kernel's redesign (PERF.md,
 # H100 @700 W), printed beside this run's.
 EARLIER_MS = {"K1": 1.5673, "K1b": 2.1742, "K4": 1.3259}
+# ... and K2/K6 before the cost-volume kernel's redesign (PERF.md, the
+# same card): bench, grad_hist C=128 x 64 instances, KITTI D=256 x 8.
+EARLIER_MS.update({"K2": 4.4331, "K2 C=128": 110.9849, "K6": 6.4251})
+# Centred descriptors on adversarial (tie-heavy, flat-window) pairs.
+ADV_HW, ADV_D, ADV_SEEDS = (97, 141), 24, (0, 1, 5)
 STREAM_PAIRS, STREAM_TAIL = 69, 5       # two batches of BATCH and a tail
 HBM_BYTES_PER_S, PEAK_F32 = 3.35e12, 67e12   # H100 SXM data sheet
 PROBE_SASS = {"P1": "stream_kernelILi384", "P2": "stream_kernelILi96",
@@ -198,19 +221,18 @@ def probe_sass(so):
     return counts
 
 
-def ptxas_fused(log):
-    """{(p, form): (registers, spill store B, spill load B)} of each
-    fused_kernel instantiation in nvcc's -Xptxas -v output (p 0: the
-    runtime-p instance)."""
+def ptxas(log, pattern, key):
+    """{key(match): (registers, spill store B, spill load B)} of each
+    instantiation of the kernel whose mangled name `pattern` matches, in
+    nvcc's -Xptxas -v output."""
     import re
 
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"fused_kernelILi(\d+)ELb([01])E", m.group(1))
-            cur = ((int(k.group(1)), "magbin" if k.group(2) == "1" else
-                    "patch") if k else None)
+            k = re.search(pattern, m.group(1))
+            cur = key(k) if k else None
             continue
         if cur is None:
             continue
@@ -263,8 +285,10 @@ def main():
     from deepmatching_stereo_matching_tpu_torch.parallel import (
         launch, mesh as mesh_lib, runner, sharded, wtiled)
     from deepmatching_stereo_matching_tpu_torch.tools import vpu_probe
+    from deepmatching_stereo_matching_tpu_torch.data import synthetic
     from deepmatching_stereo_matching_tpu_torch.profile_steps import (
-        STRATEGIES as STRATEGY_RUNS)
+        STRATEGIES as STRATEGY_RUNS, costvol_cases, costvol_inputs,
+        costvol_launch)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -294,13 +318,29 @@ def main():
         elif "bytes stack frame" in line:
             print("  " + line.strip())
     _build.library()
-    fused_ptxas = ptxas_fused(_build.build_log())
+    # fused_kernel<p, magbin> (p 0: the runtime-p instance) and
+    # costvol_kernel<rows, 16-byte staging>.
+    fused_ptxas = ptxas(_build.build_log(), r"fused_kernelILi(\d+)ELb([01])E",
+                        lambda m: (int(m.group(1)), "magbin"
+                                   if m.group(2) == "1" else "patch"))
     for fn, (regs, spill_st, spill_ld) in sorted(fused_ptxas.items()):
         print(f"fused_kernel<p={fn[0]}, {fn[1]}>: {regs} registers, spill "
               f"stores {spill_st} B, spill loads {spill_ld} B")
     require(len(fused_ptxas) == 4 and all(
         v[1] == 0 and v[2] == 0 for v in fused_ptxas.values()),
         f"fused_kernel instantiations missing or spilling: {fused_ptxas}")
+    costvol_ptxas = ptxas(_build.build_log(),
+                          r"costvol_kernelILb([01])ELb([01])E",
+                          lambda m: (m.group(1) == "1", m.group(2) == "1"))
+    for (rows_, vec16), (regs, spill_st, spill_ld) in sorted(
+            costvol_ptxas.items()):
+        print(f"costvol_kernel<{'rows' if rows_ else 'D-major'}, "
+              f"{'16-byte' if vec16 else '4-byte'} staging>: {regs} "
+              f"registers, spill stores {spill_st} B, spill loads "
+              f"{spill_ld} B")
+    require(len(costvol_ptxas) == 4 and all(
+        v[1] == 0 and v[2] == 0 for v in costvol_ptxas.values()),
+        f"costvol_kernel instantiations missing or spilling: {costvol_ptxas}")
     print(flush=True)
 
     def to_dev(imgs, cfg, h, w):
@@ -317,6 +357,39 @@ def main():
         rows[key] = dict(err=err, ms=cuda_ms(torch, kernel_fn, reps),
                          plain=cuda_ms(torch, plain_fn, plain_reps),
                          work=work)
+
+    def corr_yardstick(key, src, tgt, d0, p):
+        """The library yardstick of a cost-volume row, which the port
+        never calls: the forward correlation alone (no relu, no mask) as
+        one batched torch.matmul of the source descriptors against an
+        as_strided window view of the target, zero-padded by d0 - 1
+        columns on the left (bin d0 - 1 - m at window row m).  Times it,
+        and records the device memory the call took beyond its operands
+        and output: torch.matmul copies a window view that does not fold
+        into one batch dimension."""
+        *lead, h0, w0, c = src.shape
+        right = max(0, p * (w0 - 1) + 1 - tgt.shape[-2])
+        tp = F.pad(tgt, (0, 0, d0 - 1, right))
+        st = tp.stride()
+        win = tp.as_strided((*lead, h0, w0, c, d0),
+                            (*st[:-2], p * st[-2], st[-1], st[-2]))
+
+        def call():
+            return torch.matmul(src.unsqueeze(-2), win)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = call()
+        sync()
+        extra = torch.cuda.max_memory_allocated() - base - nbytes(out)
+        del out
+        ms = cuda_ms(torch, call, 3)
+        rows[key]["library"] = ms
+        rows[key]["library_extra_bytes"] = extra
+        print(f"  {key} library yardstick (torch.matmul on a window view, "
+              f"correlation only): {ms:.4f} ms, {extra / 2**20:.1f} MiB "
+              f"beyond its operands and output {card}")
+        del tp, win
 
     def fused_vs_plain(key, lefts, rights, cfg, geom):
         """K1 on pixel planes, K1b on (magnitude, bin) planes."""
@@ -390,6 +463,7 @@ def main():
            lambda: costvol_cuda.cost_volume_dmajor(ds, dt, *args2),
            lambda: costvol_cuda.cost_volume_dmajor_torch(ds, dt, *args2),
            (nbytes(ds, dt, vol), cost_flops(vol.numel(), ds.shape[-1])))
+    corr_yardstick("K2", ds, dt, geom.disparities, cfg.patch_size)
 
     d3, s3 = pyramid_cuda.pyramid_backtrack(vol, geom.levels, cfg.lam)
     sync()
@@ -409,9 +483,9 @@ def main():
     def smem_agrees(label, lib_bytes, mirror_bytes):
         """The routing rules' shared-memory mirror equals the library's."""
         print(f"{label} shared memory per block: {lib_bytes} B (library), "
-              f"{mirror_bytes} B (fused_cuda's mirror)")
+              f"{mirror_bytes} B (the Python mirror)")
         require(lib_bytes == mirror_bytes,
-                f"{label}: fused_cuda's shared-memory rule disagrees with "
+                f"{label}: the Python shared-memory mirror disagrees with "
                 f"the library")
 
     def fused_smem_agrees(label, fcfg, fgeom):
@@ -473,6 +547,70 @@ def main():
             if kind == "patch":
                 witness(f"K1 small p={p} {h0}x{w0}", sl_, sr_, scfg, sgeom,
                         d, s_, required=p == 4)
+
+    # 3a'. The cost-volume kernel (K2, K6): its shared memory as the
+    # library computes it against costvol_cuda's mirror, at least 2 blocks
+    # per SM at the bench, grad_hist and KITTI shapes, K2 at grad_hist
+    # (C=128, 64 instances), and both layouts at small ragged shapes on
+    # every staging form (profile_steps.costvol_cases).
+    for label, c_, d0_, p_ in (("bench", 16, 64, 4), ("grad_hist", 128, 64, 4),
+                               ("KITTI D=128", 16, 128, 4),
+                               ("KITTI D=256", 16, 256, 4),
+                               ("KITTI D=256 slab", 16, SLAB, 4)):
+        smem_agrees(f"K2/K6 {label}", _build.library().dm_costvol_smem(
+            c_, d0_, p_), costvol_cuda.smem_bytes(c_, d0_, p_))
+        occ = {k: costvol_cuda.blocks_per_sm(c_, d0_, p_, rows=k == "K6")
+               for k in ("K2", "K6")}
+        print(f"K2/K6 {label} blocks per SM (occupancy API): {occ}")
+        require(min(occ.values()) >= 2, f"K2/K6 {label}: fewer than 2 "
+                f"blocks per SM")
+        if label == "bench":
+            rows["K2"]["blocks_per_sm"] = occ["K2"]
+        if label == "KITTI D=256":
+            occ_kitti = occ
+    dsg = descriptors.left_descriptors(lefts, gh)
+    dtg = descriptors.right_sliding_descriptors(rights, gh)
+    volg = costvol_cuda.cost_volume_dmajor(dsg, dtg, *args2)
+    sync()
+    errg = float((volg - costvol_cuda.cost_volume_dmajor_torch(
+        dsg, dtg, *args2)).abs().max())
+    print(f"K2 C={dsg.shape[-1]} (grad_hist) {tuple(dsg.shape)} -> "
+          f"{tuple(volg.shape)}: max |kernel - plain| = {errg:.3e}")
+    require(errg <= 1e-6, f"K2 at grad_hist disagrees with its plain "
+            f"version: {errg}")
+    record("K2 C=128", errg,
+           lambda: costvol_cuda.cost_volume_dmajor(dsg, dtg, *args2),
+           lambda: costvol_cuda.cost_volume_dmajor_torch(dsg, dtg, *args2),
+           (nbytes(dsg, dtg, volg), cost_flops(volg.numel(), dsg.shape[-1])),
+           plain_reps=1)
+    corr_yardstick("K2 C=128", dsg, dtg, geom.disparities, cfg.patch_size)
+    del dsg, dtg, volg
+    small_err = 0.0
+    for seed, (cname, kind, shape) in enumerate(costvol_cases()):
+        if "p=" not in cname and "unaligned" not in cname:
+            continue        # the full-width shapes are checked in 3a and 3c
+        lead_, h0_, w0_, wt_, c_, d0_, p_, max_d_, rev_, oo_, dofs_, _ = shape
+        src_, tgt_ = costvol_inputs(torch, shape, seed)
+        got_ = costvol_launch(costvol_cuda, kind, shape, src_, tgt_)
+        sync()
+        if kind == "K2":
+            want_ = costvol_cuda.cost_volume_dmajor_torch(
+                src_, tgt_, d0_, p_, max_d_, rev_, oo_)
+            same = True
+        else:
+            want_ = costvol.cost_volume_rows_torch(
+                src_, tgt_, d0_, p_, max_d_, rev_, oo_, dofs_)
+            same = torch.equal(got_.movedim(-2, -3),
+                               costvol_cuda.cost_volume_dmajor(
+                                   src_, tgt_, d0_ + dofs_, p_, max_d_, rev_,
+                                   oo_)[..., dofs_:, :, :])
+        err = float((got_ - want_).abs().max())
+        small_err = max(small_err, err)
+        print(f"{cname} (w0 {w0_}, wt {wt_}, d_offset {dofs_}): max |kernel "
+              f"- plain| = {err:.3e}" + ("" if kind == "K2" else
+                                         f"; bitwise K2's bins {same}"))
+        require(err <= 1e-6 and same, f"{cname} disagrees")
+    print()
 
     # 3b. K4 and K5 at the KITTI shapes, full width.
     kitti = {}
@@ -599,7 +737,27 @@ def main():
            lambda: costvol_cuda.cost_volume_rows(ds6, dt6, d6, *args6),
            lambda: costvol.cost_volume_rows_torch(ds6, dt6, d6, *args6),
            work6, plain_reps=1)
-    del ds6, dt6
+    rows["K6"]["blocks_per_sm"] = occ_kitti["K6"]
+    corr_yardstick("K6", ds6, dt6, d6, kcfg6.patch_size)
+    # K2 on the same KITTI D=256 descriptors: one kernel in both layouts.
+    k2k = costvol_cuda.cost_volume_dmajor(ds6, dt6, d6, *args6)
+    sync()
+    errk = float((k2k - costvol_cuda.cost_volume_dmajor_torch(
+        ds6, dt6, d6, *args6)).abs().max())
+    require(errk <= 1e-6, f"K2 at KITTI D=256 disagrees: {errk}")
+    record("K2 KITTI", errk,
+           lambda: costvol_cuda.cost_volume_dmajor(ds6, dt6, d6, *args6),
+           lambda: costvol_cuda.cost_volume_dmajor_torch(ds6, dt6, d6,
+                                                         *args6),
+           (nbytes(ds6, dt6, k2k), cost_flops(k2k.numel(), ds6.shape[-1])),
+           plain_reps=1)
+    rows["K2 KITTI"]["blocks_per_sm"] = occ_kitti["K2"]
+    rows["K2 KITTI"]["library"] = rows["K6"]["library"]
+    rows["K2 KITTI"]["library_extra_bytes"] = rows["K6"]["library_extra_bytes"]
+    print(f"K2 D={d6} {tuple(k2k.shape)}: max |kernel - plain| = "
+          f"{errk:.3e}; kernel {rows['K2 KITTI']['ms']:.4f} ms beside K6's "
+          f"{rows['K6']['ms']:.4f} ms on the same descriptors {card}")
+    del ds6, dt6, k2k
     # At the bench shapes, on a target extended by a W-tile's halo.
     halo_q = wtiled.halo_patches(cfg)
     dsb = descriptors.left_descriptors(lefts, cfg)
@@ -630,9 +788,15 @@ def main():
     print(f"  K5: kernel {rows['K5']['ms']:.4f} ms, plain "
           f"{rows['K5']['plain']:.4f} ms per 16-instance KITTI D=128 call "
           f"(fast, 5 levels) {card}")
-    print(f"  K6: kernel {rows['K6']['ms']:.4f} ms, plain "
-          f"{rows['K6']['plain']:.4f} ms per 8-instance KITTI D=256 call "
-          f"(whole range) {card}")
+    print(f"  K2 C=128: kernel {rows['K2 C=128']['ms']:.4f} ms (earlier: "
+          f"{EARLIER_MS['K2 C=128']} ms), plain "
+          f"{rows['K2 C=128']['plain']:.4f} ms per 64-instance grad_hist "
+          f"call {card}")
+    for k in ("K6", "K2 KITTI"):
+        was = f" (earlier: {EARLIER_MS[k]} ms)" if k in EARLIER_MS else ""
+        print(f"  {k}: kernel {rows[k]['ms']:.4f} ms{was}, plain "
+              f"{rows[k]['plain']:.4f} ms per 8-instance KITTI D=256 call "
+              f"(whole range) {card}")
     print(flush=True)
 
     counters = {"K1": (fused_cuda.match_planes, "launches"),
@@ -806,6 +970,29 @@ def main():
               f"{float(np.abs(got.score - w_.score).max()):.3e}")
         require(raw_neq == 0.0 and val_neq == 0.0,
                 f"centred descriptors off the oracle on pair {seed}")
+    # ... and on adversarial pairs, whose flat windows centre to exact
+    # zeros only where the patch mean is summed in the oracle's order.
+    acfg = Config(max_disparity=ADV_D, center_descriptors=True)
+    ageom = acfg.geometry(*ADV_HW)
+    adv = [synthetic.adversarial_pair(*ADV_HW, ADV_D, s)[:2]
+           for s in ADV_SEEDS]
+    adv_want = [oracle.match_stereo(l, r, acfg) for l, r in adv]
+    adv_kernels = {"K2", "K3" if pyramid_cuda.supported(
+        ageom.disparities, ageom.levels) else "K5"}
+    for route in ("exact", "fused"):
+        got_adv = run_path(f"centred adversarial {route}", adv_kernels,
+                           lambda route=route: [
+                               api.match_stereo(l, r, acfg, impl=route,
+                                                device="cuda")
+                               for l, r in adv])
+        for seed, got, w_ in zip(ADV_SEEDS, got_adv, adv_want):
+            raw_neq = int(np.sum(got.disparity_raw != w_.disparity_raw))
+            val_neq = int(np.sum(got.valid != w_.valid))
+            print(f"centred [adversarial {ADV_HW[1]}x{ADV_HW[0]} D="
+                  f"{ADV_D}, {route}] seed {seed}: raw_neq={raw_neq} "
+                  f"valid_neq={val_neq} of {got.valid.size} px")
+            require(raw_neq == 0 and val_neq == 0, f"centred adversarial "
+                    f"{route} off the oracle on seed {seed}")
 
     # 4c. The invariant checks on the card, on bench pair 100.
     l0, r0, _ = bench_pairs[0]
@@ -1107,6 +1294,12 @@ def main():
                       or m.startswith(JAX_PKG + "."))
     require(not jax_mods, f"imported {jax_mods}")
     launches = {k: sum(c[k] for c in path_launches.values()) for k in counters}
+    # K2 at grad_hist width and at the KITTI geometry are rows of their
+    # own over K2's count: its launches on the paths of that kind.
+    shape_rows = {"K2 C=128": ("K2", "grad_hist"), "K2 KITTI": ("K2", "kitti")}
+    for key, (kernel, prefix) in shape_rows.items():
+        launches[key] = sum(c[kernel] for p, c in path_launches.items()
+                            if p.startswith(prefix))
 
     sources = {
         "K1": ("K1 fused image->disparity (patch)", "csrc/fused.cu",
@@ -1115,6 +1308,10 @@ def main():
                 "csrc/fused.cu", "ops/fused_pallas.py:572"),
         "K2": ("K2 D-major cost volume", "csrc/costvol.cu",
                "ops/costvol_pallas.py:86"),
+        "K2 C=128": ("K2 D-major cost volume, grad_hist C=128",
+                     "csrc/costvol.cu", "ops/costvol_pallas.py:86"),
+        "K2 KITTI": ("K2 D-major cost volume, KITTI D=256",
+                     "csrc/costvol.cu", "ops/costvol_pallas.py:86"),
         "K3": ("K3 pyramid + backtracking", "csrc/pyramid.cu",
                "ops/pyramid_pallas.py:257"),
         "K4": ("K4 image->D-major cost volume", "csrc/costrows.cu",
@@ -1137,13 +1334,17 @@ def main():
             "name": label, "route": "cuda", "source": f"{PKG}/{src}",
             "replaces": rep if k.startswith("P") else f"{JAX_PKG}/{rep}",
             "launches": launches[k],
-            "launches_by_path": {p: c[k] for p, c in path_launches.items()
-                                 if c[k]},
+            "launches_by_path": {
+                p: c[shape_rows.get(k, (k,))[0]]
+                for p, c in path_launches.items()
+                if c[shape_rows.get(k, (k,))[0]]
+                and p.startswith(shape_rows.get(k, (k, ""))[1])},
             "max_abs_err": rows[k]["err"], "ms": rows[k]["ms"],
             "plain_ms": rows[k]["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
+            "bound_by": bound_by, "library_ms": rows[k].get("library"),
             "bytes": rows[k]["work"][0], "operations": rows[k]["work"][1],
-            **{key: rows[k][key] for key in ("flips", "blocks_per_sm")
+            **{key: rows[k][key] for key in ("flips", "blocks_per_sm",
+                                             "library_extra_bytes")
                if key in rows[k]}})
         print(f"  {k}: kernel {rows[k]['ms']:.4f} ms, bound {bound_ms:.4f} "
               f"ms ({bound_by}), {rows[k]['ms'] / bound_ms:.1f}x its bound; "

@@ -7,102 +7,389 @@
 // cost_volume and cost_volume_slab): the volume of the sharded strategies,
 // where one patch row's planes are contiguous and so are the H-chunks
 // that dslab's all_to_all moves.
-// out[b, .., d, .., j] = relu(<src[b, i, j, :], tgt[b, i, x0, :]>), with
-// x0 = p*(j + origin_offset) -+ (d_offset + d) (minus forward, plus
-// reverse); 0 where x0 falls outside [0, wt) or d_offset + d >= max_d.
-// d_offset makes the volume one disparity slab [d_offset, d_offset + d0)
-// of a larger one.  The TPU kernel shifted the target by whole patch
-// columns instead, because its schedule could not depend on a traced
-// offset; here it is a plain argument, so any slab size runs the kernel.
+// out[b, .., d, .., j] = relu(<src[b, i, j, :], tgt[b, i, x, :]>), with
+// x = p*(j + origin_offset) -+ (d_offset + d) (minus forward, plus
+// reverse); exactly 0 where x falls outside [0, wt) or d_offset + d >=
+// max_d.  d_offset makes the volume one disparity slab [d_offset,
+// d_offset + d0) of a larger one; the TPU kernel shifted the target by
+// whole patch columns instead, because its schedule could not depend on a
+// traced offset.  One kernel, the layout a template flag: a slab of K6 is
+// bitwise the same bins of K2, and the sharded strategies bitwise the
+// unsharded pipeline.
 //
-// One kernel, the layout a template flag (as the magbin form is on the
-// fused kernel), and every dot product the same `dot` in the same order:
-// a slab of K6 is bitwise equal to the same bins of K2, and the sharded
-// strategies to the unsharded pipeline.
+// What bounds it on this card: device memory.  Each bin costs 2*C flops
+// and 4 bytes of output; the descriptors are read once.  At the bench
+// (64 instances, C = 16, D0 = 64) that is 0.45 GB, 0.135 ms at 3.35 TB/s,
+// against 0.03 ms of FMAs.  The earlier kernel gave each thread one
+// (b, i, j) and had it read its source and each target descriptor from
+// device memory: a warp's loads touched 32 cache lines each (lanes
+// 4*C and 4*p*C bytes apart) for one useful float per line, and nothing
+// reused a target column across the ~D0/p bins that read it.
 //
-// A thread owns one (b, i, j) and loops over d (the source descriptor is
-// re-read from L1 for every d); consecutive threads write consecutive j,
-// so every store is coalesced.  The TPU kernel's phase decomposition of
-// the target columns existed only to avoid strided lane gathers; here a
-// thread reads its target descriptor directly.  Bound on this card by
-// device memory: the volume write (4 B per output) and the target reads,
-// which L1/L2 serve (neighbouring j read overlapping target columns); 2*C
-// flops per output is far below the compute roof.  What the write pattern
-// costs depends on the blocks resident together: in the D-major layout
-// they are neighbouring rows i of one plane, so they write one contiguous
-// stretch.  In the row layout the same grid would put their writes
-// d0 * w0 floats apart and ran 2.5x slower on the H100, so there the
-// grid splits d into chunks of kRowsChunk, j-blocks fastest, then
-// d-chunks, then rows: resident blocks write neighbouring rows of one
-// (b, i) instead.
+// The design:
+//   1. A block owns kTj = 32 consecutive patch columns j0.. of one (b, i)
+//      and one chunk of dc bins [dc0, dc0 + dc).  It stages into shared
+//      memory, by cp.async, the tile's source descriptors and the target
+//      strip its bins read, both contiguous in device memory: 16-byte
+//      copies where C is a multiple of 4 and the tensors are 16-byte
+//      aligned, 4-byte copies otherwise.  Columns outside [0, wt) and
+//      patch columns past w0 are zero-filled (a copy of 0 source bytes).
+//      C is staged in chunks of at most kCk floats, double-buffered, the
+//      bins' accumulators staying in registers across chunks.
+//   2. Register-tiled correlation.  Warp g owns the kJr = 4 patch columns
+//      jg + u (jg = j0 + 4g) and lane l of run r the bins (jg + u,
+//      dc0 - skew + e + u*p) forward, (jg + u, dc0 + e - u*p) reverse,
+//      e = 32r + l, skew = 3p: the four bins of a lane read ONE target
+//      column (p*(jg + u) - d does not depend on u), so each float4 of
+//      the target feeds 16 FMAs, and each float4 of the source (the same
+//      address across the warp: one broadcast) feeds 4 * runs.  At the
+//      bench, 7 loads of 16 bytes per 48 FMAs per lane.  A warp's lanes
+//      read consecutive target columns; the shared row stride s is 4 mod
+//      8 floats, so the float4 loads of each quarter-warp fall in
+//      distinct banks.  The skewed runs cover dc + skew bins rounded up to
+//      32 per column group, so some lanes compute bins outside the chunk
+//      (2/3 useful at the bench) and discard them.
+//   3. The numbers: each bin's dot is one FMA chain over k = 0..C-1 in
+//      order from 0.0f (__fmaf_rn: nothing reorders or splits it), as the
+//      earlier kernel's `acc += a[k] * b[k]` compiled.  Masked bins write
+//      0.0f, not relu of a dot with a zero-filled column.
+//   4. Writes.  The bins go through shared memory ((dc, kTj + 1) floats,
+//      conflict-free) and leave as whole rows of 32 consecutive j: 128
+//      bytes per warp store in either layout, so K6 needs no grid of its
+//      own.
+//   5. A block takes costvol_plan(c, d0, p).smem bytes (at most 110,592,
+//      at p = 8 with C >= 64), so at least two share an SM;
+//      __launch_bounds__ holds the registers to that.
+// The earlier chunk (kRowsChunk) and K6's d-chunked grid are gone: every
+// block writes whole rows, whatever the layout.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <climits>
+#include <mutex>
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRowsChunk = 8;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kJr = 4;              // patch columns per warp
+constexpr int kTj = kWarps * kJr;   // patch columns per block
+constexpr int kRunsMax = 4;         // runs of 32 bins per lane
+constexpr int kCk = 32;             // descriptor floats per staged chunk
 
-__device__ __forceinline__ float dot(const float* __restrict__ a,
-                                     const float* __restrict__ b, int c) {
-  float acc = 0.0f;
-  for (int k = 0; k < c; ++k) acc += a[k] * b[k];
-  return acc;
+// A block's schedule; mirrored by ops/costvol_cuda.py:plan.
+struct CostvolPlan {
+  int skew;   // (kJr - 1) * p: the run's shift across a warp's columns
+  int dc;     // bins per chunk
+  int nch;    // chunks of d0
+  int nr;     // runs of 32 per lane
+  int w;      // target strip columns
+  int ck;     // descriptor floats per C chunk
+  int nck;    // C chunks
+  int s;      // shared row stride, floats: 4 mod 8
+  int bufs;   // staging buffers: 2 when C is chunked
+  int buf;    // floats of one buffer: kTj source rows, then w strip rows
+  int smem;   // bytes
+};
+
+__host__ __device__ inline CostvolPlan costvol_plan(int c, int d0, int p) {
+  CostvolPlan q;
+  q.skew = (kJr - 1) * p;
+  const int dcmax = 32 * kRunsMax - q.skew;
+  q.nch = dcmax > 0 ? (d0 + dcmax - 1) / dcmax : 0;
+  q.dc = q.nch > 0 ? (d0 + q.nch - 1) / q.nch : 0;
+  q.nr = (q.dc + q.skew + 31) / 32;
+  q.w = p * (kTj - kJr) + 32 * q.nr;
+  q.ck = c < kCk ? c : kCk;
+  q.nck = (c + q.ck - 1) / q.ck;
+  q.s = (q.ck + 3) / 4 * 4;
+  if (q.s % 8 == 0) q.s += 4;
+  q.bufs = q.nck > 1 ? 2 : 1;
+  q.buf = (kTj + q.w) * q.s;
+  const int stage = q.bufs * q.buf;
+  const int out = q.dc * (kTj + 1);
+  q.smem = (4 * (stage > out ? stage : out) + 15) / 16 * 16;
+  return q;
 }
 
-template <bool ROWS>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes));
+}
+
+// Floats [kc, kc + ckc) of the tile's kTj source rows and of the strip's
+// w target columns from x_lo, into buf's rows (stride s); rows outside
+// the data zero-filled.  16-byte copies (VEC16) or 4-byte ones.
+template <bool VEC16>
+__device__ __forceinline__ void stage(float* buf, const CostvolPlan& q,
+                                      const float* __restrict__ srow,
+                                      const float* __restrict__ trow, int c,
+                                      int w0, int wt, int j0, int x_lo,
+                                      int kc, int ckc) {
+  const int rows = kTj + q.w;
+  const int per_row = VEC16 ? ckc >> 2 : ckc;
+  const int total = rows * per_row;
+  for (int e = threadIdx.x; e < total; e += kThreads) {
+    const int row = e / per_row, k = e - row * per_row;
+    const float* g = srow;
+    bool ok;
+    if (row < kTj) {
+      ok = j0 + row < w0;
+      if (ok) g = srow + (size_t)(j0 + row) * c;
+    } else {
+      const int x = x_lo + row - kTj;
+      ok = x >= 0 && x < wt;
+      if (ok) g = trow + (size_t)x * c;
+    }
+    if (VEC16) {
+      cp_async16(buf + row * q.s + 4 * k, ok ? g + kc + 4 * k : srow,
+                 ok ? 16 : 0);
+    } else {
+      cp_async4(buf + row * q.s + k, ok ? g + kc + k : srow, ok ? 4 : 0);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// acc[r][u] of this lane, over the staged floats [0, ckc) of buf.
+__device__ __forceinline__ void correlate(const float* buf,
+                                          const CostvolPlan& q, int g,
+                                          const int (&tcol)[kRunsMax],
+                                          int ckc,
+                                          float (&acc)[kRunsMax][kJr]) {
+  const float* sj = buf + g * kJr * q.s;
+  const int nq = ckc >> 2;
+  for (int k4 = 0; k4 < nq; ++k4) {
+    float4 a[kJr];
+#pragma unroll
+    for (int u = 0; u < kJr; ++u)
+      a[u] = *reinterpret_cast<const float4*>(sj + u * q.s + 4 * k4);
+#pragma unroll
+    for (int r = 0; r < kRunsMax; ++r) {
+      if (r < q.nr) {
+        const float4 t =
+            *reinterpret_cast<const float4*>(buf + tcol[r] + 4 * k4);
+#pragma unroll
+        for (int u = 0; u < kJr; ++u) {
+          acc[r][u] = __fmaf_rn(a[u].x, t.x, acc[r][u]);
+          acc[r][u] = __fmaf_rn(a[u].y, t.y, acc[r][u]);
+          acc[r][u] = __fmaf_rn(a[u].z, t.z, acc[r][u]);
+          acc[r][u] = __fmaf_rn(a[u].w, t.w, acc[r][u]);
+        }
+      }
+    }
+  }
+  for (int k = 4 * nq; k < ckc; ++k) {
+    float a[kJr];
+#pragma unroll
+    for (int u = 0; u < kJr; ++u) a[u] = sj[u * q.s + k];
+#pragma unroll
+    for (int r = 0; r < kRunsMax; ++r) {
+      if (r < q.nr) {
+        const float t = buf[tcol[r] + k];
+#pragma unroll
+        for (int u = 0; u < kJr; ++u)
+          acc[r][u] = __fmaf_rn(a[u], t, acc[r][u]);
+      }
+    }
+  }
+}
+
+template <bool ROWS, bool VEC16>
+__global__ void __launch_bounds__(kThreads, 2)
 costvol_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
                float* __restrict__ out, int h0, int w0, int wt, int c, int d0,
                int p, int max_d, int reverse, int origin_offset,
                int d_offset) {
-  int j, i, b, d_lo, d_hi;
-  if (ROWS) {
-    const unsigned nj = (w0 + kThreads - 1) / kThreads;
-    const unsigned nd = (d0 + kRowsChunk - 1) / kRowsChunk;
-    const unsigned t = blockIdx.x / nj;
-    const unsigned row = t / nd;
-    j = (blockIdx.x % nj) * kThreads + threadIdx.x;
-    i = row % h0;
-    b = row / h0;
-    d_lo = (t % nd) * kRowsChunk;
-    d_hi = min(d0, d_lo + kRowsChunk);
-  } else {
-    j = blockIdx.x * kThreads + threadIdx.x;
-    i = blockIdx.y;
-    b = blockIdx.z;
-    d_lo = 0;
-    d_hi = d0;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const CostvolPlan q = costvol_plan(c, d0, p);
+  const int ntj = (w0 + kTj - 1) / kTj;
+  const int tj = blockIdx.x % ntj, ch = blockIdx.x / ntj;
+  const int i = blockIdx.y, b = blockIdx.z;
+  const int j0 = tj * kTj, dc0 = ch * q.dc;
+  const int dcn = min(q.dc, d0 - dc0);
+  const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // The strip: forward its last column serves lane 0 of run 0 of warp
+  // kWarps - 1, reverse its first column lane 0 of run 0 of warp 0.
+  const int xo = p * (j0 + origin_offset);
+  const int x_lo = reverse ? xo + d_offset + dc0
+                           : xo - d_offset - dc0 + q.skew - (32 * q.nr - 1);
+  int tcol[kRunsMax];  // strip row of each run's column, times s
+#pragma unroll
+  for (int r = 0; r < kRunsMax; ++r) {
+    const int e = 32 * r + lane;
+    const int idx = p * kJr * g + (reverse ? e : 32 * q.nr - 1 - e);
+    tcol[r] = (kTj + idx) * q.s;
   }
-  if (j >= w0) return;
-  const float* sp = src + (((size_t)b * h0 + i) * w0 + j) * c;
+
+  const float* srow = src + ((size_t)b * h0 + i) * w0 * c;
   const float* trow = tgt + ((size_t)b * h0 + i) * wt * c;
+  float acc[kRunsMax][kJr];
+#pragma unroll
+  for (int r = 0; r < kRunsMax; ++r)
+#pragma unroll
+    for (int u = 0; u < kJr; ++u) acc[r][u] = 0.0f;
+
+  stage<VEC16>(sm, q, srow, trow, c, w0, wt, j0, x_lo, 0, min(q.ck, c));
+  for (int ci = 0; ci < q.nck; ++ci) {
+    const int kc = ci * q.ck;
+    if (ci + 1 < q.nck) {
+      stage<VEC16>(sm + ((ci + 1) & 1) * q.buf, q, srow, trow, c, w0, wt, j0,
+                   x_lo, kc + q.ck, min(q.ck, c - kc - q.ck));
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    correlate(sm + (ci & 1) * q.buf, q, g, tcol, min(q.ck, c - kc), acc);
+    __syncthreads();
+  }
+
+  // The bins of the chunk, masked, into a (dc, kTj + 1) stage ...
+  constexpr int os = kTj + 1;
+#pragma unroll
+  for (int r = 0; r < kRunsMax; ++r) {
+    if (r >= q.nr) break;
+    const int e = 32 * r + lane;
+    const int x = x_lo + p * kJr * g + (reverse ? e : 32 * q.nr - 1 - e);
+    const bool in = x >= 0 && x < wt;
+#pragma unroll
+    for (int u = 0; u < kJr; ++u) {
+      const int jj = g * kJr + u;
+      const int dd = reverse ? e - u * p : e + u * p - q.skew;
+      if (dd >= 0 && dd < dcn && j0 + jj < w0) {
+        const bool live = in && d_offset + dc0 + dd < max_d;
+        sm[dd * os + jj] = live ? fmaxf(acc[r][u], 0.0f) : 0.0f;
+      }
+    }
+  }
+  __syncthreads();
+  // ... and out as whole rows of kTj consecutive j.
   const size_t i_stride = ROWS ? (size_t)d0 * w0 : (size_t)w0;
   const size_t d_stride = ROWS ? (size_t)w0 : (size_t)h0 * w0;
-  float* o = out + (size_t)b * d0 * h0 * w0 + i * i_stride + j;
-  const int xs = p * (j + origin_offset);
-  for (int d = d_lo; d < d_hi; ++d) {
-    const int dg = d_offset + d;
-    const int x0 = reverse ? xs + dg : xs - dg;
-    float v = 0.0f;
-    if (dg < max_d && x0 >= 0 && x0 < wt)
-      v = fmaxf(dot(sp, trow + (size_t)x0 * c, c), 0.0f);
-    o[d * d_stride] = v;
+  float* o = out + (size_t)b * d0 * h0 * w0 + i * i_stride + j0 + lane;
+  if (j0 + lane < w0) {
+    for (int dd = g; dd < dcn; dd += kWarps)
+      o[(dc0 + dd) * d_stride] = sm[dd * os + lane];
   }
 }
 
+constexpr int kMaxDevices = 64;
+
+// Lets costvol_kernel<ROWS, VEC16> take `smem` bytes of dynamic shared
+// memory on the current device, with the carve-out at the most shared
+// memory; set once per device and again only for a larger `smem`.
+template <bool ROWS, bool VEC16>
+int prepare(int smem) {
+  static std::atomic<int> allowed[kMaxDevices];  // bytes; 0: nothing set
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  std::atomic<int>* done = dev < kMaxDevices ? &allowed[dev] : nullptr;
+  if (done && smem <= done->load(std::memory_order_acquire)) return 0;
+  std::lock_guard<std::mutex> lock(mu);
+  const int had = done ? done->load(std::memory_order_relaxed) : 0;
+  if (smem <= had) return 0;
+  if (had == 0)
+    err = cudaFuncSetAttribute(costvol_kernel<ROWS, VEC16>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(costvol_kernel<ROWS, VEC16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err == cudaSuccess && done) done->store(smem, std::memory_order_release);
+  return (int)err;
+}
+
+template <bool ROWS, bool VEC16>
+int launch(const float* src, const float* tgt, float* out, int n, int h0,
+           int w0, int wt, int c, int d0, int p, int max_d, int reverse,
+           int origin_offset, int d_offset, cudaStream_t stream) {
+  const CostvolPlan q = costvol_plan(c, d0, p);
+  if (q.nch <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
+  const int err = prepare<ROWS, VEC16>(q.smem);
+  if (err != 0) return err;
+  const long long gx = (long long)((w0 + kTj - 1) / kTj) * q.nch;
+  if (gx > INT_MAX || h0 > 65535 || n > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)gx, h0, n);
+  costvol_kernel<ROWS, VEC16><<<grid, kThreads, q.smem, stream>>>(
+      src, tgt, out, h0, w0, wt, c, d0, p, max_d, reverse, origin_offset,
+      d_offset);
+  return (int)cudaGetLastError();
+}
+
+// 16-byte staging where every row of C floats starts on a 16-byte
+// boundary.
+bool vec16(const float* src, const float* tgt, int c) {
+  return c % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0 &&
+         (reinterpret_cast<uintptr_t>(tgt) & 15) == 0;
+}
+
+template <bool ROWS>
+int dispatch(const float* src, const float* tgt, float* out, int n, int h0,
+             int w0, int wt, int c, int d0, int p, int max_d, int reverse,
+             int origin_offset, int d_offset, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  return vec16(src, tgt, c)
+             ? launch<ROWS, true>(src, tgt, out, n, h0, w0, wt, c, d0, p,
+                                  max_d, reverse, origin_offset, d_offset, st)
+             : launch<ROWS, false>(src, tgt, out, n, h0, w0, wt, c, d0, p,
+                                   max_d, reverse, origin_offset, d_offset,
+                                   st);
+}
+
+template <bool ROWS, bool VEC16>
+int blocks_per_sm(int smem) {
+  const int err = prepare<ROWS, VEC16>(smem);
+  if (err != 0) return -err;
+  int blocks = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, costvol_kernel<ROWS, VEC16>, kThreads, smem);
+  return e == cudaSuccess ? blocks : -(int)e;
+}
+
 }  // namespace
+
+// Shared memory of one block (mirrored by ops/costvol_cuda.py:smem_bytes);
+// 0 where the tile cannot take p (3 * p >= 128).
+extern "C" int dm_costvol_smem(int c, int d0, int p) {
+  const CostvolPlan q = costvol_plan(c, d0, p);
+  return q.nch > 0 ? q.smem : 0;
+}
+
+// Blocks of the instance that a launch with 16-byte aligned tensors takes
+// (row layout or D-major) that one SM holds; negative: a CUDA error.
+extern "C" int dm_costvol_blocks_per_sm(int c, int d0, int p, int rows) {
+  const int smem = dm_costvol_smem(c, d0, p);
+  if (smem <= 0) return -(int)cudaErrorInvalidValue;
+  const bool v = c % 4 == 0;
+  if (rows)
+    return v ? blocks_per_sm<true, true>(smem) : blocks_per_sm<true, false>(smem);
+  return v ? blocks_per_sm<false, true>(smem) : blocks_per_sm<false, false>(smem);
+}
 
 // K2: out is (n, d0, h0, w0).
 extern "C" int dm_costvol_dmajor(const float* src, const float* tgt,
                                  float* out, int n, int h0, int w0, int wt,
                                  int c, int d0, int p, int max_d, int reverse,
                                  int origin_offset, void* stream) {
-  const dim3 grid((w0 + kThreads - 1) / kThreads, h0, n);
-  costvol_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      src, tgt, out, h0, w0, wt, c, d0, p, max_d, reverse, origin_offset, 0);
-  return (int)cudaGetLastError();
+  return dispatch<false>(src, tgt, out, n, h0, w0, wt, c, d0, p, max_d,
+                         reverse, origin_offset, 0, stream);
 }
 
 // K6: out is (n, h0, d0, w0), global bins [d_offset, d_offset + d0).
@@ -110,12 +397,6 @@ extern "C" int dm_costvol_rows(const float* src, const float* tgt, float* out,
                                int n, int h0, int w0, int wt, int c, int d0,
                                int p, int max_d, int reverse,
                                int origin_offset, int d_offset, void* stream) {
-  const long long blocks = (long long)((w0 + kThreads - 1) / kThreads) *
-                           ((d0 + kRowsChunk - 1) / kRowsChunk) * n * h0;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  costvol_kernel<true><<<(unsigned)blocks, kThreads, 0,
-                         (cudaStream_t)stream>>>(
-      src, tgt, out, h0, w0, wt, c, d0, p, max_d, reverse, origin_offset,
-      d_offset);
-  return (int)cudaGetLastError();
+  return dispatch<true>(src, tgt, out, n, h0, w0, wt, c, d0, p, max_d,
+                        reverse, origin_offset, d_offset, stream);
 }

@@ -84,11 +84,49 @@ def pixel_features(img: torch.Tensor, cfg: Config) -> torch.Tensor:
     return grad_hist_pixels(img)
 
 
+_PAIRWISE_BLOCK = 128
+
+
+def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in NumPy's pairwise order (`np.sum` of a
+    float32 row), with keepdim: bitwise the oracle's sums.
+
+    Below 8 elements they add in order; up to 128, eight accumulators (one
+    per position in each block of eight) combine as ((r0 + r1) + (r2 +
+    r3)) + ((r4 + r5) + (r6 + r7)), then the tail adds in order; above
+    128 the row splits at n2 = n // 2 - (n // 2) % 8 and the halves' sums
+    add.  Only elementwise adds of slices, which round the same way on the
+    CPU and on the card.
+    """
+    n = x.shape[-1]
+    if n < 8:
+        acc = x[..., :1]
+        for k in range(1, n):
+            acc = acc + x[..., k:k + 1]
+        return acc
+    if n <= _PAIRWISE_BLOCK:
+        n8 = n - n % 8
+        blocks = x[..., :n8].unflatten(-1, (n8 // 8, 8))
+        r = blocks[..., 0, :]
+        for b in range(1, n8 // 8):
+            r = r + blocks[..., b, :]
+        while r.shape[-1] > 1:                     # 8 -> 4 -> 2 -> 1
+            r = r[..., 0::2] + r[..., 1::2]
+        for k in range(n8, n):
+            r = r + x[..., k:k + 1]
+        return r
+    n2 = n // 2
+    n2 -= n2 % 8
+    return pairwise_sum(x[..., :n2]) + pairwise_sum(x[..., n2:])
+
+
 def _normalize(desc: torch.Tensor, cfg: Config) -> torch.Tensor:
-    """Subtract the patch mean (`center_descriptors`), then L2-normalise."""
+    """Subtract the patch mean (`center_descriptors`), then L2-normalise;
+    both sums in the oracle's order (`pairwise_sum`), so that a flat
+    window centres to exact zeros as it does there."""
     if cfg.center_descriptors:
-        desc = desc - desc.mean(-1, keepdim=True)
-    norm = (desc * desc).sum(-1, keepdim=True).sqrt()
+        desc = desc - pairwise_sum(desc) / desc.shape[-1]
+    norm = pairwise_sum(desc * desc).sqrt()
     return desc / norm.clamp_min(_EPS)
 
 

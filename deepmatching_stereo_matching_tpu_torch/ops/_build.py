@@ -37,13 +37,16 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes.  Every one returns an int: the launch
 # functions a cudaError_t, the *_smem ones a block's shared memory in bytes,
-# dm_fused_blocks_per_sm the blocks one SM holds (negative: a CUDA error).
+# the *_blocks_per_sm ones the blocks one SM holds (negative: a CUDA error).
 _SIGNATURES = {
     # p, d0, max_d, levels, magbin
     "dm_fused_smem": [_I, _I, _I, _I, _I],
     "dm_fused_blocks_per_sm": [_I, _I, _I, _I, _I],
     # p, max_d
     "dm_cost_rows_smem": [_I, _I],
+    # c, d0, p (+ rows)
+    "dm_costvol_smem": [_I, _I, _I],
+    "dm_costvol_blocks_per_sm": [_I, _I, _I, _I],
     # src, tgt, out, n, h0, w0, wt, c, d0, p, max_d, reverse, origin_offset, stream
     "dm_costvol_dmajor": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # src, tgt, out, n, h0, w0, wt, c, d0, p, max_d, reverse, origin_offset,

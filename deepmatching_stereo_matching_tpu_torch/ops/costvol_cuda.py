@@ -7,22 +7,94 @@ _kernel_dmajor` (via `cost_volume_dmajor`); K6 replaces
 here one wrapper whose `d_offset` selects the slab).  Both layouts are
 one kernel with the same dot-product loop, so a K6 slab is bitwise equal
 to the same bins of K2.  What bounds it on the card and how it is laid
-out: see the note at the top of csrc/costvol.cu.
+out: see the note at the top of csrc/costvol.cu; `plan` mirrors its
+block schedule.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 from . import costvol
+from .pyramid_cuda import MAX_SMEM
 from ._dispatch import run_kernel
 
 
-def _check_descriptors(desc_src: torch.Tensor, desc_tgt: torch.Tensor):
-    """(lead, h0, w0, wt, c) of a source/target descriptor pair."""
+# Mirrors csrc/costvol.cu: patch columns per warp, warps per block (so
+# TILE_J patch columns per block), runs of 32 bins per lane, descriptor
+# floats per staged chunk.
+COLS_PER_WARP, WARPS, RUNS_MAX, C_CHUNK = 4, 8, 4, 32
+TILE_J = COLS_PER_WARP * WARPS
+
+
+class Plan(NamedTuple):
+    """One block's schedule (csrc/costvol.cu:costvol_plan)."""
+    skew: int    # (COLS_PER_WARP - 1) * p: a run's shift across a warp
+    dc: int      # bins per chunk of d0
+    nch: int     # chunks of d0
+    nr: int      # runs of 32 bins per lane
+    w: int       # target strip columns
+    ck: int      # descriptor floats per C chunk
+    nck: int     # C chunks
+    s: int       # shared row stride in floats, 4 mod 8
+    bufs: int    # staging buffers (2: C chunks double-buffered)
+    buf: int     # floats per buffer: TILE_J source rows, then w strip rows
+    smem: int    # bytes
+
+
+def plan(c: int, d0: int, p: int) -> Plan:
+    """The cost-volume kernel's schedule for descriptors of C floats, d0
+    bins and patch size p.  Raises where the tile cannot take p: a run of
+    32 * RUNS_MAX bins must cover the skew 3 * p (p <= 42), and the strip
+    of 28 * p + 128 columns must fit a block (p <= 23 where C > 32)."""
+    skew = (COLS_PER_WARP - 1) * p
+    dcmax = 32 * RUNS_MAX - skew
+    if dcmax <= 0:
+        raise ValueError(f"the cost-volume kernel takes patch sizes up to "
+                         f"42, not {p}")
+    nch = -(-d0 // dcmax)
+    dc = -(-d0 // nch) if nch else 0
+    nr = -(-(dc + skew) // 32)
+    w = p * (TILE_J - COLS_PER_WARP) + 32 * nr
+    ck = min(c, C_CHUNK)
+    nck = -(-c // ck)
+    s = -(-ck // 4) * 4
+    s += 4 if s % 8 == 0 else 0
+    bufs = 2 if nck > 1 else 1
+    buf = (TILE_J + w) * s
+    smem = -(-4 * max(bufs * buf, dc * (TILE_J + 1)) // 16) * 16
+    if smem > MAX_SMEM:
+        raise ValueError(f"the cost-volume kernel's block would take {smem} "
+                         f"B of shared memory at patch size {p} (C = {c}), "
+                         f"more than {MAX_SMEM}")
+    return Plan(skew, dc, nch, nr, w, ck, nck, s, bufs, buf, smem)
+
+
+def smem_bytes(c: int, d0: int, p: int) -> int:
+    """Shared memory of one block; mirrors `dm_costvol_smem`, and
+    chip_smoke.py holds the two equal (0 for no bins, as there)."""
+    q = plan(c, d0, p)
+    return q.smem if q.nch else 0
+
+
+def blocks_per_sm(c: int, d0: int, p: int, rows: bool = False) -> int:
+    """Blocks of K6 (rows) or K2 that one SM of the current card holds
+    (CUDA's occupancy calculator, through `dm_costvol_blocks_per_sm`).
+    Needs the card."""
+    n = _build.library().dm_costvol_blocks_per_sm(c, d0, p, int(rows))
+    if n < 0:
+        _build.check(-n, "cost-volume kernel occupancy")
+    return n
+
+
+def _check_descriptors(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
+                       disparities: int, patch_size: int):
+    """(lead, h0, w0, wt, c) of a source/target descriptor pair the
+    kernel takes."""
     *lead, h0, w0, c = desc_src.shape
     wt = desc_tgt.shape[-2]
     if tuple(desc_tgt.shape) != (*lead, h0, wt, c):
@@ -30,6 +102,7 @@ def _check_descriptors(desc_src: torch.Tensor, desc_tgt: torch.Tensor):
                          f"{tuple(desc_tgt.shape)} do not pair")
     if desc_src.dtype != torch.float32 or desc_tgt.dtype != torch.float32:
         raise NotImplementedError("the cost-volume kernel takes float32 only")
+    plan(c, disparities, patch_size)
     return lead, h0, w0, wt, c
 
 
@@ -53,7 +126,8 @@ def cost_volume_dmajor(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
         return cost_volume_dmajor_torch(desc_src, desc_tgt, disparities,
                                         patch_size, max_disparity, reverse,
                                         origin_offset)
-    lead, h0, w0, wt, c = _check_descriptors(desc_src, desc_tgt)
+    lead, h0, w0, wt, c = _check_descriptors(
+        desc_src, desc_tgt, disparities, patch_size)
     src = desc_src.contiguous()
     tgt = desc_tgt.contiguous()
     out = torch.empty((*lead, disparities, h0, w0), dtype=torch.float32,
@@ -82,7 +156,8 @@ def cost_volume_rows(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
         return costvol.cost_volume_rows_torch(
             desc_src, desc_tgt, disparities, patch_size, max_disparity,
             reverse, origin_offset, d_offset)
-    lead, h0, w0, wt, c = _check_descriptors(desc_src, desc_tgt)
+    lead, h0, w0, wt, c = _check_descriptors(
+        desc_src, desc_tgt, disparities, patch_size)
     src = desc_src.contiguous()
     tgt = desc_tgt.contiguous()
     out = torch.empty((*lead, h0, disparities, w0), dtype=torch.float32,

@@ -5,6 +5,8 @@
         [--steps 5] [--strategies tiled,dslab,ringd,wtiled,wtiled1]
     python deepmatching_stereo_matching_tpu_torch/profile_steps.py --k1 \
         [--root CHECKOUT]
+    python deepmatching_stereo_matching_tpu_torch/profile_steps.py \
+        --costvol --hashes FILE [--root CHECKOUT]
 
 Cells (synthetic pairs made from seeds, `lr_mode="flip"`): bench
 (450x375, D=64, 32 pairs, bench.py's recipe), grad_hist (the same with
@@ -33,6 +35,17 @@ it.
 launches each, after a forced build) from the port package under --root
 (default: this checkout).  Run as a file, once per checkout in one call
 (parent, change, change, parent), it compares two trees on the same card.
+
+--costvol prints the FFMA/FMUL/FADD counts of each costvol_kernel
+instance in the built library's SASS, times K2 (bench, bench at C=128,
+KITTI D=256) and K6 (KITTI D=256) as --k1 does, and hashes the volume of
+every cost-volume launch chip_smoke.py makes (`costvol_cases`, inputs
+made on the card from seeds), and times the bench's descriptors (patch
+and grad_hist, 64 instances, left + sliding): the hashes go to --hashes
+FILE where it does not exist, else each is compared with it (exit 1 if
+any differs).
+Run on the parent first, then the change, to show the volumes bitwise
+equal.
 """
 
 from __future__ import annotations
@@ -180,6 +193,159 @@ def time_k1():
               + f"; median {float(np.median(ms)):.4f}", flush=True)
 
 
+def costvol_cases():
+    """(name, kind, shape) of every cost-volume launch chip_smoke.py
+    makes, kind 'K2' (D-major) or 'K6' (rows); shape = (lead, h0, w0, wt,
+    c, d0, p, max_d, reverse, origin_offset, d_offset, aligned).  The
+    bench (2 x 32 instances: 96x128 patches, 512 target columns, C = 16
+    or 128 for grad_hist, D0 = 64), its halo-extended target (16 patches
+    each side), KITTI D=256 (2 x 4 instances, 96x384, 1536 columns) whole
+    and in 64-bin slabs, and small ragged shapes on every staging form:
+    p = 3 (C = 9) and 5 (C = 25) by 4-byte copies, p = 6 and 7 with a
+    ragged last C chunk, p = 8 with C = 64 and 512 (chunked), d_offset
+    not a multiple of p, w0 not a multiple of the 32-column tile, and a
+    C = 16 pair off 16-byte alignment."""
+    cases = []
+
+    def both(name, kinds, lead, h0, w0, wt, c, d0, p, max_d, oo=0, dofs=0,
+             aligned=True):
+        for reverse in (False, True):
+            for kind in kinds:
+                cases.append((f"{kind} {name} {'rev' if reverse else 'fwd'}",
+                              kind, ((*lead,), h0, w0, wt, c, d0, p, max_d,
+                                     reverse, oo, dofs, aligned)))
+
+    both("bench", ("K2",), (2, 32), 96, 128, 512, 16, 64, 4, 64)
+    both("bench C=128", ("K2",), (2, 32), 96, 128, 512, 128, 64, 4, 64)
+    both("bench halo", ("K6",), (2, 32), 96, 128, 512 + 128, 16, 64, 4, 64,
+         oo=16)
+    both("kitti D=256", ("K2", "K6"), (2, 4), 96, 384, 1536, 16, 256, 4, 256)
+    for k in range(4):
+        both(f"kitti slab {64 * k}", ("K6",), (2, 4), 96, 384, 1536, 16, 64,
+             4, 256, dofs=64 * k)
+    for p, c, h0, w0, d0, max_d, dofs in (
+            (3, 9, 6, 45, 24, 22, 7), (5, 25, 3, 33, 20, 20, 3),
+            (6, 36, 3, 21, 48, 45, 5), (7, 49, 2, 19, 28, 25, 0),
+            (8, 64, 4, 20, 40, 37, 13), (8, 512, 2, 12, 24, 24, 9),
+            (8, 64, 2, 40, 256, 250, 0), (4, 128, 3, 40, 16, 16, 2)):
+        both(f"p={p} C={c} {h0}x{w0} D0={d0}", ("K2", "K6"), (3,), h0, w0,
+             p * w0 + p - 1, c, d0, p, max_d, dofs=dofs)
+    both("p=4 C=16 unaligned", ("K2", "K6"), (2,), 5, 50, 200, 16, 32, 4, 30,
+         oo=2, aligned=False)
+    return cases
+
+
+def costvol_inputs(torch, shape, seed, device="cuda"):
+    """Unit-norm descriptors for one case, made on the device from a seed:
+    (src, tgt), the target's last p - 1 columns zero as sliding
+    descriptors are, and off 16-byte alignment where the case says so."""
+    lead, h0, w0, wt, c, d0, p, *_, aligned = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def make(cols):
+        x = torch.randn((*lead, h0, cols, c), generator=gen, device=device)
+        x = x / x.square().sum(-1, keepdim=True).sqrt()
+        if aligned:
+            return x
+        buf = torch.empty(x.numel() + 1, device=device)
+        buf[1:].copy_(x.flatten())
+        return buf[1:].view(x.shape)
+
+    src, tgt = make(w0), make(wt)
+    tgt[..., wt - (p - 1):, :] = 0.0
+    return src, tgt
+
+
+def costvol_launch(costvol_cuda, kind, shape, src, tgt):
+    lead, h0, w0, wt, c, d0, p, max_d, reverse, oo, dofs, _ = shape
+    if kind == "K2":
+        return costvol_cuda.cost_volume_dmajor(src, tgt, d0, p, max_d,
+                                               reverse, oo)
+    return costvol_cuda.cost_volume_rows(src, tgt, d0, p, max_d, reverse, oo,
+                                         dofs)
+
+
+def costvol_sass(so):
+    """{costvol_kernel instance: {FFMA, FMUL, FADD: count}} in the built
+    library's SASS, or None where the toolkit has no cuobjdump."""
+    import os
+    import re
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            cur = fn if "costvol_kernel" in fn else None
+            if cur:
+                counts[cur] = dict.fromkeys(("FFMA", "FMUL", "FADD"), 0)
+        elif cur:
+            for op in counts[cur]:
+                if re.search(rf"\b{op}\b", line):
+                    counts[cur][op] += 1
+    return counts
+
+
+def time_costvol(hashes: Path):
+    """--costvol: SASS op counts of costvol_kernel, times of K2 bench, K2
+    C=128, K2 and K6 at KITTI D=256, and a hash of every case's volume,
+    written to `hashes` if it does not exist, else compared with it."""
+    import hashlib
+    import json
+
+    import torch
+
+    from deepmatching_stereo_matching_tpu_torch.ops import _build, costvol_cuda
+
+    so = _build.build(force=True)
+    print(f"costvol_kernel SASS {_build.SRC_DIR}: {costvol_sass(so)}",
+          flush=True)
+    timed = ("K2 bench fwd", "K2 bench C=128 fwd", "K2 kitti D=256 fwd",
+             "K6 kitti D=256 fwd")
+    got = {}
+    for seed, (name, kind, shape) in enumerate(costvol_cases()):
+        src, tgt = costvol_inputs(torch, shape, seed)
+        vol = costvol_launch(costvol_cuda, kind, shape, src, tgt)
+        torch.cuda.synchronize()
+        got[name] = hashlib.sha256(vol.cpu().numpy().tobytes()).hexdigest()
+        if name in timed:
+            ms = _median_launch_ms(torch, lambda: costvol_launch(
+                costvol_cuda, kind, shape, src, tgt))
+            print(f"{name} {tuple(vol.shape)} {_build.SRC_DIR}: ms per call, "
+                  f"5 x 20 launches: " + " ".join(f"{x:.4f}" for x in ms)
+                  + f"; median {float(np.median(ms)):.4f}", flush=True)
+        del src, tgt, vol
+    # The descriptors K2 reads, in both directions at the bench: their
+    # normalisation's sums are the package's own (the oracle's order).
+    from deepmatching_stereo_matching_tpu_torch.models import descriptors
+    for cell in ("bench", "grad_hist"):
+        cfg, _, lp, rp = _padded_pairs(cell)
+        lefts = torch.stack([lp, rp.flip(-1)])
+        rights = torch.stack([rp, lp.flip(-1)])
+        ms = _median_launch_ms(torch, lambda: (
+            descriptors.left_descriptors(lefts, cfg),
+            descriptors.right_sliding_descriptors(rights, cfg)))
+        print(f"descriptors {cell} (64 instances, left + sliding) "
+              f"{_build.SRC_DIR}: ms per call: "
+              + " ".join(f"{x:.4f}" for x in ms)
+              + f"; median {float(np.median(ms)):.4f}", flush=True)
+    if not hashes.exists():
+        hashes.write_text(json.dumps(got, indent=1))
+        print(f"costvol: {len(got)} volume hashes written to {hashes}")
+        return 0
+    want = json.loads(hashes.read_text())
+    differ = sorted(k for k in got if want.get(k) != got[k])
+    print(f"costvol: {len(got) - len(differ)} of {len(got)} volumes bitwise "
+          f"equal to {hashes}; differ: {differ}", flush=True)
+    return 1 if differ else 0
+
+
 def _median_launch_ms(torch, fn):
     """Five samples of the mean time of 20 calls, CUDA events."""
     for _ in range(3):
@@ -208,9 +374,15 @@ def main(argv=None) -> int:
                          f"{','.join(STRATEGIES)}")
     ap.add_argument("--k1", action="store_true",
                     help="time K1 and K1b alone at the bench shapes")
+    ap.add_argument("--costvol", action="store_true",
+                    help="time K2/K6 and hash their volumes on every "
+                         "chip_smoke shape")
+    ap.add_argument("--hashes", type=Path,
+                    help="--costvol: the hash file to write, or to compare "
+                         "with where it exists")
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parent.parent,
-                    help="checkout whose port package --k1 times")
+                    help="checkout whose port package --k1/--costvol times")
     args = ap.parse_args(argv)
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -228,6 +400,10 @@ def main(argv=None) -> int:
     if args.k1:
         time_k1()
         return 0
+    if args.costvol:
+        if args.hashes is None:
+            ap.error("--costvol needs --hashes")
+        return time_costvol(args.hashes.resolve())
     cells = args.cells.split(",")
     routes = [r for r in args.routes.split(",") if r]
     strategies = [s for s in args.strategies.split(",") if s]
