@@ -8,8 +8,9 @@ Phases, each printing its own lines (any failure exits nonzero):
   2. build: nvcc builds csrc/*.cu from this checkout, one process per
      source; ptxas reports each kernel's registers, shared memory, spills,
      and the four fused_kernel instances (p = 4 and runtime p, patch and
-     magbin) and the four costvol_kernel instances (D-major and rows,
-     16-byte and 4-byte staging) must spill nothing;
+     magbin), the four costvol_kernel instances (D-major and rows, 16-byte
+     and 4-byte staging), the two costrows_kernel instances (p = 4 and
+     runtime p) and pyramid_kernel must spill nothing;
   3. kernel vs plain PyTorch version on the card, at full width:
      - bench shapes (450x375, D=64 -> padded 384x512, L=4, D0=64; 32
        pairs x 2 directions = 64 instances): cost volume (K2) atol 1e-6,
@@ -17,11 +18,17 @@ Phases, each printing its own lines (any failure exits nonzero):
        fused magbin (K1b, grad_hist) at most 0.5% of decisions flipped
        (the count is printed and recorded) and scores within 2e-5 where
        decisions agree; K1's scores bitwise equal to K4's volume on the
-       same 64 instances gathered at K1's disparities; K1 and K1b each
+       same 64 instances gathered at K1's disparities; K1, K1b and K3 each
        at least 2 blocks per SM (CUDA's occupancy calculator);
+     - K3 at every shape of `profile_steps.rows_cases` (the bench on
+       real-valued and on tie-heavy costs, D0 = 128 at L = 4, L = 1, 2
+       and 5): decisions and scores bitwise equal to plain, and its shared
+       memory per block as the library computes it equal to
+       `pyramid_cuda.smem_bytes`;
      - K1 and K1b at small tiles (L 2 and 3, max_d 13, 16 and 32, p 4,
        and the runtime-p instance at p 3 and 8) within the same gate,
-       K1's scores bitwise K4's where p is 4;
+       K1's scores bitwise K4's where p < 5 (at p 8 the count that differ
+       is printed: K4's window norms round pixel row 4's squares);
      - the cost-volume kernel (K2, K6): its shared memory per block as
        the library computes it equals `costvol_cuda.smem_bytes`, and at
        least 2 blocks per SM at the bench, grad_hist and KITTI shapes; K2
@@ -37,8 +44,10 @@ Phases, each printing its own lines (any failure exits nonzero):
        image->volume (K4) at D=128, 8 pairs x 2 directions, atol 2e-5;
        level aggregation (K5) on that volume and at D=256 (4 pairs x 2),
        fast and exact: offsets equal and top maps bitwise;
-     - K4 on a grid of ragged 8x32-patch tiles (28x76 patches, D0=100,
-       max_d=99), atol 2e-5;
+     - K4 at least 2 blocks per SM at both KITTI shapes; on a grid of
+       ragged 8x32-patch tiles (28x76 patches, D0=100, max_d=99), on
+       ragged grids at the runtime-p instance (p 3, 5, 6, 7) and at D0 = 14
+       (not a multiple of 4), atol 2e-5;
      - each block's shared memory as the library computes it equals the
        mirror that fused_cuda's routing rules use (K1, K1b, K4);
      - the row-layout slab cost volume (K6) at KITTI D=256 (4 pairs x 2
@@ -120,16 +129,15 @@ RAGGED_HW, RAGGED_D = (100, 300), 99   # L=2: a 28x76-patch grid, D0=100
 MAIN_PATH_SEEDS = (100, 101)
 SLAB = 64                              # K6 check: D=256 in four slabs
 FUSED_DECISION_TOL = 0.005
-# K1 at small tiles: (h0, w0, max_d, levels, patch size); p = 4 as
-# tests/test_torch_ops.py's K1 cases, then the runtime-p instance.
-SMALL_TILES = ((8, 16, 16, 2, 4), (16, 16, 16, 2, 4), (16, 24, 13, 2, 4),
-               (32, 48, 32, 3, 4), (16, 24, 13, 2, 3), (8, 16, 16, 2, 8))
-# K1, K1b and K4 as measured before the fused kernel's redesign (PERF.md,
+# K1 and K1b as measured before the fused kernel's redesign (PERF.md,
 # H100 @700 W), printed beside this run's.
-EARLIER_MS = {"K1": 1.5673, "K1b": 2.1742, "K4": 1.3259}
+EARLIER_MS = {"K1": 1.5673, "K1b": 2.1742}
 # ... and K2/K6 before the cost-volume kernel's redesign (PERF.md, the
 # same card): bench, grad_hist C=128 x 64 instances, KITTI D=256 x 8.
 EARLIER_MS.update({"K2": 4.4331, "K2 C=128": 110.9849, "K6": 6.4251})
+# ... and K3/K4 before their redesign (PERF.md, the same card): K3 at the
+# bench, K4 at KITTI D=128 x 16 instances.
+EARLIER_MS.update({"K3": 0.4879, "K4": 1.3301})
 # Centred descriptors on adversarial (tie-heavy, flat-window) pairs.
 ADV_HW, ADV_D, ADV_SEEDS = (97, 141), 24, (0, 1, 5)
 STREAM_PAIRS, STREAM_TAIL = 69, 5       # two batches of BATCH and a tail
@@ -287,8 +295,8 @@ def main():
     from deepmatching_stereo_matching_tpu_torch.tools import vpu_probe
     from deepmatching_stereo_matching_tpu_torch.data import synthetic
     from deepmatching_stereo_matching_tpu_torch.profile_steps import (
-        STRATEGIES as STRATEGY_RUNS, costvol_cases, costvol_inputs,
-        costvol_launch)
+        SMALL_TILES, STRATEGIES as STRATEGY_RUNS, costvol_cases,
+        costvol_inputs, costvol_launch, rows_cases, rows_inputs, rows_launch)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -341,6 +349,15 @@ def main():
     require(len(costvol_ptxas) == 4 and all(
         v[1] == 0 and v[2] == 0 for v in costvol_ptxas.values()),
         f"costvol_kernel instantiations missing or spilling: {costvol_ptxas}")
+    rows_ptxas = ptxas(_build.build_log(),
+                       r"(costrows_kernelILi(\d+)E|pyramid_kernel)",
+                       lambda m: m.group(1))
+    for fn, (regs, spill_st, spill_ld) in sorted(rows_ptxas.items()):
+        print(f"{fn}: {regs} registers, spill stores {spill_st} B, spill "
+              f"loads {spill_ld} B")
+    require(len(rows_ptxas) == 3 and all(
+        v[1] == 0 and v[2] == 0 for v in rows_ptxas.values()),
+        f"costrows_kernel / pyramid_kernel missing or spilling: {rows_ptxas}")
     print(flush=True)
 
     def to_dev(imgs, cfg, h, w):
@@ -422,7 +439,9 @@ def main():
 
     def witness(label, lefts, rights, cfg, geom, d, s, required=True):
         """K1's scores against K4's volume on the same planes, gathered at
-        K1's disparities: both compute cost.cuh's arithmetic."""
+        K1's disparities: both compile cost.cuh's cost block, which rounds
+        alike wherever the patch has no fifth pixel row (at p >= 5 K4's
+        window norms round that row's squares before adding them)."""
         vol = fused_cuda.cost_volume_rows(lefts, rights, cfg, geom)
         at = vol.gather(-3, d.long().unsqueeze(-3)).squeeze(-3)
         same = torch.equal(at, s)
@@ -479,6 +498,32 @@ def main():
            lambda: pyramid_cuda.pyramid_body(vol, geom.levels, cfg.lam),
            (nbytes(vol, d3, s3), pyramid_flops(vol.numel(), geom.levels)))
     del vol, ds, dt
+    # K3: shared memory against its mirror, blocks per SM, and bitwise to
+    # plain at every rows_cases shape.
+    for seed, (cname, kind, shape) in enumerate(rows_cases()):
+        if kind != "K3":
+            continue
+        n_, d0_, h0_, w0_, lv_ = shape
+        require(pyramid_cuda.supported(d0_, lv_), f"{cname} not routed")
+        lib_b = _build.library().dm_pyramid_smem(d0_, lv_)
+        occ3 = pyramid_cuda.blocks_per_sm(d0_, lv_)
+        inputs_ = rows_inputs(torch, kind, shape, seed)
+        dk, sk = rows_launch(kind, shape, inputs_, cname)
+        sync()
+        dp_, sp_ = rows_launch(kind, shape, inputs_, cname, plain=True)
+        same = torch.equal(dk, dp_) and torch.equal(sk, sp_)
+        print(f"{cname} {shape}: decisions and scores bitwise equal to "
+              f"plain {same} (decision mismatch rate "
+              f"{float((dk != dp_).float().mean()):.3e}); shared memory "
+              f"{lib_b} B (library), {pyramid_cuda.smem_bytes(d0_, lv_)} B "
+              f"(mirror); {occ3} blocks per SM")
+        require(same, f"{cname} disagrees with its plain version")
+        require(lib_b == pyramid_cuda.smem_bytes(d0_, lv_),
+                f"{cname}: the shared-memory mirror disagrees")
+        require(occ3 >= 2, f"{cname}: {occ3} blocks per SM, fewer than 2")
+        if cname == "K3 bench":
+            rows["K3"]["blocks_per_sm"] = occ3
+        del inputs_, dk, sk, dp_, sp_
 
     def smem_agrees(label, lib_bytes, mirror_bytes):
         """The routing rules' shared-memory mirror equals the library's."""
@@ -546,7 +591,7 @@ def main():
                     f"K1 small tiles {kind} p={p} disagree with plain")
             if kind == "patch":
                 witness(f"K1 small p={p} {h0}x{w0}", sl_, sr_, scfg, sgeom,
-                        d, s_, required=p == 4)
+                        d, s_, required=p < 5)
 
     # 3a'. The cost-volume kernel (K2, K6): its shared memory as the
     # library computes it against costvol_cuda's mirror, at least 2 blocks
@@ -628,6 +673,10 @@ def main():
         smem_agrees(f"K4 KITTI D={max_d}",
                     _build.library().dm_cost_rows_smem(kcfg.patch_size, max_d),
                     fused_cuda.cost_smem_bytes(kcfg.patch_size, max_d))
+        occ4 = fused_cuda.cost_blocks_per_sm(kcfg.patch_size, max_d)
+        print(f"K4 KITTI D={max_d} blocks per SM (occupancy API): {occ4}")
+        require(occ4 >= 2, f"K4 KITTI D={max_d}: {occ4} blocks per SM, "
+                f"fewer than 2")
         kp =[make_kitti_pair(i, max_d) for i in range(batch)]
         klp = to_dev([l for l, _, _ in kp], kcfg, KH, KW)
         krp = to_dev([r for _, r, _ in kp], kcfg, KH, KW)
@@ -642,6 +691,7 @@ def main():
         require(err4 <= 2e-5, f"K4 disagrees with its plain version: {err4}")
         del kvol_p
         if max_d == 128:
+            k4_occ = occ4
             record("K4", err4,
                    lambda: fused_cuda.cost_volume_rows(kl, kr, kcfg, kgeom),
                    lambda: fused_cuda.cost_volume_torch(kl, kr, kcfg, kgeom),
@@ -690,6 +740,24 @@ def main():
           f"max |kernel - plain| = {err4r:.3e}")
     require(err4r <= 2e-5, f"K4 disagrees with its plain version on a "
             f"ragged grid: {err4r}")
+    rows["K4"]["blocks_per_sm"] = k4_occ
+    # ... and on ragged grids at the runtime-p instance (p 3, 5, 6, 7) and
+    # at D0 not a multiple of 4.
+    for seed, (cname, kind, shape) in enumerate(rows_cases()):
+        if not cname.startswith("K4 ragged") or "28x76" in cname:
+            continue
+        n_, h0_, w0_, p_, d0_, max_d_ = shape
+        smem_agrees(cname, _build.library().dm_cost_rows_smem(p_, max_d_),
+                    fused_cuda.cost_smem_bytes(p_, max_d_))
+        inputs_ = rows_inputs(torch, kind, shape, seed)
+        got_ = rows_launch(kind, shape, inputs_)
+        sync()
+        err = float((got_ - rows_launch(kind, shape, inputs_, plain=True))
+                    .abs().max())
+        print(f"{cname} {shape}: max |kernel - plain| = {err:.3e}")
+        require(err <= 2e-5, f"{cname} disagrees with its plain version: "
+                f"{err}")
+        del inputs_, got_
 
     # 3c. K6, the row-layout slab cost volume: KITTI D=256, whole range and
     # 64-bin slabs, against its plain version and K2.

@@ -1,77 +1,209 @@
 // K4: padded image rows -> the D-major level-0 cost volume.
 //
 // Replaces deepmatching_stereo_matching_tpu/ops/fused_pallas.py:
-// _cost_only_kernel (via _cost_volume_rows / cost_volume_rows): the cost
-// block of cost.cuh (K1's numerics) with the volume written to device
-// memory instead of a pyramid run on it, for volumes whose quadtree tile
-// does not fit one block's shared memory (KITTI at D0 = 128 and 256).
+// _cost_only_kernel (via _cost_volume_rows / cost_volume_rows): K1's cost
+// block (cost.cuh, which both kernels compile) with the volume written to
+// device memory instead of a pyramid run on it, for volumes whose quadtree
+// tile does not fit one block's shared memory (KITTI at D0 = 128 and 256).
 // In: (n, Hp, Wp) f32 left and right images, patch form.  Out:
 // (n, D0, H0, W0) f32.
 //
-// One block per (instance, kTh x kTw-patch tile).  The tile is fixed and
-// does not depend on the pyramid depth: no merge happens here.  A block
-// stages p*kTh rows of p*kTw left pixels and p*kTw + max_d - 1 right
-// pixels (~77 KB at p = 4, max_d = 256, so two blocks fit an SM), then
-// each thread owns one patch and walks d, and a warp's 32 threads store
-// 32 consecutive j of one d plane: 128-byte coalesced stores.  Ragged
-// edges are masked, so any (H0, W0) is covered.
+// One block per (instance, th x 32-patch tile), one thread per patch, a
+// warp per patch row: each d-plane store of a warp is one 128-byte line.
+// The tile is fixed by (p, max_d), not by the pyramid depth: no merge
+// happens here.  Per block:
+//   1. Stage the tile's p*th x 32p left pixels and the right strip its
+//      targets reach, from image column 32p*x0 - round_up(max_d - 1, 4),
+//      by cp.async (cost.cuh:stage_rows), then the right-window norms
+//      (cost.cuh:window_norms), as K1 does, but with the square of pixel
+//      row 4 rounded before it is added (ROW4): the volume at p >= 5 stays
+//      bitwise what this kernel's earlier rolled loops computed.
+//   2. p = 4 (a template instance): the thread holds its 4 x 4 left pixels
+//      in registers and walks d in steps of four through cost.cuh:costs4,
+//      as K1 does: the window at d4 + r is floats 4 - r .. 7 - r of the
+//      aligned float4 before the window start of d4 and the one at it, so
+//      a step takes two 16-byte loads per pixel row and one of norms,
+//      against two scalar loads per multiply-add before.  A warp's 32
+//      lanes read 512 consecutive bytes per load: no bank conflicts.
+//      (Carrying the float4 at the window start over from the step before,
+//      one load fewer, ran no faster.)  Any other p: a runtime-p instance
+//      that reads the staged pixels per cost (cost.cuh:cell_cost).
+//   3. Every plane d < D0 is stored: 0 for d >= max_d and where p*jg < d.
+//      Cells outside the (H0, W0) grid (ragged tiles) store nothing.
+// th is 8 where two blocks fit an SM (58,368 B at KITTI D0 = 128: three
+// blocks per SM; 78,848 B at D0 = 256: two), else 4, 2 or 1, so that two
+// blocks fit at every configuration that fused_cuda.cost_supported routes
+// here.  A wider tile (64 patch columns, two warps per row) would shrink
+// the strip's overhang (2x the tile's width at D0 = 256 instead of 3x) but
+// takes more shared memory per row for the same blocks per SM; the strip
+// comes from L2, and what a block moves to device memory, its slice of the
+// volume (th x 32 x D0 floats), is 3-5x what it stages.
 //
-// Bound on this card by the volume write (4 B per cost, ~0.09 ms for the
-// 302 MB of 16 KITTI instances at D0 = 128 at 3.35 TB/s) and by the
-// shared-memory reads of the correlation (two per multiply-add, with
-// 4-way bank conflicts between neighbouring patches); keeping the left
-// patch in registers and staging the strip with TMA are left for later.
+// Bound on this card by the volume write: 4 B per cost, 0.09 ms for the
+// 302 MB of 16 KITTI instances at D0 = 128 at 3.35 TB/s; the products
+// (16 per cost) take a third of that at the FMA rate.
 
 #include "cost.cuh"
+#include "launch.cuh"
 
 namespace {
 
-constexpr int kTh = 8, kTw = 32;
-constexpr int kThreads = kTh * kTw;  // one thread per tile patch
+using namespace dm;
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kTw = 32;       // patch columns of a tile: one warp
+constexpr int kMaxRows = 8;   // patch rows of a tile, at most
+// The bytes a block may take for two per SM: an H100 SM's 233,472 B of
+// shared memory over two blocks, less the 1 KB reserved per block.
+constexpr int kTwoPerSm = 233472 / 2 - 1024;
+
+// Shared memory of one block: strides in elements, offsets in bytes.
+struct RowsLayout {
+  int th, rows, lw, right, rs, is;
+  int lt, rt, invr, total;
+};
+
+__host__ __device__ inline RowsLayout rows_layout(int p, int max_d, int th) {
+  RowsLayout f;
+  f.th = th;
+  f.rows = p * th;
+  f.lw = p * kTw;  // a multiple of 4, and so is the tile origin p*x0
+  const int lead = round_up(max_d - 1, 4);
+  f.right = round_up(f.lw + lead, 4);
+  f.rs = f.right | 4;                  // 4 mod 8
+  f.is = ((f.right + 15) & ~31) + 16;  // 16 mod 32
+  f.lt = 0;
+  f.rt = 4 * f.rows * f.lw;
+  f.invr = f.rt + 4 * f.rows * f.rs;
+  f.total = round_up(f.invr + 4 * th * f.is, 16);
+  return f;
+}
+
+// The layout at the tallest tile (8, 4, 2 or 1 patch rows) of which two
+// blocks fit an SM.
+__host__ __device__ inline RowsLayout pick_layout(int p, int max_d) {
+  int th = kMaxRows;
+  while (th > 1 && rows_layout(p, max_d, th).total > kTwoPerSm) th >>= 1;
+  return rows_layout(p, max_d, th);
+}
+
+// p = 4: the costs of patch (i, j), global column jg, for d = 0..d0-1
+// into o[d * plane], four planes per step (step 2 above).
+__device__ __forceinline__ void stream4(const Tile& s, int i, int j, int jg,
+                                        float il, int d0, float* o,
+                                        size_t plane) {
+  const uint32_t lbw[4] = {0u, 0u, 0u, 0u};
+  float L[4][4];
+#pragma unroll
+  for (int dr = 0; dr < 4; ++dr) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(s.lt + (4 * i + dr) * s.ls + 4 * j);
+    L[dr][0] = v.x;
+    L[dr][1] = v.y;
+    L[dr][2] = v.z;
+    L[dr][3] = v.w;
+  }
+  // The norm of the window at d = 0, whose start is aligned.
+  float ivc = s.invr[i * s.is + 4 * j + s.lead];
+  int d4 = 0;
+  for (; d4 < d0 && d4 < s.max_d; d4 += 4) {
+    float c[4];
+    costs4<false>(s, L, lbw, i, j, jg, d4, il, ivc, c);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (d4 + r < d0) o[(size_t)(d4 + r) * plane] = c[r];
+  }
+  for (; d4 < d0; d4 += 4) {  // planes d >= max_d
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (d4 + r < d0) o[(size_t)(d4 + r) * plane] = 0.0f;
+  }
+}
+
+template <int P>
+__global__ void __launch_bounds__(kMaxRows * 32, 3)
 costrows_kernel(const float* __restrict__ left,
                 const float* __restrict__ right, float* __restrict__ out,
-                int hp, int wp, int p, int d0, int max_d) {
+                int hp, int wp, int p_arg, int d0, int max_d) {
   extern __shared__ float4 smem4[];
-  dm::CostTile c = dm::cost_tile(p, kTh, kTw, max_d);
-  dm::carve(c, reinterpret_cast<float*>(smem4));
+  char* sm = reinterpret_cast<char*>(smem4);
+  const int p = P > 0 ? P : p_arg;
+  const RowsLayout f = pick_layout(p, max_d);
   const int h0 = hp / p, w0 = wp / p;
   const int tiles_w = (w0 + kTw - 1) / kTw;
   const int ty = blockIdx.x / tiles_w, tx = blockIdx.x - ty * tiles_w;
   const int n = blockIdx.y;
-  const int y0 = ty * kTh, x0 = tx * kTw;
-  const size_t img = (size_t)n * hp * wp;
-  dm::stage_tile(c, left + img, right + img, hp, wp, y0, x0);
+  const int y0 = ty * f.th, x0 = tx * kTw;  // tile origin in patches
+  const int ly = p * y0, lx = p * x0;
+  const int rx = lx - (max_d - 1), rx0 = rx - (rx & 3);
 
-  const int e = threadIdx.x;
-  const int i = e / kTw, j = e - i * kTw;
-  if (y0 + i >= h0 || x0 + j >= w0) return;
+  float* lt = reinterpret_cast<float*>(sm + f.lt);
+  float* rt = reinterpret_cast<float*>(sm + f.rt);
+  float* invr = reinterpret_cast<float*>(sm + f.invr);
+  const Tile s{lt, rt, invr, nullptr, nullptr, p, f.th, f.lw, f.rs, f.is,
+               0, 0, lx - rx0, max_d};
+  const size_t img = (size_t)n * hp * wp;
+  stage_rows(lt, f.lw, left + img, hp, wp, ly, lx, f.rows, f.lw);
+  stage_rows(rt, f.rs, right + img, hp, wp, ly, rx0, f.rows, f.right);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  window_norms<true>(s, invr, f.right);
+  __syncthreads();
+
+  const int i = threadIdx.x >> 5, j = threadIdx.x & 31, jg = x0 + j;
+  if (y0 + i >= h0 || jg >= w0) return;
   const size_t plane = (size_t)h0 * w0;
-  float* o = out + (size_t)n * d0 * plane + (size_t)(y0 + i) * w0 + x0 + j;
-  const float il = c.invl[e];
-  for (int d = 0; d < d0; ++d)
-    o[d * plane] = dm::patch_cost(c, i, j, x0 + j, d, il);
+  float* o = out + (size_t)n * d0 * plane + (size_t)(y0 + i) * w0 + jg;
+  const float il = left_inv_norm<P>(s, i, j);
+  if constexpr (P == 4) {
+    stream4(s, i, j, jg, il, d0, o, plane);
+  } else {
+    for (int d = 0; d < d0; ++d)
+      o[(size_t)d * plane] = cell_cost<P, false>(s, i, j, jg, d, il);
+  }
+}
+
+template <int P>
+SmemAllowance& allowance() {
+  static SmemAllowance a((const void*)costrows_kernel<P>);
+  return a;
+}
+
+template <int P>
+int launch(const float* left, const float* right, float* out, int n, int hp,
+           int wp, int p, int d0, int max_d, cudaStream_t stream) {
+  const RowsLayout f = pick_layout(p, max_d);
+  const cudaError_t err = allowance<P>().allow(f.total);
+  if (err != cudaSuccess) return (int)err;
+  const int h0 = hp / p, w0 = wp / p;
+  const dim3 grid(((h0 + f.th - 1) / f.th) * ((w0 + kTw - 1) / kTw), n);
+  costrows_kernel<P><<<grid, 32 * f.th, f.total, stream>>>(
+      left, right, out, hp, wp, p, d0, max_d);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared memory of one block (mirrored by ops/fused_cuda.py:cost_smem_bytes,
-// which routes on it).
+// Shared memory of one block (mirrored by ops/fused_cuda.py:
+// cost_smem_bytes; routing decides on the earlier layout's bytes,
+// fused_cuda.cost_route_bytes).
 extern "C" int dm_cost_rows_smem(int p, int max_d) {
-  return 4 * dm::cost_tile_floats(dm::cost_tile(p, kTh, kTw, max_d));
+  return pick_layout(p, max_d).total;
+}
+
+// Blocks of the instance that serves p one SM holds; negative: a CUDA
+// error.
+extern "C" int dm_cost_rows_blocks_per_sm(int p, int max_d) {
+  const RowsLayout f = pick_layout(p, max_d);
+  return p == 4 ? blocks_per_sm(allowance<4>(), (const void*)costrows_kernel<4>,
+                                32 * f.th, f.total)
+                : blocks_per_sm(allowance<0>(), (const void*)costrows_kernel<0>,
+                                32 * f.th, f.total);
 }
 
 extern "C" int dm_cost_rows(const float* left, const float* right,
                             float* out, int n, int hp, int wp, int p, int d0,
                             int max_d, void* stream) {
-  const int smem = dm_cost_rows_smem(p, max_d);
-  cudaError_t err = cudaFuncSetAttribute(
-      costrows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int h0 = hp / p, w0 = wp / p;
-  const dim3 grid(((h0 + kTh - 1) / kTh) * ((w0 + kTw - 1) / kTw), n);
-  costrows_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      left, right, out, hp, wp, p, d0, max_d);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return p == 4 ? launch<4>(left, right, out, n, hp, wp, p, d0, max_d, st)
+                : launch<0>(left, right, out, n, hp, wp, p, d0, max_d, st);
 }

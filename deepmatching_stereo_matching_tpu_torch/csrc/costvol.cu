@@ -66,9 +66,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
 #include <climits>
-#include <mutex>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -286,33 +286,10 @@ costvol_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
   }
 }
 
-constexpr int kMaxDevices = 64;
-
-// Lets costvol_kernel<ROWS, VEC16> take `smem` bytes of dynamic shared
-// memory on the current device, with the carve-out at the most shared
-// memory; set once per device and again only for a larger `smem`.
 template <bool ROWS, bool VEC16>
-int prepare(int smem) {
-  static std::atomic<int> allowed[kMaxDevices];  // bytes; 0: nothing set
-  static std::mutex mu;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  std::atomic<int>* done = dev < kMaxDevices ? &allowed[dev] : nullptr;
-  if (done && smem <= done->load(std::memory_order_acquire)) return 0;
-  std::lock_guard<std::mutex> lock(mu);
-  const int had = done ? done->load(std::memory_order_relaxed) : 0;
-  if (smem <= had) return 0;
-  if (had == 0)
-    err = cudaFuncSetAttribute(costvol_kernel<ROWS, VEC16>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(costvol_kernel<ROWS, VEC16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-  if (err == cudaSuccess && done) done->store(smem, std::memory_order_release);
-  return (int)err;
+dm::SmemAllowance& allowance() {
+  static dm::SmemAllowance a((const void*)costvol_kernel<ROWS, VEC16>);
+  return a;
 }
 
 template <bool ROWS, bool VEC16>
@@ -321,8 +298,8 @@ int launch(const float* src, const float* tgt, float* out, int n, int h0,
            int origin_offset, int d_offset, cudaStream_t stream) {
   const CostvolPlan q = costvol_plan(c, d0, p);
   if (q.nch <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
-  const int err = prepare<ROWS, VEC16>(q.smem);
-  if (err != 0) return err;
+  const cudaError_t err = allowance<ROWS, VEC16>().allow(q.smem);
+  if (err != cudaSuccess) return (int)err;
   const long long gx = (long long)((w0 + kTj - 1) / kTj) * q.nch;
   if (gx > INT_MAX || h0 > 65535 || n > 65535)
     return (int)cudaErrorInvalidConfiguration;
@@ -354,13 +331,10 @@ int dispatch(const float* src, const float* tgt, float* out, int n, int h0,
 }
 
 template <bool ROWS, bool VEC16>
-int blocks_per_sm(int smem) {
-  const int err = prepare<ROWS, VEC16>(smem);
-  if (err != 0) return -err;
-  int blocks = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, costvol_kernel<ROWS, VEC16>, kThreads, smem);
-  return e == cudaSuccess ? blocks : -(int)e;
+int occupancy(int smem) {
+  return dm::blocks_per_sm(allowance<ROWS, VEC16>(),
+                           (const void*)costvol_kernel<ROWS, VEC16>, kThreads,
+                           smem);
 }
 
 }  // namespace
@@ -379,8 +353,8 @@ extern "C" int dm_costvol_blocks_per_sm(int c, int d0, int p, int rows) {
   if (smem <= 0) return -(int)cudaErrorInvalidValue;
   const bool v = c % 4 == 0;
   if (rows)
-    return v ? blocks_per_sm<true, true>(smem) : blocks_per_sm<true, false>(smem);
-  return v ? blocks_per_sm<false, true>(smem) : blocks_per_sm<false, false>(smem);
+    return v ? occupancy<true, true>(smem) : occupancy<true, false>(smem);
+  return v ? occupancy<false, true>(smem) : occupancy<false, false>(smem);
 }
 
 // K2: out is (n, d0, h0, w0).

@@ -7,9 +7,9 @@
 // gradient-magnitude plane and an orientation-bin plane and the one-hot
 // descriptor dot becomes sum mag_L * mag_R * [bin_L == bin_R].  The form
 // is a template flag (MAGBIN).  Both forms are _cost_block followed by
-// pyramid_body(fast=True): the cost arithmetic of K4's cost.cuh, restated
-// here in registers (K4's volume is this kernel's bitwise witness), and
-// pyramid.cuh from level 1.
+// pyramid_body(fast=True): the cost block of cost.cuh, which K4 compiles
+// too (K4's volume is this kernel's bitwise witness), and pyramid.cuh
+// from level 1.
 // In: (n, Hp, Wp) f32 left and right images (+ the two bin planes in
 // magbin form, integers 0..7 as f32).  Out: (n, H0, W0) int32 disparity
 // bins and f32 level-0 scores.
@@ -68,19 +68,13 @@
 // p = 4 is a template instance; any other p runs the same kernel with a
 // runtime p, whose correlation reads the staged pixels per cost.
 
-#include <atomic>
-#include <mutex>
-
-#include "cost.cuh"  // kEps
+#include "cost.cuh"
+#include "launch.cuh"
 #include "pyramid.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-
-__host__ __device__ inline int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
+using namespace dm;
 
 // Shared memory of one block: offsets in bytes, strides in elements.
 struct FusedLayout {
@@ -140,256 +134,6 @@ extern "C" int dm_fused_smem(int p, int d0, int max_d, int levels,
 }
 
 namespace {
-
-// The staged tile as the cost code reads it.
-struct Tile {
-  const float *lt, *rt, *invr;
-  const uint8_t *lb, *rb;
-  int p, t, ls, rs, is, lsb, rsb, lead, max_d;
-};
-
-// Four pixels from image column gx of row gy of an (hp, wp) plane: one
-// 16-byte load where they lie inside the image on a 16-byte boundary;
-// pixels outside the image read as 0.
-__device__ __forceinline__ float4 load4(const float* __restrict__ src, int hp,
-                                        int wp, int gy, int gx) {
-  const size_t row = (size_t)gy * wp;
-  if (gy < hp && gx >= 0 && gx + 3 < wp &&
-      (reinterpret_cast<uintptr_t>(src + row + gx) & 15) == 0)
-    return *reinterpret_cast<const float4*>(src + row + gx);
-  float e[4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int x = gx + u;
-    e[u] = gy < hp && x >= 0 && x < wp ? src[row + x] : 0.0f;
-  }
-  return make_float4(e[0], e[1], e[2], e[3]);
-}
-
-// Copies `width` columns from image column gx0 of `nrows` rows from row
-// gy0 of an (hp, wp) plane into shared rows `stride` elements apart, as
-// floats or (bins) bytes.  A warp takes whole rows, each lane chunks of
-// four columns.  Floats go by 16-byte cp.async where load4 would take one
-// load (the caller waits with cp.async.wait_all), so that all of a
-// block's copies are in flight together; bytes, which are converted on
-// the way, by kBatch rows of loads before any store.
-template <typename Out>
-__device__ void stage_rows(Out* dst, int stride, const float* __restrict__ src,
-                           int hp, int wp, int gy0, int gx0, int nrows,
-                           int width) {
-  constexpr int kBatch = 8;
-  const int chunks = (width + 3) >> 2;
-  int lpr = 32;  // lanes per row: a power of two, at least `chunks`
-  while (lpr > 1 && lpr / 2 >= chunks) lpr >>= 1;
-  const int lane = threadIdx.x & 31;
-  const int step = (blockDim.x >> 5) * (32 / lpr);  // rows per pass
-  const int first = (threadIdx.x >> 5) * (32 / lpr) + lane / lpr;
-  if constexpr (sizeof(Out) == 4) {
-    for (int y = first; y < nrows; y += step) {
-      const int gy = gy0 + y;
-      const size_t row = (size_t)gy * wp;
-      for (int c = lane & (lpr - 1); c < chunks; c += lpr) {
-        const int gx = gx0 + 4 * c;
-        Out* d = dst + y * stride + 4 * c;
-        if (gy < hp && gx >= 0 && gx + 3 < wp &&
-            (reinterpret_cast<uintptr_t>(src + row + gx) & 15) == 0) {
-          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                           (unsigned)__cvta_generic_to_shared(d)),
-                       "l"(src + row + gx));
-        } else {
-          *reinterpret_cast<float4*>(d) = load4(src, hp, wp, gy, gx);
-        }
-      }
-    }
-  } else {
-    for (int y0 = first; y0 < nrows; y0 += kBatch * step) {
-      for (int c = lane & (lpr - 1); c < chunks; c += lpr) {
-        float4 v[kBatch];
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b)
-          if (y0 + b * step < nrows)
-            v[b] = load4(src, hp, wp, gy0 + y0 + b * step, gx0 + 4 * c);
-#pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          const int y = y0 + b * step;
-          if (y >= nrows) break;
-          *reinterpret_cast<uint32_t*>(dst + y * stride + 4 * c) =
-              (uint32_t)v[b].x | (uint32_t)v[b].y << 8 |
-              (uint32_t)v[b].z << 16 | (uint32_t)v[b].w << 24;
-        }
-      }
-    }
-  }
-}
-
-// The arithmetic of cost.cuh as K4 compiles it (its volume is bitwise
-// this): a pixel row's sum starts with a*b and takes each further product
-// with one rounding (FMA) in patch form; in magbin form a product counts
-// where the bins agree, and is rounded before it is added.  Row sums and
-// norms add in order.  Written with explicit intrinsics, since an
-// unrolled loop of `s += a * b` lets the compiler contract and reorder
-// the sums otherwise (it did, at p = 4).
-template <bool MAGBIN>
-__device__ __forceinline__ float first_term(float a, float b, bool same) {
-  const float prod = __fmul_rn(a, b);
-  return MAGBIN && !same ? 0.0f : prod;
-}
-
-template <bool MAGBIN>
-__device__ __forceinline__ float add_term(float s, float a, float b,
-                                          bool same) {
-  if (MAGBIN) return __fadd_rn(s, same ? __fmul_rn(a, b) : 0.0f);
-  return __fmaf_rn(a, b, s);
-}
-
-__device__ __forceinline__ float inv_norm(float sq) {
-  return __fdiv_rn(1.0f, fmaxf(__fsqrt_rn(sq), dm::kEps));
-}
-
-// relu(raw * invL * invR).
-__device__ __forceinline__ float scaled(float raw, float il, float ir) {
-  return fmaxf(__fmul_rn(__fmul_rn(raw, il), ir), 0.0f);
-}
-
-// invr[i][w] = 1 / max(|window|, eps) for every window start w of the
-// right strip, in cost.cuh:stage_tile's order: per column the sum of
-// squares over the p pixel rows, then the sum of the p columns.  A lane
-// sums one column; its window takes the next p - 1 lanes' columns by
-// shuffles, so a warp covers 33 - p windows per pass.
-__device__ void window_norms(const Tile& s, float* invr, int right) {
-  const int p = s.p, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  const int nwin = right - p + 1;
-  for (int i = threadIdx.x >> 5; i < s.t; i += nw) {
-    const float* rows = s.rt + p * i * s.rs;
-    if (p > 32) {  // too wide for one warp's shuffles
-      for (int w = lane; w < nwin; w += 32) {
-        float win = 0.0f;
-        for (int dc = 0; dc < p; ++dc) {
-          float col = 0.0f;
-          for (int dr = 0; dr < p; ++dr) {
-            const float v = rows[dr * s.rs + w + dc];
-            col = dr == 0 ? __fmul_rn(v, v) : __fmaf_rn(v, v, col);
-          }
-          win = dc == 0 ? col : __fadd_rn(win, col);
-        }
-        invr[i * s.is + w] = inv_norm(win);
-      }
-      continue;
-    }
-    const int step = 33 - p;
-    for (int w0 = 0; w0 < nwin; w0 += step) {
-      const int c = w0 + lane;
-      float col = 0.0f;
-      if (c < right) {
-        for (int dr = 0; dr < p; ++dr) {
-          const float v = rows[dr * s.rs + c];
-          col = dr == 0 ? __fmul_rn(v, v) : __fmaf_rn(v, v, col);
-        }
-      }
-      float win = col;
-      for (int dc = 1; dc < p; ++dc)
-        win = __fadd_rn(win, __shfl_down_sync(kFull, col, dc));
-      if (lane < step && c < nwin) invr[i * s.is + c] = inv_norm(win);
-    }
-  }
-}
-
-// 1 / max(|left patch (i, j)|, eps), as cost.cuh:stage_tile computes it.
-template <int P>
-__device__ float left_inv_norm(const Tile& s, int i, int j) {
-  const int p = P > 0 ? P : s.p;
-  float m2 = 0.0f;
-#pragma unroll
-  for (int dr = 0; dr < p; ++dr) {
-    const float* row = s.lt + (p * i + dr) * s.ls + p * j;
-    float v = __fmul_rn(row[0], row[0]);
-#pragma unroll
-    for (int dc = 1; dc < p; ++dc) v = __fmaf_rn(row[dc], row[dc], v);
-    m2 = dr == 0 ? v : __fadd_rn(m2, v);
-  }
-  return inv_norm(m2);
-}
-
-// Cost of tile patch (i, j), global patch column jg, at disparity d, read
-// from the staged tile: cost.cuh:patch_cost on this layout.
-template <int P, bool MAGBIN>
-__device__ float cell_cost(const Tile& s, int i, int j, int jg, int d,
-                           float il) {
-  const int p = P > 0 ? P : s.p;
-  if (d >= s.max_d || p * jg < d) return 0.0f;
-  const int w = p * j + s.lead - d;  // strip column of target start p*jg - d
-  float raw = 0.0f;
-#pragma unroll
-  for (int dr = 0; dr < p; ++dr) {
-    const int row = p * i + dr;
-    const float* l = s.lt + row * s.ls + p * j;
-    const float* r = s.rt + row * s.rs + w;
-    const uint8_t* lb = MAGBIN ? s.lb + row * s.lsb + p * j : nullptr;
-    const uint8_t* rb = MAGBIN ? s.rb + row * s.rsb + w : nullptr;
-    float v = first_term<MAGBIN>(l[0], r[0], MAGBIN && lb[0] == rb[0]);
-#pragma unroll
-    for (int dc = 1; dc < p; ++dc)
-      v = add_term<MAGBIN>(v, l[dc], r[dc], MAGBIN && lb[dc] == rb[dc]);
-    raw = dr == 0 ? v : __fadd_rn(raw, v);
-  }
-  return scaled(raw, il, s.invr[i * s.is + w]);
-}
-
-// p = 4: the costs of d4..d4+3 (d4 a multiple of 4) of patch (i, j) from
-// its left pixels L / bins lbw in registers and the right window slid
-// through two aligned float4 per pixel row.  ivc carries the norm of the
-// window at d4 in and that at d4 + 4 out.
-template <bool MAGBIN>
-__device__ __forceinline__ void costs4(const Tile& s, const float (&L)[4][4],
-                                       const uint32_t (&lbw)[4], int i, int j,
-                                       int jg, int d4, float il, float& ivc,
-                                       float (&c)[4]) {
-  if (d4 >= s.max_d) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) c[r] = 0.0f;
-    return;
-  }
-  const bool prev = d4 + 1 < s.max_d;  // a cost of d4+1..d4+3 counts
-  const int col = 4 * j + s.lead - d4;  // window start at d4: aligned
-  float raw[4];
-#pragma unroll
-  for (int dr = 0; dr < 4; ++dr) {
-    const int row = 4 * i + dr;
-    const float* rr = s.rt + row * s.rs + col;
-    const float4 cu = *reinterpret_cast<const float4*>(rr);
-    const float4 pv = prev ? *reinterpret_cast<const float4*>(rr - 4)
-                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    const float w8[8] = {pv.x, pv.y, pv.z, pv.w, cu.x, cu.y, cu.z, cu.w};
-    uint32_t bcu = 0, bpv = 0;
-    if (MAGBIN) {
-      const uint8_t* rb = s.rb + row * s.rsb + col;
-      bcu = *reinterpret_cast<const uint32_t*>(rb);
-      bpv = prev ? *reinterpret_cast<const uint32_t*>(rb - 4) : 0u;
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      // Window at d4 + r: bytes / floats 4 - r .. 7 - r of (prev, cur).
-      const uint32_t diff =
-          MAGBIN ? lbw[dr] ^ __byte_perm(bpv, bcu, 0x7654 - 0x1111 * r) : 0u;
-      float v = first_term<MAGBIN>(L[dr][0], w8[4 - r], (diff & 0xffu) == 0);
-#pragma unroll
-      for (int dc = 1; dc < 4; ++dc)
-        v = add_term<MAGBIN>(v, L[dr][dc], w8[4 - r + dc],
-                             ((diff >> (8 * dc)) & 0xffu) == 0);
-      raw[r] = dr == 0 ? v : __fadd_rn(raw[r], v);
-    }
-  }
-  const float4 ip =
-      prev ? *reinterpret_cast<const float4*>(s.invr + i * s.is + col - 4)
-           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  const float iv[4] = {ivc, ip.w, ip.z, ip.y};
-  ivc = ip.x;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int d = d4 + r;
-    c[r] = d < s.max_d && 4 * jg >= d ? scaled(raw[r], il, iv[r]) : 0.0f;
-  }
-}
 
 // Level 0 of the tile, streamed over d per cell: writes invl, the level-1
 // map lv1 ((D0/2, T/2, T/2)) and the packed level-0 offsets arg0.
@@ -521,34 +265,10 @@ fused_kernel(const float* __restrict__ left, const float* __restrict__ right,
   }
 }
 
-constexpr int kMaxDevices = 64;
-
-// Lets the kernel take `smem` bytes of dynamic shared memory, with the
-// carve-out at the most shared memory, on the current device.  The
-// attributes are set once per device and again only for a larger `smem`,
-// so a launch at a size already allowed makes no attribute call.
 template <int P, bool MAGBIN>
-int prepare(int smem) {
-  static std::atomic<int> allowed[kMaxDevices];  // bytes; 0: nothing set
-  static std::mutex mu;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  std::atomic<int>* done = dev < kMaxDevices ? &allowed[dev] : nullptr;
-  if (done && smem <= done->load(std::memory_order_acquire)) return 0;
-  std::lock_guard<std::mutex> lock(mu);
-  const int had = done ? done->load(std::memory_order_relaxed) : 0;
-  if (smem <= had) return 0;
-  if (had == 0)
-    err = cudaFuncSetAttribute(fused_kernel<P, MAGBIN>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_kernel<P, MAGBIN>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-  if (err == cudaSuccess && done) done->store(smem, std::memory_order_release);
-  return (int)err;
+SmemAllowance& allowance() {
+  static SmemAllowance a((const void*)fused_kernel<P, MAGBIN>);
+  return a;
 }
 
 template <int P, bool MAGBIN>
@@ -557,8 +277,8 @@ int launch(const float* left, const float* right, const float* lbin,
            int wp, int p, int d0, int max_d, int levels, float lam,
            cudaStream_t stream) {
   const FusedLayout f = fused_layout(p, d0, max_d, levels, MAGBIN);
-  const int err = prepare<P, MAGBIN>(f.total);
-  if (err != 0) return err;
+  const cudaError_t err = allowance<P, MAGBIN>().allow(f.total);
+  if (err != cudaSuccess) return (int)err;
   const int h0 = hp / p, w0 = wp / p;
   const dim3 grid((h0 / f.t) * (w0 / f.t), n);
   fused_kernel<P, MAGBIN><<<grid, dm::kThreads, f.total, stream>>>(
@@ -568,13 +288,10 @@ int launch(const float* left, const float* right, const float* lbin,
 }
 
 template <int P, bool MAGBIN>
-int blocks_per_sm(int smem) {
-  const int err = prepare<P, MAGBIN>(smem);
-  if (err != 0) return -err;
-  int blocks = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, fused_kernel<P, MAGBIN>, dm::kThreads, smem);
-  return e == cudaSuccess ? blocks : -(int)e;
+int occupancy(int smem) {
+  return blocks_per_sm(allowance<P, MAGBIN>(),
+                       (const void*)fused_kernel<P, MAGBIN>, dm::kThreads,
+                       smem);
 }
 
 }  // namespace
@@ -605,8 +322,7 @@ extern "C" int dm_fused_match(const float* left, const float* right,
 extern "C" int dm_fused_blocks_per_sm(int p, int d0, int max_d, int levels,
                                       int magbin) {
   const int smem = dm_fused_smem(p, d0, max_d, levels, magbin);
-  if (magbin) return p == 4 ? blocks_per_sm<4, true>(smem)
-                            : blocks_per_sm<0, true>(smem);
-  return p == 4 ? blocks_per_sm<4, false>(smem)
-                : blocks_per_sm<0, false>(smem);
+  if (magbin) return p == 4 ? occupancy<4, true>(smem)
+                            : occupancy<0, true>(smem);
+  return p == 4 ? occupancy<4, false>(smem) : occupancy<0, false>(smem);
 }

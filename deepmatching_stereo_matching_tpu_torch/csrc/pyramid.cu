@@ -6,54 +6,176 @@
 // f32 level-0 scores.  Exact mode: powf after every merge, so decisions
 // equal the oracle's up to powf's own rounding.
 //
-// One block per (instance, 2^L x 2^L-patch tile).  The block copies its
-// (D0, T, T) tile into shared memory and runs the shrinking pyramid there
-// (pyramid.cuh); nothing but the volume read and the two (T, T) output
-// tiles touches device memory.  Bound on this card by the volume read
-// (4 bytes per cost element, ~12 flops each) and by the block's shared
-// memory (84 KB at D0 = 64, T = 16), which allows two blocks per SM;
-// the design keeps every level's map and offsets on chip.
+// One block of 256 threads per (instance, 2^L x 2^L-patch tile), on K1's
+// level-0 structure (fused.cu:level0) with loads of the volume in place of
+// the costs K1 computes:
+//   1. Level 0, streamed: a thread owns one level-0 cell, the four cells
+//      of a 2x2 quad in adjacent lanes (at T >= 16 a warp reads two
+//      64-byte row segments of each plane).  It reads its costs
+//      cost[n][d][y0+y][x0+x] straight from device memory, kStep planes
+//      at a time, the next kStep planes' loads issued before the current
+//      ones are pooled.  Each (2k-1, 2k, 2k+1) is pooled in registers (pad
+//      -1 below bin 0, ties lo/even/odd), its offset packed at 2 bits, and
+//      the quad's 4-child mean formed by two __shfl_xor_sync in
+//      ((q00 + q01) + (q10 + q11)) * 0.25 order, then x^lam by powf: the
+//      level-1 map, the only level-0 result in shared memory.
+//   2. Levels >= 1 and the top-down walk: pyramid.cuh from level 1.
+//   3. The score: one load of cost[k] per cell, a copy, so bitwise.
+// Shared memory holds levels 1..L and the offsets only: 12,576 B at the
+// bench (D0 = 64, T = 16) against 84,256 B with the (D0, T, T) tile, so
+// registers, not shared memory, set the blocks per SM, and one block's
+// loads overlap another's levels >= 1 and barriers.
+// Bound on this card by the volume read: 4 B per cost, 0.06 ms for the
+// bench's 64 instances at 3.35 TB/s; ~12 operations per cost.
 
+#include "launch.cuh"
 #include "pyramid.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(dm::kThreads)
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kStep = 8;  // planes per step of the level-0 stream
+
+// Shared memory of one block: offsets in bytes.
+struct PyramidLayout {
+  int t, kn, lv, arg0, args, total;
+};
+
+__host__ __device__ inline PyramidLayout pyramid_layout(int d0, int levels) {
+  PyramidLayout f;
+  f.t = 1 << levels;
+  f.kn = d0 / 2;
+  int o = 0;
+  f.lv = o;  // pyramid levels 1..levels
+  o += 4 * dm::level_floats(d0, f.t, levels);
+  f.arg0 = o;  // level-0 offsets, 2 bits each: (kn/4, T, T) bytes
+  o += (f.kn + 3) / 4 * f.t * f.t;
+  f.args = o;  // offsets of levels 1..levels-1, int8
+  o += dm::arg_bytes(d0, f.t, levels) - f.kn * f.t * f.t;
+  f.total = (o + 15) & ~15;
+  return f;
+}
+
+// c[r] = cost of plane d + r of one cell (col: the cell in plane 0), 0
+// past d0.
+__device__ __forceinline__ void load_planes(const float* __restrict__ col,
+                                            size_t plane, int d, int d0,
+                                            float (&c)[kStep]) {
+#pragma unroll
+  for (int r = 0; r < kStep; ++r)
+    c[r] = d + r < d0 ? __ldg(col + (size_t)(d + r) * plane) : 0.0f;
+}
+
+// Level 0 of the tile, streamed over d per cell from src (the instance's
+// volume at the tile origin): writes the level-1 map lv1 ((D0/2, T/2,
+// T/2)) and the packed level-0 offsets arg0.
+__device__ void level0(const float* __restrict__ src, size_t plane, int w0,
+                       float* lv1, uint8_t* arg0, int d0, int t, float lam) {
+  const int cells = t * t, hs = t >> 1, kn = d0 >> 1;
+  for (int base = 0; base < cells; base += blockDim.x) {
+    if (base + (int)(threadIdx.x & ~31u) >= cells) continue;  // whole warp idle
+    const int e = base + threadIdx.x;
+    const bool active = e < cells;
+    const int ec = e & (cells - 1);  // idle lanes shadow a real cell
+    const int q = ec >> 2, sub = ec & 3;
+    const int I = q / hs, J = q - I * hs;
+    const int i = 2 * I + (sub >> 1), j = 2 * J + (sub & 1);
+    const int cell = i * t + j;
+    const float* col = src + (size_t)i * w0 + j;
+
+    float cur[kStep], nxt[kStep];
+    load_planes(col, plane, 0, d0, cur);
+    float prevc = -1.0f;  // c[2k - 1]; the pad below bin 0
+    uint32_t pack = 0u;
+    for (int d = 0; d < d0; d += kStep) {
+      load_planes(col, plane, d + kStep, d0, nxt);
+#pragma unroll
+      for (int h = 0; h < kStep / 2; ++h) {
+        const int k = (d >> 1) + h;
+        if (k >= kn) break;
+        const float lo = prevc, ev = cur[2 * h], od = cur[2 * h + 1];
+        const float pooled = fmaxf(fmaxf(lo, ev), od);
+        const uint32_t code = pooled == lo ? 0u : (pooled == ev ? 1u : 2u);
+        pack |= code << (2 * (k & 3));
+        if ((k & 3) == 3 || k == kn - 1) {
+          if (active) arg0[(k >> 2) * cells + cell] = (uint8_t)pack;
+          pack = 0u;
+        }
+        float m = pooled + __shfl_xor_sync(kFull, pooled, 1);
+        m = m + __shfl_xor_sync(kFull, m, 2);
+        if (active && sub == 0) lv1[k * hs * hs + q] = powf(m * 0.25f, lam);
+        prevc = od;
+      }
+#pragma unroll
+      for (int r = 0; r < kStep; ++r) cur[r] = nxt[r];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(dm::kThreads, 4)
 pyramid_kernel(const float* __restrict__ cost, int32_t* __restrict__ disp,
                float* __restrict__ score, int d0, int h0, int w0, int levels,
                float lam) {
   extern __shared__ float4 smem4[];
-  float* cost0 = reinterpret_cast<float*>(smem4);
-  const int t = 1 << levels;
+  char* sm = reinterpret_cast<char*>(smem4);
+  const PyramidLayout f = pyramid_layout(d0, levels);
+  const int t = f.t;
   const int tiles_w = w0 / t;
   const int ty = blockIdx.x / tiles_w, tx = blockIdx.x - ty * tiles_w;
   const int n = blockIdx.y;
   const int y0 = ty * t, x0 = tx * t;
-  const float* src = cost + (size_t)n * d0 * h0 * w0;
-  for (int e = threadIdx.x; e < d0 * t * t; e += blockDim.x) {
-    const int d = e / (t * t), r = e - d * t * t;
-    const int y = r / t, x = r - y * t;
-    cost0[e] = src[((size_t)d * h0 + y0 + y) * w0 + x0 + x];
-  }
+  const size_t plane = (size_t)h0 * w0;
+  const float* src = cost + (size_t)n * d0 * plane + (size_t)y0 * w0 + x0;
+  float* lv = reinterpret_cast<float*>(sm + f.lv);
+  uint8_t* arg0 = reinterpret_cast<uint8_t*>(sm + f.arg0);
+  int8_t* args = reinterpret_cast<int8_t*>(sm + f.args);
+
+  level0(src, plane, w0, lv, arg0, d0, t, lam);
   __syncthreads();
-  dm::pyramid_tile(cost0, cost0 + d0 * t * t, d0, t, levels, lam,
-                   disp + (size_t)n * h0 * w0, score + (size_t)n * h0 * w0,
-                   w0, y0, x0);
+  const int hs = t >> 1;
+  const float* top = dm::pyramid_up<false>(lv, lv + f.kn * hs * hs, args, d0,
+                                           t, 1, levels, lam);
+  int32_t* dst = disp + (size_t)n * plane;
+  float* sco = score + (size_t)n * plane;
+  for (int cell = threadIdx.x; cell < t * t; cell += blockDim.x) {
+    const int y = cell / t, x = cell - y * t;
+    int k = dm::descend_cell(top, args, d0, t, 1, levels, y, x);
+    const int code = (arg0[(k >> 2) * t * t + cell] >> (2 * (k & 3))) & 3;
+    k = 2 * k + code - 1;
+    const size_t o = (size_t)(y0 + y) * w0 + (x0 + x);
+    dst[o] = k;
+    sco[o] = src[(size_t)k * plane + (size_t)y * w0 + x];
+  }
+}
+
+dm::SmemAllowance& allowance() {
+  static dm::SmemAllowance a((const void*)pyramid_kernel);
+  return a;
 }
 
 }  // namespace
+
+// Shared memory of one block (mirrored by ops/pyramid_cuda.py:smem_bytes;
+// routing decides on the earlier layout's bytes, pyramid_cuda.route_bytes).
+extern "C" int dm_pyramid_smem(int d0, int levels) {
+  return pyramid_layout(d0, levels).total;
+}
+
+// Blocks one SM holds at this configuration; negative: a CUDA error.
+extern "C" int dm_pyramid_blocks_per_sm(int d0, int levels) {
+  return dm::blocks_per_sm(allowance(), (const void*)pyramid_kernel,
+                           dm::kThreads, dm_pyramid_smem(d0, levels));
+}
 
 extern "C" int dm_pyramid_backtrack(const float* cost, int32_t* disp,
                                     float* score, int n, int d0, int h0,
                                     int w0, int levels, float lam,
                                     void* stream) {
-  const int t = 1 << levels;
-  const int smem = 4 * d0 * t * t + dm::pyramid_scratch_bytes(d0, t, levels);
-  cudaError_t err = cudaFuncSetAttribute(
-      pyramid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const PyramidLayout f = pyramid_layout(d0, levels);
+  const cudaError_t err = allowance().allow(f.total);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((h0 / t) * (w0 / t), n);
-  pyramid_kernel<<<grid, dm::kThreads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid((h0 / f.t) * (w0 / f.t), n);
+  pyramid_kernel<<<grid, dm::kThreads, f.total, (cudaStream_t)stream>>>(
       cost, disp, score, d0, h0, w0, levels, lam);
   return (int)cudaGetLastError();
 }

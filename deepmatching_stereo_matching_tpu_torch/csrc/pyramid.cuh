@@ -1,8 +1,9 @@
 // Device-side aggregation pyramid + dense backtracking on ONE quadtree
-// tile held in shared memory.  Shared by the pyramid kernel (K3,
-// pyramid.cu, exact mode: pyramid_tile from level 0) and the fused
-// image->disparity kernel (K1, fused.cu, fast mode: it pools level 0 in
-// registers itself and calls pyramid_up from level 1 and descend_cell).
+// tile held in shared memory, from level 1 up.  Shared by the pyramid
+// kernel (K3, pyramid.cu, exact mode) and the fused image->disparity
+// kernel (K1, fused.cu, fast mode): each pools level 0 in registers
+// itself, streamed over d per cell, and calls pyramid_up from level 1 and
+// descend_cell.
 //
 // Semantics of deepmatching_stereo_matching_tpu/ops/pyramid_pallas.py:
 // pyramid_body, written as a SHRINKING pyramid (level l is
@@ -15,7 +16,8 @@
 //     the next level and skipped at the top (max commutes with the
 //     monotone power);
 //   * first-max argmax at the top, then k = 2k + offset per level, and
-//     score = cost0[k] (K1 recomputes that cost from its staged pixels).
+//     score = cost0[k] (K3 reads it from the volume, K1 recomputes it
+//     from its staged pixels).
 // A tile of T = 2^levels patches holds whole quadtrees, so no merge
 // crosses a tile and blocks need nothing from each other.
 #pragma once
@@ -26,7 +28,6 @@
 namespace dm {
 
 constexpr int kThreads = 256;
-constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
 
 // Floats of pyramid levels 1..levels (level 0 is the cost tile itself).
 __host__ __device__ inline int level_floats(int d0, int t, int levels) {
@@ -40,11 +41,6 @@ __host__ __device__ inline int arg_bytes(int d0, int t, int levels) {
   int n = 0;
   for (int l = 0; l < levels; ++l) n += (d0 >> (l + 1)) * (t >> l) * (t >> l);
   return n;
-}
-
-// Bytes of pyramid scratch (levels >= 1 and offsets) after the cost tile.
-__host__ __device__ inline int pyramid_scratch_bytes(int d0, int t, int levels) {
-  return 4 * level_floats(d0, t, levels) + ((arg_bytes(d0, t, levels) + 15) & ~15);
 }
 
 // Bottom-up from level `first` (map `cur`, (d0 >> first, t >> first,
@@ -113,28 +109,6 @@ __device__ inline int descend_cell(const float* top, const int8_t* args,
     k = 2 * k + args[off + k * sl * sl + (y >> l) * sl + (x >> l)];
   }
   return k;
-}
-
-// cost0: (d0, t, t) level-0 tile in shared memory; scratch: at least
-// pyramid_scratch_bytes of shared memory (16-byte aligned).  Writes the
-// tile's disparities and scores to disp/score (one instance's (h0, w0)
-// planes, row stride w0) at patch origin (y0, x0).  Exact mode only (K3;
-// K1 runs the fast pyramid through pyramid_up itself).  Ends with every
-// thread past the block's last use of shared memory.
-__device__ inline void pyramid_tile(const float* cost0, float* scratch,
-                                    int d0, int t, int levels, float lam,
-                                    int32_t* disp, float* score, int w0,
-                                    int y0, int x0) {
-  float* lv = scratch;
-  int8_t* args = reinterpret_cast<int8_t*>(lv + level_floats(d0, t, levels));
-  const float* top = pyramid_up<false>(cost0, lv, args, d0, t, 0, levels, lam);
-  for (int cell = threadIdx.x; cell < t * t; cell += blockDim.x) {
-    const int y = cell / t, x = cell - y * t;
-    const int k = descend_cell(top, args, d0, t, 0, levels, y, x);
-    const size_t o = (size_t)(y0 + y) * w0 + (x0 + x);
-    disp[o] = k;
-    score[o] = cost0[k * t * t + cell];
-  }
 }
 
 }  // namespace dm

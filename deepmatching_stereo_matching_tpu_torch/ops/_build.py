@@ -44,6 +44,10 @@ _SIGNATURES = {
     "dm_fused_blocks_per_sm": [_I, _I, _I, _I, _I],
     # p, max_d
     "dm_cost_rows_smem": [_I, _I],
+    "dm_cost_rows_blocks_per_sm": [_I, _I],
+    # d0, levels
+    "dm_pyramid_smem": [_I, _I],
+    "dm_pyramid_blocks_per_sm": [_I, _I],
     # c, d0, p (+ rows)
     "dm_costvol_smem": [_I, _I, _I],
     "dm_costvol_blocks_per_sm": [_I, _I, _I, _I],

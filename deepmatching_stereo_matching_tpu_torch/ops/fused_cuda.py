@@ -8,10 +8,9 @@ form (grad_hist descriptors as (magnitude, bin) plane pairs); K4 replaces
 large-D route's prologue.  The TPU kernels' selection-matmul phasing and
 split-bf16 scheme were workarounds for Mosaic and the MXU, so
 `Config.fused_dot_precision` is accepted and ignored: the kernels read
-pixels directly in f32.  K4's cost code is csrc/cost.cuh, whose
-arithmetic fused.cu restates for K1/K1b (K4's volume is their bitwise
-witness); what bounds each on the card: see the notes at the top of the
-.cu files.
+pixels directly in f32.  K1/K1b and K4 compile one cost block,
+csrc/cost.cuh (K4's volume is K1's bitwise witness); what bounds each on
+the card: see the notes at the top of the .cu files.
 """
 
 from __future__ import annotations
@@ -30,8 +29,13 @@ from .pyramid_cuda import (MAX_SMEM, arg_bytes, level_floats, pyramid_body,
                            scratch_bytes)
 
 _EPS = 1e-8
-# Mirrors csrc/costrows.cu (kTh, kTw): K4's tile in patches.
-COST_TILE = (8, 32)
+# Mirrors csrc/costrows.cu: K4's tile is COST_TILE_W patch columns (one
+# warp) by the first of COST_TILE_ROWS patch rows of which two blocks fit
+# an SM (TWO_PER_SM bytes each: an H100 SM's 233,472 B of shared memory
+# over two blocks, less the 1 KB reserved per block).
+COST_TILE_W = 32
+COST_TILE_ROWS = (8, 4, 2, 1)
+TWO_PER_SM = 233472 // 2 - 1024
 
 
 def _round_up(x: int, m: int) -> int:
@@ -78,14 +82,47 @@ def route_bytes(p: int, d0: int, max_d: int, levels: int,
     return 4 * (d0 * t * t + scratch)
 
 
-def cost_smem_bytes(p: int, max_d: int) -> int:
-    """Shared memory of one K4 block, its cost tile's buffers
-    (csrc/cost.cuh:cost_tile_floats); mirrors `dm_cost_rows_smem`
-    (csrc/costrows.cu), and chip_smoke.py holds the two equal."""
-    th, tw = COST_TILE
+def cost_route_bytes(p: int, max_d: int) -> int:
+    """Shared memory of a block of K4's earlier layout: 8 x 32 patches,
+    the left pixels, the right strip from column p*x0 - (max_d - 1) and
+    both norms, unpadded.  K4 takes the configurations such a block fits,
+    so its routing stays as it was."""
+    th, tw = 8, 32
     lw = p * tw
     rw = lw + max_d - 1
     return 4 * (p * th * (lw + rw) + th * (rw - p + 1) + th * tw)
+
+
+def _cost_layout_bytes(p: int, max_d: int, th: int) -> int:
+    lw = p * COST_TILE_W
+    right = _round_up(lw + _round_up(max_d - 1, 4), 4)
+    rs, is_ = right | 4, ((right + 15) & ~31) + 16
+    return _round_up(4 * (p * th * (lw + rs) + th * is_), 16)
+
+
+def cost_tile_rows(p: int, max_d: int) -> int:
+    """Patch rows of K4's tile: the first of COST_TILE_ROWS whose block
+    fits two per SM (the last, 1, otherwise)."""
+    return next((th for th in COST_TILE_ROWS
+                 if _cost_layout_bytes(p, max_d, th) <= TWO_PER_SM), 1)
+
+
+def cost_smem_bytes(p: int, max_d: int) -> int:
+    """Shared memory of one K4 block (csrc/costrows.cu:rows_layout): the
+    tile's left pixel rows, the right strip from a 4-aligned column at a
+    stride of 4 mod 8 floats and its window norms at 16 mod 32.  A mirror
+    of `dm_cost_rows_smem`, which chip_smoke.py holds it to."""
+    return _cost_layout_bytes(p, max_d, cost_tile_rows(p, max_d))
+
+
+def cost_blocks_per_sm(p: int, max_d: int) -> int:
+    """Blocks of K4 that one SM of the current card holds at (p, max_d)
+    (CUDA's occupancy calculator, through `dm_cost_rows_blocks_per_sm`).
+    Needs the card."""
+    n = _build.library().dm_cost_rows_blocks_per_sm(p, max_d)
+    if n < 0:
+        _build.check(-n, "cost-volume rows kernel occupancy")
+    return n
 
 
 def _magbin(cfg: Config) -> bool:
@@ -121,11 +158,11 @@ def blocks_per_sm(cfg: Config, geom: Geometry) -> int:
 
 def cost_supported(cfg: Config, geom: Geometry) -> bool:
     """True when K4 covers this configuration: patch descriptors, not
-    centred, float32, and its fixed tile's pixels inside one block's
-    shared memory (any grid; ragged edges are masked)."""
+    centred, float32, and `cost_route_bytes` inside one block's shared
+    memory (any grid; ragged edges are masked)."""
     return (cfg.descriptor == "patch" and not cfg.center_descriptors
             and cfg.dtype == "float32"
-            and cost_smem_bytes(cfg.patch_size, cfg.max_disparity)
+            and cost_route_bytes(cfg.patch_size, cfg.max_disparity)
             <= MAX_SMEM)
 
 

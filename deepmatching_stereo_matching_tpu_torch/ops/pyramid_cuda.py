@@ -25,33 +25,61 @@ from . import _build
 from . import pool
 from ._dispatch import run_kernel
 
-# Mirrors csrc/pyramid.cuh (kMaxSmem, level_floats, arg_bytes,
-# pyramid_scratch_bytes).
+# Dynamic shared memory one block may take on an H100.
 MAX_SMEM = 232448
 
 
 def level_floats(d0: int, t: int, levels: int) -> int:
+    """Floats of pyramid levels 1..levels (csrc/pyramid.cuh)."""
     return sum((d0 >> l) * (t >> l) ** 2 for l in range(1, levels + 1))
 
 
 def arg_bytes(d0: int, t: int, levels: int) -> int:
+    """Bytes of every level's pool offsets as int8 (csrc/pyramid.cuh)."""
     return sum((d0 >> (l + 1)) * (t >> l) ** 2 for l in range(levels))
 
 
 def scratch_bytes(d0: int, t: int, levels: int) -> int:
+    """Levels 1..L and every level's offsets as int8, 16-byte aligned: the
+    pyramid scratch of the kernels' earlier layouts."""
     return (4 * level_floats(d0, t, levels)
             + ((arg_bytes(d0, t, levels) + 15) & ~15))
 
 
-def smem_bytes(d0: int, levels: int) -> int:
-    """Shared memory of one K3 block: the (D0, T, T) tile + its pyramid."""
+def route_bytes(d0: int, levels: int) -> int:
+    """Shared memory of a block of K3's earlier layout: the (D0, T, T)
+    level-0 tile and its pyramid.  K3 takes the configurations such a
+    block fits, so its routing stays as it was."""
     t = 2 ** levels
     return 4 * d0 * t * t + scratch_bytes(d0, t, levels)
 
 
+def smem_bytes(d0: int, levels: int) -> int:
+    """Shared memory of one K3 block (csrc/pyramid.cu:pyramid_layout):
+    levels 1..L, the level-0 offsets at 2 bits and those of levels
+    1..L-1 at one byte; no level-0 tile.  A mirror of `dm_pyramid_smem`,
+    which chip_smoke.py holds it to."""
+    t = 2 ** levels
+    kn = d0 // 2
+    total = (4 * level_floats(d0, t, levels) + (kn + 3) // 4 * t * t
+             + arg_bytes(d0, t, levels) - kn * t * t)
+    return (total + 15) & ~15
+
+
 def supported(d0: int, levels: int) -> bool:
-    """True when one 2^L x 2^L-patch tile's pyramid fits a block."""
-    return d0 % (2 ** levels) == 0 and smem_bytes(d0, levels) <= MAX_SMEM
+    """True when D0 is aligned to the 2^L tile and `route_bytes` fits a
+    block."""
+    return d0 % (2 ** levels) == 0 and route_bytes(d0, levels) <= MAX_SMEM
+
+
+def blocks_per_sm(d0: int, levels: int) -> int:
+    """Blocks of K3 that one SM of the current card holds (CUDA's
+    occupancy calculator, through `dm_pyramid_blocks_per_sm`).  Needs the
+    card."""
+    n = _build.library().dm_pyramid_blocks_per_sm(d0, levels)
+    if n < 0:
+        _build.check(-n, "pyramid kernel occupancy")
+    return n
 
 
 def aggregate_dmajor_torch(cost: torch.Tensor, levels: int, lam: float,
@@ -130,9 +158,9 @@ def pyramid_backtrack(cost_dm: torch.Tensor, levels: int, lam: float
         return pyramid_body(cost_dm, levels, lam, fast=False)
     if not supported(d0, levels):
         raise NotImplementedError(
-            f"pyramid kernel: a (D0={d0}, 2^{levels} x 2^{levels}) tile needs "
-            f"{smem_bytes(d0, levels)} B of shared memory, more than "
-            f"{MAX_SMEM}")
+            f"pyramid kernel: a (D0={d0}, 2^{levels} x 2^{levels}) tile "
+            f"routes by {route_bytes(d0, levels)} B of shared memory, more "
+            f"than {MAX_SMEM}")
     _check_f32(cost_dm, "pyramid")
     n = math.prod(lead)
     cost = cost_dm.contiguous()

@@ -7,6 +7,8 @@
         [--root CHECKOUT]
     python deepmatching_stereo_matching_tpu_torch/profile_steps.py \
         --costvol --hashes FILE [--root CHECKOUT]
+    python deepmatching_stereo_matching_tpu_torch/profile_steps.py \
+        --rows --hashes FILE [--root CHECKOUT]
 
 Cells (synthetic pairs made from seeds, `lr_mode="flip"`): bench
 (450x375, D=64, 32 pairs, bench.py's recipe), grad_hist (the same with
@@ -46,6 +48,18 @@ FILE where it does not exist, else each is compared with it (exit 1 if
 any differs).
 Run on the parent first, then the change, to show the volumes bitwise
 equal.
+
+--rows does the same for K4 and K3: it times K4 (KITTI D=128 x 16 and
+D=256 x 8 instances) and K3 (bench x 64) as --k1 does, hashes K4's volume
+and K3's (disparity, score) at every shape chip_smoke.py launches them
+(`rows_cases`, inputs made on the card from seeds), and hashes the SASS
+of each fused_kernel instance (K1/K1b compile the cost block K4 shares),
+and on the small cases' planes runs K1 too, hashes its (disparity,
+score) and counts its scores that differ from K4's volume at its
+disparities: written to or compared with --hashes FILE as --costvol
+does.  The first run also keeps the small cases' inputs and outputs
+beside FILE (FILE.npz), so that a later run prints how far a differing
+case is off.
 """
 
 from __future__ import annotations
@@ -265,11 +279,10 @@ def costvol_launch(costvol_cuda, kind, shape, src, tgt):
                                          dofs)
 
 
-def costvol_sass(so):
-    """{costvol_kernel instance: {FFMA, FMUL, FADD: count}} in the built
-    library's SASS, or None where the toolkit has no cuobjdump."""
+def sass(so, kernel):
+    """{function: its SASS lines} of every instance of `kernel` in the
+    built library, or None where the toolkit has no cuobjdump."""
     import os
-    import re
     import shutil
     import subprocess
 
@@ -278,18 +291,30 @@ def costvol_sass(so):
         return None
     text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                           text=True, check=True).stdout
-    counts, cur = {}, None
+    bodies, cur = {}, None
     for line in text.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            cur = fn if "costvol_kernel" in fn else None
+            cur = fn if kernel in fn else None
             if cur:
-                counts[cur] = dict.fromkeys(("FFMA", "FMUL", "FADD"), 0)
+                bodies[cur] = []
         elif cur:
-            for op in counts[cur]:
-                if re.search(rf"\b{op}\b", line):
-                    counts[cur][op] += 1
-    return counts
+            bodies[cur].append(line)
+    return bodies
+
+
+def costvol_sass(so):
+    """{costvol_kernel instance: {FFMA, FMUL, FADD: count}} in the built
+    library's SASS, or None where the toolkit has no cuobjdump."""
+    import re
+
+    bodies = sass(so, "costvol_kernel")
+    if bodies is None:
+        return None
+    return {fn: {op: sum(bool(re.search(rf"\b{op}\b", line))
+                         for line in lines)
+                 for op in ("FFMA", "FMUL", "FADD")}
+            for fn, lines in bodies.items()}
 
 
 def time_costvol(hashes: Path):
@@ -346,6 +371,179 @@ def time_costvol(hashes: Path):
     return 1 if differ else 0
 
 
+# K1's small tiles in chip_smoke.py, (h0, w0, max_d, levels, p): levels 2
+# and 3 at p = 4, then the runtime-p instance at p 3 and 8.
+SMALL_TILES = ((8, 16, 16, 2, 4), (16, 16, 16, 2, 4), (16, 24, 13, 2, 4),
+               (32, 48, 32, 3, 4), (16, 24, 13, 2, 3), (8, 16, 16, 2, 8))
+
+
+def small_name(h0, w0, max_d, levels, p):
+    return f"small p={p} {h0}x{w0} max_d={max_d} L={levels}"
+
+
+def rows_cases():
+    """(name, kind, shape) of every K4 and K3 launch shape chip_smoke.py
+    makes.  K4: shape = (n, h0, w0, p, d0, max_d): the bench (64
+    instances), the small tiles of K1's witness (p 3, 4, 8), KITTI D=128 x
+    16 and D=256 x 8, a ragged 28x76 grid at D0 = 100, and ragged grids at
+    the runtime-p instance (p 3, 5, 6, 7) and at D0 not a multiple of 4.  K3:
+    shape = (n, d0, h0, w0, levels): the bench (64 instances, on real-valued
+    costs and on quarter steps with many ties), the centred adversarial
+    pairs' geometry (L = 2, D0 = 24), D0 = 128 at L = 4, and L = 1, 2, 5."""
+    k4 = [("bench", (64, 96, 128, 4, 64, 64))]
+    k4 += [(small_name(h0, w0, m, lv, p),
+            (4, h0, w0, p, -(-m // 2 ** lv) * 2 ** lv, m))
+           for h0, w0, m, lv, p in SMALL_TILES]
+    k4 += [("kitti D=128", (16, 96, 384, 4, 128, 128)),
+           ("kitti D=256", (8, 96, 384, 4, 256, 256)),
+           ("ragged 28x76 D0=100", (4, 28, 76, 4, 100, 99)),
+           ("ragged p=3", (3, 13, 45, 3, 24, 22)),
+           ("ragged p=5", (3, 11, 37, 5, 18, 17)),
+           ("ragged p=6", (3, 10, 41, 6, 20, 19)),
+           ("ragged p=7", (2, 9, 35, 7, 16, 15)),
+           ("ragged D0=14", (2, 9, 40, 4, 14, 13))]
+    k3 = [("bench", (64, 64, 96, 128, 4)), ("bench ties", (64, 64, 96, 128, 4)),
+          ("adversarial L=2", (6, 24, 28, 36, 2)),
+          ("D0=128 L=4", (8, 128, 32, 48, 4)), ("L=2", (8, 32, 12, 20, 2)),
+          ("L=5", (4, 32, 32, 64, 5)), ("L=1 D0=6", (4, 6, 8, 10, 1))]
+    return ([(f"K4 {n}", "K4", s) for n, s in k4]
+            + [(f"K3 {n}", "K3", s) for n, s in k3])
+
+
+def rows_inputs(torch, kind, shape, seed, device="cuda"):
+    """Inputs of one case, made on the device from a seed: K4 a pair of
+    (n, p*h0, p*w0) planes of uniform pixels; K3 an (n, d0, h0, w0) volume,
+    uniform in [0, 1), or in quarter steps 0..1.25 where the case is named
+    'ties'."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if kind == "K4":
+        n, h0, w0, p, *_ = shape
+        return tuple(torch.rand((n, p * h0, p * w0), generator=gen,
+                                device=device) for _ in range(2))
+    return (torch.rand(shape[:4], generator=gen, device=device),
+            torch.randint(0, 6, shape[:4], generator=gen, device=device)
+            .float() / 4)
+
+
+def rows_launch(kind, shape, inputs, name="", plain=False):
+    """K4's volume or K3's (disparity, score) for one case, through the
+    kernel's wrapper (or its plain version)."""
+    from deepmatching_stereo_matching_tpu_torch.config import Config, Geometry
+    from deepmatching_stereo_matching_tpu_torch.ops import (fused_cuda,
+                                                            pyramid_cuda)
+
+    if kind == "K4":
+        n, h0, w0, p, d0, max_d = shape
+        cfg = Config(max_disparity=max_d, patch_size=p)
+        geom = Geometry(height=p * h0, width=p * w0, levels=1,
+                        padded_height=p * h0, padded_width=p * w0,
+                        grid_h=h0, grid_w=w0, disparities=d0)
+        fn = (fused_cuda.cost_volume_torch if plain
+              else fused_cuda.cost_volume_rows)
+        return fn(*inputs, cfg, geom)
+    volume = inputs[1] if "ties" in name else inputs[0]
+    if plain:
+        return pyramid_cuda.pyramid_body(volume, shape[4], 1.4, fast=False)
+    return pyramid_cuda.pyramid_backtrack(volume, shape[4], 1.4)
+
+
+def k1_witness(shape, levels, inputs, volume):
+    """K1 (patch form) on the planes of a small K4 case, and how many of
+    its scores differ from K4's volume at K1's disparities: K1's witness."""
+    from deepmatching_stereo_matching_tpu_torch.config import Config
+    from deepmatching_stereo_matching_tpu_torch.ops import fused_cuda
+
+    n, h0, w0, p, d0, max_d = shape
+    cfg = Config(max_disparity=max_d, levels=levels, patch_size=p)
+    d, s = fused_cuda.match_planes(*inputs, cfg, cfg.geometry(h0 * p, w0 * p))
+    at = volume.gather(-3, d.long().unsqueeze(-3)).squeeze(-3)
+    return (d, s), int((at != s).sum())
+
+
+def time_rows(hashes: Path):
+    """--rows: times of K4 at KITTI D=128 and D=256 and K3 at the bench, a
+    hash of every case's outputs and of each fused_kernel instance's SASS,
+    written to `hashes` if it does not exist, else compared with it."""
+    import hashlib
+    import json
+    import re
+
+    import torch
+
+    from deepmatching_stereo_matching_tpu_torch.ops import _build
+
+    small = 1 << 20      # outputs kept for the comparison, elements
+    kept = hashes.with_suffix(hashes.suffix + ".npz")
+    writing = not hashes.exists()
+    want = {} if writing else json.loads(hashes.read_text())
+    earlier = {} if writing else dict(np.load(kept))
+
+    def digest(*parts):
+        h = hashlib.sha256()
+        for x in parts:
+            h.update(x.encode() if isinstance(x, str)
+                     else x.cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    so = _build.build(force=True)
+    shown = False       # ptxas lines of costrows_kernel and pyramid_kernel
+    for line in _build.build_log().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            shown = bool(re.search(r"costrows_kernel|pyramid_kernel",
+                                   m.group(1)))
+        if shown:
+            print("  " + line.strip())
+    got = {}
+    for fn, lines in (sass(so, "fused_kernel") or {}).items():
+        m = re.search(r"fused_kernelILi(\d+)ELb([01])E", fn)
+        got[f"SASS fused_kernel<{m.group(1)}, {m.group(2)}>"] = digest(
+            "\n".join(lines))
+    print(f"fused_kernel SASS {_build.SRC_DIR}: "
+          f"{ {k: v[:12] for k, v in got.items()} }", flush=True)
+    timed = ("K4 kitti D=128", "K4 kitti D=256", "K3 bench")
+    levels_of = {f"K4 {small_name(*t)}": t[3] for t in SMALL_TILES}
+    for seed, (name, kind, shape) in enumerate(rows_cases()):
+        inputs = rows_inputs(torch, kind, shape, seed)
+        out = rows_launch(kind, shape, inputs, name)
+        torch.cuda.synchronize()
+        if name in levels_of:
+            k1, off = k1_witness(shape, levels_of[name], inputs, out)
+            got["K1 " + name[3:]] = digest(*k1)
+            print(f"  K1 {name[3:]}: scores vs K4's volume at K1's "
+                  f"disparities: {off} of {k1[1].numel()} differ")
+        outs = out if isinstance(out, tuple) else (out,)
+        got[name] = digest(*outs)
+        for k, x in enumerate(outs):
+            key = f"{name} {k}"
+            if writing and x.numel() <= small:
+                earlier[key] = x.cpu().numpy()
+                for m, y in enumerate(inputs):
+                    if y.numel() <= small:
+                        earlier[f"{name} input {m}"] = y.cpu().numpy()
+            elif key in earlier and got[name] != want.get(name):
+                was = torch.from_numpy(earlier[key]).to(x.device)
+                print(f"  {key} differs at {int((x != was).sum())} of "
+                      f"{x.numel()}: max |diff| "
+                      f"{float((x.double() - was.double()).abs().max()):.3e}")
+        if name in timed:
+            ms = _median_launch_ms(torch, lambda: rows_launch(
+                kind, shape, inputs, name))
+            print(f"{name} {shape} {_build.SRC_DIR}: ms per call, 5 x 20 "
+                  f"launches: " + " ".join(f"{x:.4f}" for x in ms)
+                  + f"; median {float(np.median(ms)):.4f}", flush=True)
+        del inputs, out
+    if writing:
+        hashes.write_text(json.dumps(got, indent=1))
+        np.savez(kept, **earlier)
+        print(f"rows: {len(got)} hashes written to {hashes}")
+        return 0
+    differ = sorted(k for k in got if want.get(k) != got[k])
+    print(f"rows: {len(got) - len(differ)} of {len(got)} hashes equal to "
+          f"{hashes}; differ: {differ}", flush=True)
+    return 1 if differ else 0
+
+
 def _median_launch_ms(torch, fn):
     """Five samples of the mean time of 20 calls, CUDA events."""
     for _ in range(3):
@@ -377,12 +575,16 @@ def main(argv=None) -> int:
     ap.add_argument("--costvol", action="store_true",
                     help="time K2/K6 and hash their volumes on every "
                          "chip_smoke shape")
+    ap.add_argument("--rows", action="store_true",
+                    help="time K4/K3 and hash their outputs on every "
+                         "chip_smoke shape")
     ap.add_argument("--hashes", type=Path,
-                    help="--costvol: the hash file to write, or to compare "
-                         "with where it exists")
+                    help="--costvol/--rows: the hash file to write, or to "
+                         "compare with where it exists")
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parent.parent,
-                    help="checkout whose port package --k1/--costvol times")
+                    help="checkout whose port package --k1/--costvol/--rows "
+                         "times")
     args = ap.parse_args(argv)
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -400,10 +602,11 @@ def main(argv=None) -> int:
     if args.k1:
         time_k1()
         return 0
-    if args.costvol:
+    if args.costvol or args.rows:
         if args.hashes is None:
-            ap.error("--costvol needs --hashes")
-        return time_costvol(args.hashes.resolve())
+            ap.error("--costvol and --rows need --hashes")
+        run = time_costvol if args.costvol else time_rows
+        return run(args.hashes.resolve())
     cells = args.cells.split(",")
     routes = [r for r in args.routes.split(",") if r]
     strategies = [s for s in args.strategies.split(",") if s]

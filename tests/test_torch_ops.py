@@ -254,7 +254,8 @@ def test_kernel_coverage_gates_new_paths():
         assert not fused_cuda.supported(cfg, geom)
         assert not pyramid_cuda.supported(geom.disparities, geom.levels)
         assert fused_cuda.cost_supported(cfg, geom)
-    assert fused_cuda.cost_smem_bytes(4, 256) == 78592
+    assert fused_cuda.cost_route_bytes(4, 256) == 78592
+    assert fused_cuda.cost_smem_bytes(4, 256) == 78848
     gh = carry_over(Config(max_disparity=64, descriptor="grad_hist"))
     geom = gh.geometry(375, 450)
     assert fused_cuda.supported(gh, geom)
