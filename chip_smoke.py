@@ -7,10 +7,12 @@ Phases, each printing its own lines (any failure exits nonzero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds csrc/*.cu from this checkout, one process per
      source; ptxas reports each kernel's registers, shared memory, spills,
-     and the four fused_kernel instances (p = 4 and runtime p, patch and
-     magbin), the four costvol_kernel instances (D-major and rows, 16-byte
-     and 4-byte staging), the two costrows_kernel instances (p = 4 and
-     runtime p) and pyramid_kernel must spill nothing;
+     and the six fused_kernel instances (p = 4 and runtime p, patch and
+     magbin in float32, patch in bfloat16), the four costvol_kernel
+     instances (D-major and rows, 16-byte and 4-byte staging), the four
+     costrows_kernel instances (p = 4 and runtime p, float32 and bfloat16
+     volumes), pyramid_kernel and the two aggregate_level_kernel instances
+     (float32 and bfloat16 maps) must spill nothing;
   3. kernel vs plain PyTorch version on the card, at full width:
      - bench shapes (450x375, D=64 -> padded 384x512, L=4, D0=64; 32
        pairs x 2 directions = 64 instances): cost volume (K2) atol 1e-6,
@@ -48,6 +50,17 @@ Phases, each printing its own lines (any failure exits nonzero):
        ragged 8x32-patch tiles (28x76 patches, D0=100, max_d=99), on
        ragged grids at the runtime-p instance (p 3, 5, 6, 7) and at D0 = 14
        (not a multiple of 4), atol 2e-5;
+     - the bfloat16 instances (Config.dtype='bfloat16'): K4 bf16 at both
+       KITTI shapes, the 28x76 ragged grid and the ragged runtime-p and
+       D0 = 14 grids bitwise K4's float32 volume rounded to bf16; K5 bf16
+       on that volume at D=128 and D=256, fast and exact, offsets equal
+       and top maps bitwise its plain version (which rounds every op and
+       the exponent to bf16); K1 bf16 on the bench's 64 instances and at
+       the small tiles (patch) within the 0.5% decision gate of its plain
+       version, scores within one bf16 ulp where decisions agree, and
+       bitwise K4 bf16's volume at K1 bf16's disparities where p < 5; K1
+       bf16 and K4 bf16 at least 2 blocks per SM, their shared memory per
+       block (the float32 layouts) equal to fused_cuda's mirrors;
      - each block's shared memory as the library computes it equals the
        mirror that fused_cuda's routing rules use (K1, K1b, K4);
      - the row-layout slab cost volume (K6) at KITTI D=256 (4 pairs x 2
@@ -75,15 +88,23 @@ Phases, each printing its own lines (any failure exits nonzero):
      descriptors on bench pairs 100/101 ('fused': exactly K2, K3;
      raw_neq = valid_neq = 0) and on adversarial pairs (97x141, D=24,
      seeds 0, 1, 5; 'exact' and 'fused': K2, K3; raw_neq = valid_neq = 0,
-     flat windows centred to exact zeros as in the oracle);
+     flat windows centred to exact zeros as in the oracle); bfloat16
+     ('fused') on bench pairs 100/101 (exactly K1 bf16) and on KITTI
+     D=256 pair 7 (tools/bench_large.py's bf16 row: exactly K4 bf16, K5
+     bf16), each with kept bad rate - the oracle's <= 0.05 and
+     disparity_raw agreeing >= BF16_F32_AGREE with the port's float32 run
+     of the same route on pixels valid in both; bf16 on 'exact' raises
+     its NotImplementedError;
      `utils.checks.checked_match_padded` on pair
      100 ('fused': equal to the unchecked pipeline; raises naming the
      non-finite input on a NaN plane); the CLI (`--demo -o DIR`) in a
-     subprocess: exit 0, five files, impl 'fused';
+     subprocess: exit 0, five files, impl 'fused'; again with --dtype
+     bfloat16;
   5. timing with CUDA events (any sample <= 0 fails): the batched
      `match_padded_core` step per route for the bench (32 pairs), grad_hist
-     (32 pairs) and KITTI (D=128 x 8 pairs, D=256 x 4 pairs), and peak
-     device memory;
+     (32 pairs) and KITTI (D=128 x 8 pairs, D=256 x 4 pairs), the bench
+     and KITTI D=256 'fused' steps in bfloat16 beside them, and peak
+     device memory per step and over all;
   6. the sharded strategies (`parallel.match_batch_sharded`) on a world
      of one rank over NCCL, bench pairs 100 and 101, lr_mode 'flip' and
      'direct': tiled ('fused'), dslab, ringd, wtiled with merge_level 1
@@ -104,13 +125,16 @@ Phases, each printing its own lines (any failure exits nonzero):
      loader must build; planes bitwise equal to the in-memory path's).
 Then the total wall time, one JSON line with the kernels' numbers (each
 with its bound: the larger of its bytes, each input read once and each
-output written once, over 3.35 TB/s and its operations over 67 TFLOP/s;
+output written once, over 3.35 TB/s and its operations over 67 TFLOP/s,
+33.5 for the probes P1-P3, which forbid FMA;
 K2 also at C=128 and at KITTI D=256, rows of their own over K2's count;
+K1, K4 and K5 bf16 rows of their own, each with its own launch count;
 library_ms the yardstick where there is one),
 and as the last line {"ok": true, "device": {...}}.  Needs one CUDA
 device; imports nothing of JAX or the JAX package.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -129,6 +153,12 @@ RAGGED_HW, RAGGED_D = (100, 300), 99   # L=2: a 28x76-patch grid, D0=100
 MAIN_PATH_SEEDS = (100, 101)
 SLAB = 64                              # K6 check: D=256 in four slabs
 FUSED_DECISION_TOL = 0.005
+# bf16 against float32 on the same route, on pixels valid in both: the JAX
+# package's own 'fused' bf16 agrees with its float32 on 0.97794 of them at
+# bench pair 100 (and the port's plain K1 bf16 is bitwise JAX's there;
+# tests/test_torch_bf16.py), below tests/test_bf16.py's 0.98, which holds
+# on its smaller pairs; hence 0.97 here.
+BF16_F32_AGREE = 0.97
 # K1 and K1b as measured before the fused kernel's redesign (PERF.md,
 # H100 @700 W), printed beside this run's.
 EARLIER_MS = {"K1": 1.5673, "K1b": 2.1742}
@@ -193,12 +223,12 @@ def pyramid_flops(volume_elems, levels):
     return sum(7 * volume_elems // 8 ** lvl for lvl in range(1, levels + 1))
 
 
-def bound(work):
+def bound(work, peak=PEAK_F32):
     """(ms, 'bytes' | 'operations'): the least time the card could take,
-    the larger of bytes over its memory rate and operations over its
-    float32 peak."""
+    the larger of bytes over its memory rate and operations over `peak`
+    (the float32 peak, which counts an FMA as two operations)."""
     bytes_, flops = work
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / PEAK_F32
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -289,7 +319,8 @@ def main():
     from deepmatching_stereo_matching_tpu_torch.models import descriptors
     from deepmatching_stereo_matching_tpu_torch.models import pipeline
     from deepmatching_stereo_matching_tpu_torch.ops import (
-        _build, costvol, costvol_cuda, fused_cuda, probe_cuda, pyramid_cuda)
+        _build, costvol, costvol_cuda, fused_cuda, pool, probe_cuda,
+        pyramid_cuda)
     from deepmatching_stereo_matching_tpu_torch.parallel import (
         launch, mesh as mesh_lib, runner, sharded, wtiled)
     from deepmatching_stereo_matching_tpu_torch.tools import vpu_probe
@@ -326,15 +357,17 @@ def main():
         elif "bytes stack frame" in line:
             print("  " + line.strip())
     _build.library()
-    # fused_kernel<p, magbin> (p 0: the runtime-p instance) and
+    # fused_kernel<p, magbin, bf16> (p 0: the runtime-p instance) and
     # costvol_kernel<rows, 16-byte staging>.
-    fused_ptxas = ptxas(_build.build_log(), r"fused_kernelILi(\d+)ELb([01])E",
+    fused_ptxas = ptxas(_build.build_log(),
+                        r"fused_kernelILi(\d+)ELb([01])ELb([01])E",
                         lambda m: (int(m.group(1)), "magbin"
-                                   if m.group(2) == "1" else "patch"))
+                                   if m.group(2) == "1" else "patch",
+                                   "bf16" if m.group(3) == "1" else "f32"))
     for fn, (regs, spill_st, spill_ld) in sorted(fused_ptxas.items()):
-        print(f"fused_kernel<p={fn[0]}, {fn[1]}>: {regs} registers, spill "
-              f"stores {spill_st} B, spill loads {spill_ld} B")
-    require(len(fused_ptxas) == 4 and all(
+        print(f"fused_kernel<p={fn[0]}, {fn[1]}, {fn[2]}>: {regs} registers, "
+              f"spill stores {spill_st} B, spill loads {spill_ld} B")
+    require(len(fused_ptxas) == 6 and all(
         v[1] == 0 and v[2] == 0 for v in fused_ptxas.values()),
         f"fused_kernel instantiations missing or spilling: {fused_ptxas}")
     costvol_ptxas = ptxas(_build.build_log(),
@@ -349,15 +382,19 @@ def main():
     require(len(costvol_ptxas) == 4 and all(
         v[1] == 0 and v[2] == 0 for v in costvol_ptxas.values()),
         f"costvol_kernel instantiations missing or spilling: {costvol_ptxas}")
+    # costrows_kernel<p, volume type>, aggregate_level_kernel<map type>.
     rows_ptxas = ptxas(_build.build_log(),
-                       r"(costrows_kernelILi(\d+)E|pyramid_kernel)",
-                       lambda m: m.group(1))
+                       r"(costrows_kernelILi\d+E(?:f|13__nv_bfloat16)E"
+                       r"|pyramid_kernel"
+                       r"|aggregate_level_kernelI(?:f|13__nv_bfloat16)E)",
+                       lambda m: m.group(1).replace("13__nv_bfloat16", "bf16"))
     for fn, (regs, spill_st, spill_ld) in sorted(rows_ptxas.items()):
         print(f"{fn}: {regs} registers, spill stores {spill_st} B, spill "
               f"loads {spill_ld} B")
-    require(len(rows_ptxas) == 3 and all(
+    require(len(rows_ptxas) == 7 and all(
         v[1] == 0 and v[2] == 0 for v in rows_ptxas.values()),
-        f"costrows_kernel / pyramid_kernel missing or spilling: {rows_ptxas}")
+        f"costrows_kernel / pyramid_kernel / aggregate_level_kernel missing "
+        f"or spilling: {rows_ptxas}")
     print(flush=True)
 
     def to_dev(imgs, cfg, h, w):
@@ -408,8 +445,18 @@ def main():
               f"beyond its operands and output {card}")
         del tp, win
 
+    def scores_agree(cfg, s, sp, same):
+        """Scores where decisions agree: within 2e-5 in float32; in
+        bfloat16 within one bf16 ulp (2^-7 of the value), since the kernel's
+        and the plain version's float32 costs, which differ in their last
+        bits, may round to neighbouring bf16 values."""
+        if cfg.dtype == "bfloat16":
+            return bool(((s - sp).abs() <= sp.abs() * 2.0 ** -7)[same].all())
+        return float((s - sp).abs()[same].max()) <= 2e-5
+
     def fused_vs_plain(key, lefts, rights, cfg, geom):
-        """K1 on pixel planes, K1b on (magnitude, bin) planes."""
+        """K1 on pixel planes (in cfg.dtype), K1b on (magnitude, bin)
+        planes."""
         if cfg.descriptor == "grad_hist":
             (lm, lb), (rm, rb) = map(descriptors.grad_hist_magbin,
                                      (lefts, rights))
@@ -424,10 +471,13 @@ def main():
         same = d == dp
         flips = float((~same).float().mean())
         serr = float((s - sp).abs()[same].max())
-        print(f"{key} fused [{cfg.descriptor}] {tuple(lefts.shape)} -> "
-              f"{tuple(d.shape)}: decisions flipped {flips:.3e}, "
-              f"max |score diff| where equal {serr:.3e}")
-        require(flips <= FUSED_DECISION_TOL and serr <= 2e-5,
+        print(f"{key} fused [{cfg.descriptor}, {cfg.dtype}] "
+              f"{tuple(lefts.shape)} -> {tuple(d.shape)}: decisions flipped "
+              f"{flips:.3e}, max |score diff| where equal {serr:.3e}, "
+              f"scores equal where decisions agree "
+              f"{float((s == sp)[same].float().mean()):.6f}")
+        require(flips <= FUSED_DECISION_TOL
+                and scores_agree(cfg, s, sp, same),
                 f"{key} disagrees with its plain version")
         volume = d.numel() * geom.disparities
         record(key, serr, lambda: fused_cuda.match_planes(*planes),
@@ -443,13 +493,14 @@ def main():
         alike wherever the patch has no fifth pixel row (at p >= 5 K4's
         window norms round that row's squares before adding them)."""
         vol = fused_cuda.cost_volume_rows(lefts, rights, cfg, geom)
-        at = vol.gather(-3, d.long().unsqueeze(-3)).squeeze(-3)
+        at = vol.gather(-3, d.long().unsqueeze(-3)).squeeze(-3).float()
         same = torch.equal(at, s)
         print(f"{label} scores vs K4's volume at K1's disparities: bitwise "
               f"{same}, mismatch rate {float((at != s).float().mean()):.3e}, "
               f"max |diff| {float((at - s).abs().max()):.3e}")
         require(same or not required,
                 f"{label}: K1's scores are not K4's costs")
+        return same
 
     def blocks_agree(label, fcfg, fgeom):
         n = fused_cuda.blocks_per_sm(fcfg, fgeom)
@@ -548,9 +599,20 @@ def main():
                 "K1b": blocks_agree("K1b bench", gh, geom)}
     d1, s1 = fused_vs_plain("K1", lefts, rights, cfg, geom)
     witness("K1 bench (64 instances)", lefts, rights, cfg, geom, d1, s1)
-    del d1, s1
+    # K1's bfloat16 instance: the same layout, so the same mirror.
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    require(fused_cuda.supported(cfg16, geom), "K1 bf16 must cover the bench")
+    fused_smem_agrees("K1 bf16 bench", cfg16, geom)
+    rows_occ["K1 bf16"] = blocks_agree("K1 bf16 bench", cfg16, geom)
+    d16, s16 = fused_vs_plain("K1 bf16", lefts, rights, cfg16, geom)
+    witness("K1 bf16 bench (64 instances)", lefts, rights, cfg16, geom, d16,
+            s16)
+    agree16 = float((d16 == d1).float().mean())
+    print(f"K1 bf16 vs K1 on the bench's 64 instances: decisions agree "
+          f"{agree16:.5f}")
+    del d1, s1, d16, s16
     fused_vs_plain("K1b", lefts, rights, gh, geom)
-    for k in ("K1", "K1b"):
+    for k in ("K1", "K1 bf16", "K1b"):
         rows[k]["blocks_per_sm"] = rows_occ[k]
     planes_ms = cuda_ms(torch, lambda: (descriptors.grad_hist_magbin(lefts),
                                         descriptors.grad_hist_magbin(rights)),
@@ -564,14 +626,15 @@ def main():
         sl_, sr_ = (torch.from_numpy((srng.standard_normal(
             (4, h0 * p, w0 * p)) * 0.3 + 0.5).astype(np.float32)).to(dev)
             for _ in range(2))
-        for kind in ("patch", "grad_hist"):
+        for kind, sdtype in (("patch", "float32"), ("grad_hist", "float32"),
+                             ("patch", "bfloat16")):
             scfg = Config(max_disparity=max_d, levels=levels, patch_size=p,
-                          descriptor=kind)
+                          descriptor=kind, dtype=sdtype)
             sgeom = scfg.geometry(h0 * p, w0 * p)
             require((sgeom.grid_h, sgeom.grid_w) == (h0, w0)
                     and fused_cuda.supported(scfg, sgeom),
                     f"small tile {sgeom} not covered")
-            fused_smem_agrees(f"K1 small p={p} {kind}", scfg, sgeom)
+            fused_smem_agrees(f"K1 small p={p} {kind} {sdtype}", scfg, sgeom)
             if kind == "patch":
                 planes = (sl_, sr_, scfg, sgeom)
             else:
@@ -584,14 +647,16 @@ def main():
             same = d == dp
             flips = float((~same).float().mean())
             serr = float((s_ - sp).abs()[same].max())
-            print(f"K1 small tiles [{kind}] p={p} {h0}x{w0} patches, "
-                  f"max_d={max_d}, L={levels}: decisions flipped "
+            print(f"K1 small tiles [{kind}, {sdtype}] p={p} {h0}x{w0} "
+                  f"patches, max_d={max_d}, L={levels}: decisions flipped "
                   f"{flips:.3e}, max |score diff| where equal {serr:.3e}")
-            require(flips <= FUSED_DECISION_TOL and serr <= 2e-5,
-                    f"K1 small tiles {kind} p={p} disagree with plain")
+            require(flips <= FUSED_DECISION_TOL
+                    and scores_agree(scfg, s_, sp, same),
+                    f"K1 small tiles {kind} {sdtype} p={p} disagree with "
+                    f"plain")
             if kind == "patch":
-                witness(f"K1 small p={p} {h0}x{w0}", sl_, sr_, scfg, sgeom,
-                        d, s_, required=p < 5)
+                witness(f"K1 small p={p} {h0}x{w0} {sdtype}", sl_, sr_, scfg,
+                        sgeom, d, s_, required=p < 5)
 
     # 3a'. The cost-volume kernel (K2, K6): its shared memory as the
     # library computes it against costvol_cuda's mirror, at least 2 blocks
@@ -674,9 +739,12 @@ def main():
                     _build.library().dm_cost_rows_smem(kcfg.patch_size, max_d),
                     fused_cuda.cost_smem_bytes(kcfg.patch_size, max_d))
         occ4 = fused_cuda.cost_blocks_per_sm(kcfg.patch_size, max_d)
-        print(f"K4 KITTI D={max_d} blocks per SM (occupancy API): {occ4}")
-        require(occ4 >= 2, f"K4 KITTI D={max_d}: {occ4} blocks per SM, "
-                f"fewer than 2")
+        occ4b = fused_cuda.cost_blocks_per_sm(kcfg.patch_size, max_d,
+                                              bf16=True)
+        print(f"K4 KITTI D={max_d} blocks per SM (occupancy API): {occ4}; "
+              f"its bf16 instance (the same layout): {occ4b}")
+        require(min(occ4, occ4b) >= 2, f"K4 KITTI D={max_d}: "
+                f"{(occ4, occ4b)} blocks per SM, fewer than 2")
         kp =[make_kitti_pair(i, max_d) for i in range(batch)]
         klp = to_dev([l for l, _, _ in kp], kcfg, KH, KW)
         krp = to_dev([r for _, r, _ in kp], kcfg, KH, KW)
@@ -698,28 +766,64 @@ def main():
                    (nbytes(kl, kr, kvol),
                     cost_flops(kvol.numel(), kcfg.patch_size ** 2)),
                    plain_reps=1)
-        for fast in (True, False):
-            top, args = pyramid_cuda.aggregate_dmajor(kvol, kgeom.levels,
-                                                      kcfg.lam, fast)
-            sync()
-            top_p, args_p = pyramid_cuda.aggregate_dmajor_torch(
-                kvol, kgeom.levels, kcfg.lam, fast)
-            args_eq = all(torch.equal(a, b) for a, b in zip(args, args_p))
-            top_eq = torch.equal(top, top_p)
-            err5 = float((top - top_p).abs().max())
-            print(f"K5 D={max_d} {'fast' if fast else 'exact'}: top "
-                  f"{tuple(top.shape)} bitwise {top_eq}, max |diff| "
-                  f"{err5:.3e}; offsets equal {args_eq}")
-            require(args_eq and top_eq, "K5 disagrees with its plain version")
-            if max_d == 128 and fast:
-                record("K5", err5,
-                       lambda: pyramid_cuda.aggregate_dmajor(
-                           kvol, kgeom.levels, kcfg.lam, True),
-                       lambda: pyramid_cuda.aggregate_dmajor_torch(
-                           kvol, kgeom.levels, kcfg.lam, True),
-                       (nbytes(kvol, top, *args),
-                        pyramid_flops(kvol.numel(), kgeom.levels)))
-        del kvol, top, top_p, args, args_p
+        # K4's bfloat16 instance: the same costs, each rounded as stored.
+        kcfg16 = dataclasses.replace(kcfg, dtype="bfloat16")
+        kvol16 = fused_cuda.cost_volume_rows(kl, kr, kcfg16, kgeom)
+        sync()
+        same16 = kvol16.dtype == torch.bfloat16 and torch.equal(
+            kvol16, kvol.to(torch.bfloat16))
+        print(f"K4 bf16 D={max_d} -> {tuple(kvol16.shape)} "
+              f"{kvol16.dtype}: bitwise K4's float32 volume rounded {same16} "
+              f"({nbytes(kvol16) / 1e6:.1f} MB against {nbytes(kvol) / 1e6:.1f}"
+              f" MB)")
+        require(same16, "K4 bf16 is not K4's volume rounded to bf16")
+        if max_d == 128:
+            k4b_occ = occ4b
+            record("K4 bf16", 0.0,
+                   lambda: fused_cuda.cost_volume_rows(kl, kr, kcfg16, kgeom),
+                   lambda: fused_cuda.cost_volume_torch(
+                       kl, kr, kcfg, kgeom).to(torch.bfloat16),
+                   (nbytes(kl, kr, kvol16),
+                    cost_flops(kvol16.numel(), kcfg.patch_size ** 2)),
+                   plain_reps=1)
+            # The port never calls torch.pow on a bf16 tensor (pool.rectify
+            # takes the exponent as given); whether torch on the card rounds
+            # a scalar exponent to bf16 there, as it does on the CPU, is
+            # printed for the record.
+            sample = kvol16[0, :4].reshape(-1)
+            lam16 = pool.map_lam(kcfg.lam, torch.bfloat16)
+            cuda_pow = torch.pow(sample, kcfg.lam)
+            eq16, eq32 = (float((cuda_pow == pool.rectify(sample, e))
+                                .float().mean()) for e in (lam16, kcfg.lam))
+            print(f"torch.pow on a bf16 CUDA tensor at lam {kcfg.lam}: equal "
+                  f"to the f32 pow rounded at {lam16} on {eq16:.6f}, at "
+                  f"{kcfg.lam} on {eq32:.6f} of {sample.numel()} values")
+            del sample, cuda_pow   # a view of the volume: it would outlive it
+        for key, vol_ in (("K5", kvol), ("K5 bf16", kvol16)):
+            for fast in (True, False):
+                top, args = pyramid_cuda.aggregate_dmajor(
+                    vol_, kgeom.levels, kcfg.lam, fast)
+                sync()
+                top_p, args_p = pyramid_cuda.aggregate_dmajor_torch(
+                    vol_, kgeom.levels, kcfg.lam, fast)
+                args_eq = all(torch.equal(a, b) for a, b in zip(args, args_p))
+                top_eq = top.dtype == vol_.dtype and torch.equal(top, top_p)
+                err5 = float((top.float() - top_p.float()).abs().max())
+                print(f"{key} D={max_d} {'fast' if fast else 'exact'}: top "
+                      f"{tuple(top.shape)} {top.dtype} bitwise {top_eq}, max "
+                      f"|diff| {err5:.3e}; offsets equal {args_eq}")
+                require(args_eq and top_eq,
+                        f"{key} disagrees with its plain version")
+                if max_d == 128 and fast:
+                    record(key, err5,
+                           lambda vol_=vol_: pyramid_cuda.aggregate_dmajor(
+                               vol_, kgeom.levels, kcfg.lam, True),
+                           lambda vol_=vol_:
+                           pyramid_cuda.aggregate_dmajor_torch(
+                               vol_, kgeom.levels, kcfg.lam, True),
+                           (nbytes(vol_, top, *args),
+                            pyramid_flops(vol_.numel(), kgeom.levels)))
+        del kvol, kvol16, top, top_p, args, args_p
 
     # K4 on a grid of ragged 8x32-patch tiles, with a masked plane.
     rcfg = Config(max_disparity=RAGGED_D, levels=2)
@@ -740,7 +844,15 @@ def main():
           f"max |kernel - plain| = {err4r:.3e}")
     require(err4r <= 2e-5, f"K4 disagrees with its plain version on a "
             f"ragged grid: {err4r}")
+    rvol16 = fused_cuda.cost_volume_rows(
+        rl, rr, dataclasses.replace(rcfg, dtype="bfloat16"), rgeom)
+    sync()
+    same16 = torch.equal(rvol16, rvol.to(torch.bfloat16))
+    print(f"K4 bf16 ragged grid: bitwise K4's volume rounded {same16}")
+    require(same16, "K4 bf16 on a ragged grid is not K4's volume rounded")
+    del rvol, rvol16
     rows["K4"]["blocks_per_sm"] = k4_occ
+    rows["K4 bf16"]["blocks_per_sm"] = k4b_occ
     # ... and on ragged grids at the runtime-p instance (p 3, 5, 6, 7) and
     # at D0 not a multiple of 4.
     for seed, (cname, kind, shape) in enumerate(rows_cases()):
@@ -754,10 +866,15 @@ def main():
         sync()
         err = float((got_ - rows_launch(kind, shape, inputs_, plain=True))
                     .abs().max())
-        print(f"{cname} {shape}: max |kernel - plain| = {err:.3e}")
+        got16 = rows_launch(kind, shape, inputs_, dtype="bfloat16")
+        sync()
+        same16 = torch.equal(got16, got_.to(torch.bfloat16))
+        print(f"{cname} {shape}: max |kernel - plain| = {err:.3e}; bf16 "
+              f"instance bitwise the float32 volume rounded {same16}")
         require(err <= 2e-5, f"{cname} disagrees with its plain version: "
                 f"{err}")
-        del inputs_, got_
+        require(same16, f"{cname}: K4 bf16 is not K4's volume rounded")
+        del inputs_, got_, got16
 
     # 3c. K6, the row-layout slab cost volume: KITTI D=256, whole range and
     # 64-bin slabs, against its plain version and K2.
@@ -856,6 +973,13 @@ def main():
     print(f"  K5: kernel {rows['K5']['ms']:.4f} ms, plain "
           f"{rows['K5']['plain']:.4f} ms per 16-instance KITTI D=128 call "
           f"(fast, 5 levels) {card}")
+    for k, what in (("K1", "64-instance bench"),
+                    ("K4", "16-instance KITTI D=128"),
+                    ("K5", "16-instance KITTI D=128 (fast)")):
+        b = rows[f"{k} bf16"]
+        print(f"  {k} bf16: kernel {b['ms']:.4f} ms beside {k}'s "
+              f"{rows[k]['ms']:.4f} ms (float32), plain {b['plain']:.4f} ms "
+              f"per {what} call {card}")
     print(f"  K2 C=128: kernel {rows['K2 C=128']['ms']:.4f} ms (earlier: "
           f"{EARLIER_MS['K2 C=128']} ms), plain "
           f"{rows['K2 C=128']['plain']:.4f} ms per 64-instance grad_hist "
@@ -873,6 +997,9 @@ def main():
                 "K3": (pyramid_cuda.pyramid_backtrack, "launches"),
                 "K4": (fused_cuda.cost_volume_rows, "launches"),
                 "K5": (pyramid_cuda.aggregate_dmajor, "launches"),
+                "K1 bf16": (fused_cuda.match_planes, "bf16_launches"),
+                "K4 bf16": (fused_cuda.cost_volume_rows, "bf16_launches"),
+                "K5 bf16": (pyramid_cuda.aggregate_dmajor, "bf16_launches"),
                 "K6": (costvol_cuda.cost_volume_rows, "launches"),
                 "P1": (probe_cuda.stream, "launches"),
                 "P2": (probe_cuda.small, "launches"),
@@ -1062,6 +1189,64 @@ def main():
             require(raw_neq == 0 and val_neq == 0, f"centred adversarial "
                     f"{route} off the oracle on seed {seed}")
 
+    # 4b'. bfloat16 on 'fused' through the public API (the JAX package's
+    # bf16 rows: bench.py's at the bench geometry, tools/bench_large.py's at
+    # KITTI D=256), held to the oracle's kept bad rate + 0.05 and to
+    # BF16_F32_AGREE with the port's float32 run of the same route.
+    def check_bf16(label, got, f32, ora, gt):
+        hh, ww = gt.shape
+        bad = metrics.bad_pixel_rate(got.disparity, gt, count_invalid=False)
+        bad_o = metrics.bad_pixel_rate(ora.disparity, gt, count_invalid=False)
+        both = got.valid & f32.valid
+        agree = float(np.mean(got.disparity_raw[both]
+                              == f32.disparity_raw[both]))
+        agree_all = float(np.mean(got.disparity_raw == f32.disparity_raw))
+        print(f"bf16 [{label}, fused]: kept bad {bad:.4f} (oracle "
+              f"{bad_o:.4f}, delta {bad - bad_o:+.4f}); disparity_raw agrees "
+              f"with float32 on {agree:.5f} of pixels valid in both "
+              f"({agree_all:.5f} of all); valid_neq vs float32 "
+              f"{float(np.mean(got.valid != f32.valid)):.3e}; coverage "
+              f"{metrics.coverage(got.disparity):.4f}")
+        require(got.disparity.shape == (hh, ww)
+                and got.disparity.dtype == np.float32
+                and got.score.dtype == np.float32
+                and np.isfinite(got.score).all(),
+                f"bf16 {label}: outputs not finite float32 of the image's "
+                f"shape")
+        require(bad - bad_o <= 0.05 and agree >= BF16_F32_AGREE,
+                f"bf16 {label} beyond its gates")
+
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    bench16 = run_path("bench bf16 fused", {"K1 bf16"}, lambda: [
+        api.match_stereo(l, r, cfg16, impl="fused", device="cuda")
+        for l, r, _ in bench_pairs])
+    for seed, (_, _, gt), got in zip(MAIN_PATH_SEEDS, bench_pairs, bench16):
+        check_bf16(f"bench pair {seed}", got, results["bench", seed, "fused"],
+                   want["bench", seed], gt)
+    k256 = Config(max_disparity=256)
+    k256_16 = dataclasses.replace(k256, dtype="bfloat16")
+    kl7, kr7, kgt7 = make_kitti_pair(KITTI_SEED, 256)
+    kitti32 = run_path("kitti D=256 fused", {"K4", "K5"}, lambda: (
+        api.match_stereo(kl7, kr7, k256, impl="fused", device="cuda")))
+    kitti16 = run_path("kitti D=256 bf16 fused", {"K4 bf16", "K5 bf16"},
+                       lambda: api.match_stereo(kl7, kr7, k256_16,
+                                                impl="fused", device="cuda"))
+    t0 = time.perf_counter()
+    kora = oracle.match_stereo(kl7, kr7, k256)
+    print(f"oracle [kitti D=256] pair {KITTI_SEED}: "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    check_bf16(f"KITTI D=256 pair {KITTI_SEED}", kitti16, kitti32, kora, kgt7)
+    try:
+        api.match_stereo(*bench_pairs[0][:2], cfg16, impl="exact",
+                         device="cuda")
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    print(f"bf16 on 'exact': raises {refused!r}")
+    require(refused is not None and "'exact' route" in refused,
+            "bf16 on 'exact' did not raise its NotImplementedError")
+    del kitti32, kitti16, kora
+
     # 4c. The invariant checks on the card, on bench pair 100.
     l0, r0, _ = bench_pairs[0]
     lp0, rp0 = (torch.from_numpy(api.preprocess(x, cfg, H, W)).to(dev)
@@ -1090,46 +1275,67 @@ def main():
     require(err_msg is not None and "non-finite values in padded input "
             "images" in err_msg, "a NaN input passed the checks")
 
-    # 4d. The CLI in its own process on the card.
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", f"{PKG}.cli", "--demo",
-                               "-o", tmp], cwd=REPO, capture_output=True,
-                              text=True, timeout=600)
-        print(f"cli --demo -o DIR: exit {proc.returncode} in "
-              f"{time.perf_counter() - t0:.1f} s (host): "
-              f"{proc.stdout.strip()[-300:]}")
-        require(proc.returncode == 0, f"the CLI failed:\n{proc.stderr}")
-        files = sorted(os.listdir(tmp))
-        with open(os.path.join(tmp, "metrics.json")) as f:
-            meta = json.load(f)
-    require(files == ["disparity.pfm", "disparity_16bit.png",
-                      "disparity_color.png", "metrics.json", "valid.png"],
-            f"the CLI wrote {files}")
-    require(meta.get("impl") == "fused" and meta.get("engine") == "cuda:0",
-            f"the CLI ran impl {meta.get('impl')} on {meta.get('engine')}")
+    # 4d. The CLI in its own process on the card, in float32 and bfloat16.
+    for dtype in ("float32", "bfloat16"):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", f"{PKG}.cli",
+                                   "--demo", "--dtype", dtype, "-o", tmp],
+                                  cwd=REPO, capture_output=True, text=True,
+                                  timeout=600)
+            print(f"cli --demo --dtype {dtype} -o DIR: exit "
+                  f"{proc.returncode} in {time.perf_counter() - t0:.1f} s "
+                  f"(host): {proc.stdout.strip()[-300:]}")
+            require(proc.returncode == 0, f"the CLI failed:\n{proc.stderr}")
+            files = sorted(os.listdir(tmp))
+            with open(os.path.join(tmp, "metrics.json")) as f:
+                meta = json.load(f)
+        require(files == ["disparity.pfm", "disparity_16bit.png",
+                          "disparity_color.png", "metrics.json", "valid.png"],
+                f"the CLI wrote {files}")
+        require(meta.get("impl") == "fused" and meta.get("engine") == "cuda:0"
+                and meta["config"]["dtype"] == dtype,
+                f"the CLI ran impl {meta.get('impl')} on "
+                f"{meta.get('engine')} in {meta['config']['dtype']}")
     print(flush=True)
 
-    # 5. Timing of the batched steps.
-    torch.cuda.reset_peak_memory_stats()
+    # 5. Timing of the batched steps, each with its peak device memory; the
+    # bf16 steps on 'fused' (the routes bf16 covers) beside the float32 ones.
     steps = [("bench", cfg, geom, lp, rp), ("grad_hist", gh, geom, lp, rp)]
     steps += [(f"kitti D={d}", *kitti[d]) for d in KITTI]
-    step_ms = {}
+    steps += [("bench bf16", cfg16, geom, lp, rp),
+              ("kitti D=256 bf16",
+               dataclasses.replace(kitti[256][0], dtype="bfloat16"),
+               *kitti[256][1:])]
+    step_ms, step_range, step_peak, peak = {}, {}, {}, 0
     for label, scfg, sgeom, slp, srp in steps:
-        for route in ("fused", "exact"):
+        for route in ("fused",) if scfg.dtype == "bfloat16" else (
+                "fused", "exact"):
             def step(route=route):
                 return pipeline.match_padded_core(slp, srp, scfg, sgeom, route)
+            sync()
+            torch.cuda.reset_peak_memory_stats()
             step()
             sync()
             samples = [cuda_ms(torch, step, 1, warmup=0) for _ in range(7)]
             med = float(np.median(samples))
-            step_ms[f"{label} {route}"] = med
+            key = f"{label} {route}"
+            step_ms[key] = med
+            step_range[key] = (min(samples), max(samples))
+            step_peak[key] = torch.cuda.max_memory_allocated()
+            peak = max(peak, step_peak[key])
             n, hh, ww = slp.shape[0], sgeom.height, sgeom.width
             print(f"step [{label}, {route}] {n} pairs {ww}x{hh}: median "
                   f"{med:.4f} ms [{min(samples):.4f}..{max(samples):.4f}] "
                   f"over 7 samples = {n * hh * ww * 1e-6 / (med * 1e-3):.1f} "
-                  f"Mpx/s {card}")
-    peak = torch.cuda.max_memory_allocated()
+                  f"Mpx/s; peak device memory "
+                  f"{step_peak[key] / 2**20:.1f} MiB {card}")
+    for label in ("bench", "kitti D=256"):
+        a, b = f"{label} fused", f"{label} bf16 fused"
+        print(f"  step [{label}, fused] bf16 {step_ms[b]:.4f} ms beside float32 "
+              f"{step_ms[a]:.4f} ms ({step_ms[b] / step_ms[a]:.3f}x); peak "
+              f"memory {step_peak[b] / 2**20:.1f} MiB beside "
+              f"{step_peak[a] / 2**20:.1f} MiB {card}")
     print(f"peak device memory over the timed steps: {peak / 2**20:.1f} MiB {card}")
     print(flush=True)
 
@@ -1386,6 +1592,12 @@ def main():
                "ops/fused_pallas.py:808"),
         "K5": ("K5 level aggregation", "csrc/aggregate.cu",
                "ops/pyramid_pallas.py:346"),
+        "K1 bf16": ("K1 fused image->disparity (patch, bfloat16)",
+                    "csrc/fused.cu", "ops/fused_pallas.py:572"),
+        "K4 bf16": ("K4 image->D-major cost volume (bfloat16)",
+                    "csrc/costrows.cu", "ops/fused_pallas.py:808"),
+        "K5 bf16": ("K5 level aggregation (bfloat16)", "csrc/aggregate.cu",
+                    "ops/pyramid_pallas.py:346"),
         "K6": ("K6 row-layout slab cost volume", "csrc/costvol.cu",
                "ops/costvol_pallas.py:57"),
         "P1": ("P1 streaming probe (stream)", "csrc/probe.cu",
@@ -1395,9 +1607,23 @@ def main():
         "P3": ("P3 streaming probe (shifted window)", "csrc/probe.cu",
                "tools/vpu_ceiling.py:165"),
     }
+    regs = {"K1": fused_ptxas.get((4, "patch", "f32")),
+            "K1 bf16": fused_ptxas.get((4, "patch", "bf16")),
+            "K1b": fused_ptxas.get((4, "magbin", "f32")),
+            "K3": rows_ptxas.get("pyramid_kernel"),
+            "K4": rows_ptxas.get("costrows_kernelILi4EfE"),
+            "K4 bf16": rows_ptxas.get("costrows_kernelILi4Ebf16E"),
+            "K5": rows_ptxas.get("aggregate_level_kernelIfE"),
+            "K5 bf16": rows_ptxas.get("aggregate_level_kernelIbf16E")}
+    for k, v in regs.items():
+        if v is not None:
+            rows[k]["registers"] = v[0]
     kernels = []
     for k, (label, src, rep) in sources.items():
-        bound_ms, bound_by = bound(rows[k]["work"])
+        # The probes forbid FMA (csrc/probe.cu): their mul and add
+        # operations peak at half the FMA-counted rate, 33.5 TFLOP/s.
+        bound_ms, bound_by = bound(rows[k]["work"], PEAK_F32 / 2
+                                   if k.startswith("P") else PEAK_F32)
         kernels.append({
             "name": label, "route": "cuda", "source": f"{PKG}/{src}",
             "replaces": rep if k.startswith("P") else f"{JAX_PKG}/{rep}",
@@ -1412,13 +1638,15 @@ def main():
             "bound_by": bound_by, "library_ms": rows[k].get("library"),
             "bytes": rows[k]["work"][0], "operations": rows[k]["work"][1],
             **{key: rows[k][key] for key in ("flips", "blocks_per_sm",
-                                             "library_extra_bytes")
+                                             "library_extra_bytes",
+                                             "registers")
                if key in rows[k]}})
         print(f"  {k}: kernel {rows[k]['ms']:.4f} ms, bound {bound_ms:.4f} "
               f"ms ({bound_by}), {rows[k]['ms'] / bound_ms:.1f}x its bound; "
               f"{launches[k]} launches on the paths {card}")
     print(f"chip_smoke wall time: {time.perf_counter() - wall0:.1f} s {card}")
     print(json.dumps({"kernels": kernels, "step_ms": step_ms,
+                      "step_range_ms": step_range, "step_peak_bytes": step_peak,
                       "strategy_ms": strategy_ms,
                       "stream_mpx_per_s": stream_mpx, "peak_bytes": peak,
                       "card": card_line}))

@@ -8,8 +8,9 @@ same metrics JSON keys, except:
   * `--profile DIR` writes a torch.profiler chrome trace;
   * `--debug-checks` checks the pipeline's invariants on the device
     (utils/checks.py) on the chosen route;
-  * `--dtype bfloat16` raises NotImplementedError (the port is float32
-    only); there is no `--dot-precision`;
+  * `--dtype bfloat16` runs on 'fused' where K1 or K4 -> K5 covers the
+    configuration and on 'torch'; elsewhere it raises NotImplementedError
+    (models/pipeline.py:check_supported); there is no `--dot-precision`;
   * `engine` in the metrics names the torch device ("cuda:0", "cpu"), or
     "oracle".
 `--oracle` runs the port's copy of the NumPy oracle.  Outputs go through
@@ -77,16 +78,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="background-fill invalidated pixels")
     p.add_argument("--dtype", choices=("float32", "bfloat16"),
                    default="float32",
-                   help="cost-volume/pyramid compute dtype (float32 only)")
+                   help="cost-volume/pyramid compute dtype (bfloat16: "
+                        "'fused' via K1 or K4 -> K5, and 'torch')")
     return p
 
 
 def config_from_args(args) -> "Config":
     from .config import Config
 
-    if args.dtype != "float32":
-        raise NotImplementedError(f"--dtype {args.dtype}: the port is "
-                                  f"float32 only")
     return Config(
         max_disparity=args.max_disparity,
         patch_size=args.patch_size,

@@ -6,7 +6,7 @@
 // device memory instead of a pyramid run on it, for volumes whose quadtree
 // tile does not fit one block's shared memory (KITTI at D0 = 128 and 256).
 // In: (n, Hp, Wp) f32 left and right images, patch form.  Out:
-// (n, D0, H0, W0) f32.
+// (n, D0, H0, W0) f32 or bf16 (below).
 //
 // One block per (instance, th x 32-patch tile), one thread per patch, a
 // warp per patch row: each d-plane store of a warp is one 128-byte line.
@@ -42,6 +42,15 @@
 // Bound on this card by the volume write: 4 B per cost, 0.09 ms for the
 // 302 MB of 16 KITTI instances at D0 = 128 at 3.35 TB/s; the products
 // (16 per cost) take a third of that at the FMA rate.
+//
+// The volume's element type is a template parameter: float, or
+// __nv_bfloat16 for Config.dtype='bfloat16' (fused_pallas.py:_cost_block's
+// c.astype(dtype)).  The bfloat16 instance computes the same float32 costs
+// and rounds each once as it stores it (__float2bfloat16_rn), so its volume
+// is bitwise the float32 volume rounded, at 2 B per cost: half the bytes
+// that bound the kernel (0.045 ms of volume at KITTI D0 = 128 x 16).
+
+#include <cuda_bf16.h>
 
 #include "cost.cuh"
 #include "launch.cuh"
@@ -86,10 +95,16 @@ __host__ __device__ inline RowsLayout pick_layout(int p, int max_d) {
   return rows_layout(p, max_d, th);
 }
 
+__device__ __forceinline__ void store_cost(float* o, float c) { *o = c; }
+__device__ __forceinline__ void store_cost(__nv_bfloat16* o, float c) {
+  *o = __float2bfloat16_rn(c);
+}
+
 // p = 4: the costs of patch (i, j), global column jg, for d = 0..d0-1
 // into o[d * plane], four planes per step (step 2 above).
+template <typename T>
 __device__ __forceinline__ void stream4(const Tile& s, int i, int j, int jg,
-                                        float il, int d0, float* o,
+                                        float il, int d0, T* o,
                                         size_t plane) {
   const uint32_t lbw[4] = {0u, 0u, 0u, 0u};
   float L[4][4];
@@ -110,19 +125,19 @@ __device__ __forceinline__ void stream4(const Tile& s, int i, int j, int jg,
     costs4<false>(s, L, lbw, i, j, jg, d4, il, ivc, c);
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      if (d4 + r < d0) o[(size_t)(d4 + r) * plane] = c[r];
+      if (d4 + r < d0) store_cost(o + (size_t)(d4 + r) * plane, c[r]);
   }
   for (; d4 < d0; d4 += 4) {  // planes d >= max_d
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      if (d4 + r < d0) o[(size_t)(d4 + r) * plane] = 0.0f;
+      if (d4 + r < d0) store_cost(o + (size_t)(d4 + r) * plane, 0.0f);
   }
 }
 
-template <int P>
+template <int P, typename T>
 __global__ void __launch_bounds__(kMaxRows * 32, 3)
 costrows_kernel(const float* __restrict__ left,
-                const float* __restrict__ right, float* __restrict__ out,
+                const float* __restrict__ right, T* __restrict__ out,
                 int hp, int wp, int p_arg, int d0, int max_d) {
   extern __shared__ float4 smem4[];
   char* sm = reinterpret_cast<char*>(smem4);
@@ -152,33 +167,52 @@ costrows_kernel(const float* __restrict__ left,
   const int i = threadIdx.x >> 5, j = threadIdx.x & 31, jg = x0 + j;
   if (y0 + i >= h0 || jg >= w0) return;
   const size_t plane = (size_t)h0 * w0;
-  float* o = out + (size_t)n * d0 * plane + (size_t)(y0 + i) * w0 + jg;
+  T* o = out + (size_t)n * d0 * plane + (size_t)(y0 + i) * w0 + jg;
   const float il = left_inv_norm<P>(s, i, j);
   if constexpr (P == 4) {
     stream4(s, i, j, jg, il, d0, o, plane);
   } else {
     for (int d = 0; d < d0; ++d)
-      o[(size_t)d * plane] = cell_cost<P, false>(s, i, j, jg, d, il);
+      store_cost(o + (size_t)d * plane,
+                 cell_cost<P, false>(s, i, j, jg, d, il));
   }
 }
 
-template <int P>
+template <int P, typename T>
 SmemAllowance& allowance() {
-  static SmemAllowance a((const void*)costrows_kernel<P>);
+  static SmemAllowance a((const void*)costrows_kernel<P, T>);
   return a;
 }
 
-template <int P>
-int launch(const float* left, const float* right, float* out, int n, int hp,
+template <int P, typename T>
+int launch(const float* left, const float* right, T* out, int n, int hp,
            int wp, int p, int d0, int max_d, cudaStream_t stream) {
   const RowsLayout f = pick_layout(p, max_d);
-  const cudaError_t err = allowance<P>().allow(f.total);
+  const cudaError_t err = allowance<P, T>().allow(f.total);
   if (err != cudaSuccess) return (int)err;
   const int h0 = hp / p, w0 = wp / p;
   const dim3 grid(((h0 + f.th - 1) / f.th) * ((w0 + kTw - 1) / kTw), n);
-  costrows_kernel<P><<<grid, 32 * f.th, f.total, stream>>>(
+  costrows_kernel<P, T><<<grid, 32 * f.th, f.total, stream>>>(
       left, right, out, hp, wp, p, d0, max_d);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int occupancy(int p, int max_d) {
+  const RowsLayout f = pick_layout(p, max_d);
+  return p == 4 ? blocks_per_sm(allowance<4, T>(),
+                                (const void*)costrows_kernel<4, T>, 32 * f.th,
+                                f.total)
+                : blocks_per_sm(allowance<0, T>(),
+                                (const void*)costrows_kernel<0, T>, 32 * f.th,
+                                f.total);
+}
+
+template <typename T>
+int dispatch(const float* left, const float* right, T* out, int n, int hp,
+             int wp, int p, int d0, int max_d, cudaStream_t st) {
+  return p == 4 ? launch<4, T>(left, right, out, n, hp, wp, p, d0, max_d, st)
+                : launch<0, T>(left, right, out, n, hp, wp, p, d0, max_d, st);
 }
 
 }  // namespace
@@ -190,20 +224,20 @@ extern "C" int dm_cost_rows_smem(int p, int max_d) {
   return pick_layout(p, max_d).total;
 }
 
-// Blocks of the instance that serves p one SM holds; negative: a CUDA
-// error.
-extern "C" int dm_cost_rows_blocks_per_sm(int p, int max_d) {
-  const RowsLayout f = pick_layout(p, max_d);
-  return p == 4 ? blocks_per_sm(allowance<4>(), (const void*)costrows_kernel<4>,
-                                32 * f.th, f.total)
-                : blocks_per_sm(allowance<0>(), (const void*)costrows_kernel<0>,
-                                32 * f.th, f.total);
+// Blocks of the instance that serves (p, bf16) one SM holds; negative: a
+// CUDA error.
+extern "C" int dm_cost_rows_blocks_per_sm(int p, int max_d, int bf16) {
+  return bf16 ? occupancy<__nv_bfloat16>(p, max_d) : occupancy<float>(p, max_d);
 }
 
-extern "C" int dm_cost_rows(const float* left, const float* right,
-                            float* out, int n, int hp, int wp, int p, int d0,
-                            int max_d, void* stream) {
+// out: (n, d0, h0, w0) float (bf16 == 0) or __nv_bfloat16.
+extern "C" int dm_cost_rows(const float* left, const float* right, void* out,
+                            int n, int hp, int wp, int p, int d0, int max_d,
+                            int bf16, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  return p == 4 ? launch<4>(left, right, out, n, hp, wp, p, d0, max_d, st)
-                : launch<0>(left, right, out, n, hp, wp, p, d0, max_d, st);
+  if (bf16)
+    return dispatch(left, right, static_cast<__nv_bfloat16*>(out), n, hp, wp,
+                    p, d0, max_d, st);
+  return dispatch(left, right, static_cast<float*>(out), n, hp, wp, p, d0,
+                  max_d, st);
 }

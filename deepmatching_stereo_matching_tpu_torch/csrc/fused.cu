@@ -67,6 +67,18 @@
 // cp.async keeps a block's copies in flight together without registers.
 // p = 4 is a template instance; any other p runs the same kernel with a
 // runtime p, whose correlation reads the staged pixels per cost.
+//
+// BF16 (patch form only; Config.dtype='bfloat16'): the pixels and the cost
+// arithmetic stay float32, and each cost is rounded to bfloat16 once, after
+// the relu and the mask (fused_pallas.py:_cost_block's c.astype(dtype)),
+// before it is pooled; the quad mean rounds after each add and after the
+// * 0.25, pyramid_up<FAST, BF16> rounds every level's ops, the fast
+// rectification is powf at lam as given (the wrapper passes the float32
+// 1.4: JAX's fast form runs in float32), and the score is the recomputed
+// cost rounded alike.  Levels stay floats holding bfloat16 values, so the
+// layout, the shared memory and the blocks per SM are the float32
+// instance's; the float32 instances compile as before (every bfloat16 step
+// sits under `if constexpr`).
 
 #include "cost.cuh"
 #include "launch.cuh"
@@ -137,7 +149,7 @@ namespace {
 
 // Level 0 of the tile, streamed over d per cell: writes invl, the level-1
 // map lv1 ((D0/2, T/2, T/2)) and the packed level-0 offsets arg0.
-template <int P, bool MAGBIN>
+template <int P, bool MAGBIN, bool BF16>
 __device__ void level0(const Tile& s, float* invl, float* lv1, uint8_t* arg0,
                        int d0, int x0) {
   const int t = s.t, cells = t * t, hs = t >> 1, kn = d0 >> 1;
@@ -183,6 +195,10 @@ __device__ void level0(const Tile& s, float* invl, float* lv1, uint8_t* arg0,
         for (int r = 0; r < 4; ++r)
           c[r] = cell_cost<P, MAGBIN>(s, i, j, jg, d4 + r, il);
       }
+      if constexpr (BF16) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) c[r] = dm::round_bf16(c[r]);
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int k = (d4 >> 1) + h;
@@ -195,16 +211,24 @@ __device__ void level0(const Tile& s, float* invl, float* lv1, uint8_t* arg0,
           if (active) arg0[(k >> 2) * cells + cell] = (uint8_t)pack;
           pack = 0u;
         }
-        float m = pooled + __shfl_xor_sync(kFull, pooled, 1);
-        m = m + __shfl_xor_sync(kFull, m, 2);
-        if (active && sub == 0) lv1[k * hs * hs + q] = m * 0.25f;
+        if constexpr (BF16) {
+          float m = dm::round_bf16(
+              __fadd_rn(pooled, __shfl_xor_sync(kFull, pooled, 1)));
+          m = dm::round_bf16(__fadd_rn(m, __shfl_xor_sync(kFull, m, 2)));
+          if (active && sub == 0)
+            lv1[k * hs * hs + q] = dm::round_bf16(__fmul_rn(m, 0.25f));
+        } else {
+          float m = pooled + __shfl_xor_sync(kFull, pooled, 1);
+          m = m + __shfl_xor_sync(kFull, m, 2);
+          if (active && sub == 0) lv1[k * hs * hs + q] = m * 0.25f;
+        }
         prevc = od;
       }
     }
   }
 }
 
-template <int P, bool MAGBIN>
+template <int P, bool MAGBIN, bool BF16>
 __global__ void __launch_bounds__(dm::kThreads, MAGBIN ? 2 : 3)
 fused_kernel(const float* __restrict__ left, const float* __restrict__ right,
              const float* __restrict__ lbin, const float* __restrict__ rbin,
@@ -246,12 +270,12 @@ fused_kernel(const float* __restrict__ left, const float* __restrict__ right,
   __syncthreads();
   window_norms(s, invr, f.right);
   __syncthreads();
-  level0<P, MAGBIN>(s, invl, lv, arg0, d0, x0);
+  level0<P, MAGBIN, BF16>(s, invl, lv, arg0, d0, x0);
   __syncthreads();
 
   const int hs = t >> 1;
-  const float* top = dm::pyramid_up<true>(lv, lv + f.kn * hs * hs, args, d0,
-                                          t, 1, levels, lam);
+  const float* top = dm::pyramid_up<true, BF16>(lv, lv + f.kn * hs * hs, args,
+                                                d0, t, 1, levels, lam);
   int32_t* dst = disp + (size_t)n * h0 * w0;
   float* sco = score + (size_t)n * h0 * w0;
   for (int cell = threadIdx.x; cell < t * t; cell += blockDim.x) {
@@ -261,68 +285,92 @@ fused_kernel(const float* __restrict__ left, const float* __restrict__ right,
     k = 2 * k + code - 1;
     const size_t o = (size_t)(y0 + y) * w0 + (x0 + x);
     dst[o] = k;
-    sco[o] = cell_cost<P, MAGBIN>(s, y, x, x0 + x, k, invl[cell]);
+    if constexpr (BF16) {
+      sco[o] = dm::round_bf16(
+          cell_cost<P, MAGBIN>(s, y, x, x0 + x, k, invl[cell]));
+    } else {
+      sco[o] = cell_cost<P, MAGBIN>(s, y, x, x0 + x, k, invl[cell]);
+    }
   }
 }
 
-template <int P, bool MAGBIN>
+template <int P, bool MAGBIN, bool BF16>
 SmemAllowance& allowance() {
-  static SmemAllowance a((const void*)fused_kernel<P, MAGBIN>);
+  static SmemAllowance a((const void*)fused_kernel<P, MAGBIN, BF16>);
   return a;
 }
 
-template <int P, bool MAGBIN>
+template <int P, bool MAGBIN, bool BF16>
 int launch(const float* left, const float* right, const float* lbin,
            const float* rbin, int32_t* disp, float* score, int n, int hp,
            int wp, int p, int d0, int max_d, int levels, float lam,
            cudaStream_t stream) {
   const FusedLayout f = fused_layout(p, d0, max_d, levels, MAGBIN);
-  const cudaError_t err = allowance<P, MAGBIN>().allow(f.total);
+  const cudaError_t err = allowance<P, MAGBIN, BF16>().allow(f.total);
   if (err != cudaSuccess) return (int)err;
   const int h0 = hp / p, w0 = wp / p;
   const dim3 grid((h0 / f.t) * (w0 / f.t), n);
-  fused_kernel<P, MAGBIN><<<grid, dm::kThreads, f.total, stream>>>(
+  fused_kernel<P, MAGBIN, BF16><<<grid, dm::kThreads, f.total, stream>>>(
       left, right, lbin, rbin, disp, score, hp, wp, p, d0, max_d, levels,
       lam);
   return (int)cudaGetLastError();
 }
 
-template <int P, bool MAGBIN>
+template <int P, bool MAGBIN, bool BF16>
 int occupancy(int smem) {
-  return blocks_per_sm(allowance<P, MAGBIN>(),
-                       (const void*)fused_kernel<P, MAGBIN>, dm::kThreads,
-                       smem);
+  return blocks_per_sm(allowance<P, MAGBIN, BF16>(),
+                       (const void*)fused_kernel<P, MAGBIN, BF16>,
+                       dm::kThreads, smem);
 }
 
 }  // namespace
 
-// lbin/rbin null: patch form (K1); else magbin form (K1b), left/right
-// being the magnitude planes.
+// lbin/rbin null: patch form (K1, bf16 != 0: its bfloat16 instance); else
+// magbin form (K1b, float32 only), left/right being the magnitude planes.
 extern "C" int dm_fused_match(const float* left, const float* right,
                               const float* lbin, const float* rbin,
                               int32_t* disp, float* score, int n, int hp,
                               int wp, int p, int d0, int max_d, int levels,
-                              float lam, void* stream) {
+                              float lam, int bf16, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (lbin != nullptr) {
-    return p == 4 ? launch<4, true>(left, right, lbin, rbin, disp, score, n,
-                                    hp, wp, p, d0, max_d, levels, lam, st)
-                  : launch<0, true>(left, right, lbin, rbin, disp, score, n,
-                                    hp, wp, p, d0, max_d, levels, lam, st);
+    if (bf16) return (int)cudaErrorNotSupported;
+    return p == 4 ? launch<4, true, false>(left, right, lbin, rbin, disp,
+                                           score, n, hp, wp, p, d0, max_d,
+                                           levels, lam, st)
+                  : launch<0, true, false>(left, right, lbin, rbin, disp,
+                                           score, n, hp, wp, p, d0, max_d,
+                                           levels, lam, st);
   }
-  return p == 4 ? launch<4, false>(left, right, nullptr, nullptr, disp, score,
-                                   n, hp, wp, p, d0, max_d, levels, lam, st)
-                : launch<0, false>(left, right, nullptr, nullptr, disp, score,
-                                   n, hp, wp, p, d0, max_d, levels, lam, st);
+  if (bf16) {
+    return p == 4 ? launch<4, false, true>(left, right, nullptr, nullptr,
+                                           disp, score, n, hp, wp, p, d0,
+                                           max_d, levels, lam, st)
+                  : launch<0, false, true>(left, right, nullptr, nullptr,
+                                           disp, score, n, hp, wp, p, d0,
+                                           max_d, levels, lam, st);
+  }
+  return p == 4 ? launch<4, false, false>(left, right, nullptr, nullptr, disp,
+                                          score, n, hp, wp, p, d0, max_d,
+                                          levels, lam, st)
+                : launch<0, false, false>(left, right, nullptr, nullptr, disp,
+                                          score, n, hp, wp, p, d0, max_d,
+                                          levels, lam, st);
 }
 
-// Blocks of the kernel that serves (p, magbin) one SM holds at this
+// Blocks of the kernel that serves (p, magbin, bf16) one SM holds at this
 // configuration's shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
 // negative: a CUDA error.
 extern "C" int dm_fused_blocks_per_sm(int p, int d0, int max_d, int levels,
-                                      int magbin) {
+                                      int magbin, int bf16) {
   const int smem = dm_fused_smem(p, d0, max_d, levels, magbin);
-  if (magbin) return p == 4 ? occupancy<4, true>(smem)
-                            : occupancy<0, true>(smem);
-  return p == 4 ? occupancy<4, false>(smem) : occupancy<0, false>(smem);
+  if (magbin) {
+    if (bf16) return -(int)cudaErrorNotSupported;
+    return p == 4 ? occupancy<4, true, false>(smem)
+                  : occupancy<0, true, false>(smem);
+  }
+  if (bf16) return p == 4 ? occupancy<4, false, true>(smem)
+                          : occupancy<0, false, true>(smem);
+  return p == 4 ? occupancy<4, false, false>(smem)
+                : occupancy<0, false, false>(smem);
 }

@@ -20,14 +20,32 @@
 //     from its staged pixels).
 // A tile of T = 2^levels patches holds whole quadtrees, so no merge
 // crosses a tile and blocks need nothing from each other.
+// BF16 (K1's bfloat16 instance): the maps stay floats, each holding a
+// bfloat16 value: every add, the * 0.25 and every power round their
+// result to bfloat16 (round_bf16), as torch and XLA do per op on bfloat16
+// tensors; comparisons read the exact widenings.  lam is used as given
+// (the caller passes the exponent JAX uses).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace dm {
 
 constexpr int kThreads = 256;
+
+// x rounded to the nearest bfloat16 (ties to even), held as a float.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// ((q0 + q1) + (q2 + q3)) * 0.25 with every result rounded to bfloat16.
+__device__ __forceinline__ float quad_mean_bf16(const float (&q)[4]) {
+  const float a = round_bf16(__fadd_rn(q[0], q[1]));
+  const float b = round_bf16(__fadd_rn(q[2], q[3]));
+  return round_bf16(__fmul_rn(round_bf16(__fadd_rn(a, b)), 0.25f));
+}
 
 // Floats of pyramid levels 1..levels (level 0 is the cost tile itself).
 __host__ __device__ inline int level_floats(int d0, int t, int levels) {
@@ -48,7 +66,7 @@ __host__ __device__ inline int arg_bytes(int d0, int t, int levels) {
 // `out` and the next, its pool offsets to `arg` and on.  Returns the top
 // map ((d0 >> levels) bins of one spatial cell).  Every level ends with
 // a barrier.
-template <bool FAST>
+template <bool FAST, bool BF16 = false>
 __device__ const float* pyramid_up(const float* cur, float* out, int8_t* arg,
                                    int d0, int t, int first, int levels,
                                    float lam) {
@@ -70,12 +88,21 @@ __device__ const float* pyramid_up(const float* cur, float* out, int8_t* arg,
           const float od = cur[(2 * k + 1) * plane + c];
           float pooled = fmaxf(fmaxf(lo, ev), od);
           arg[k * plane + c] = pooled == lo ? -1 : (pooled == ev ? 0 : 1);
-          if (FAST && l > 0) pooled = powf(pooled, lam);
+          if constexpr (BF16) {
+            if (FAST && l > 0) pooled = round_bf16(powf(pooled, lam));
+          } else {
+            if (FAST && l > 0) pooled = powf(pooled, lam);
+          }
           q[2 * u + v] = pooled;
         }
       }
-      const float m = ((q[0] + q[1]) + (q[2] + q[3])) * 0.25f;
-      out[k * oplane + rem] = FAST ? m : powf(m, lam);
+      if constexpr (BF16) {
+        const float m = quad_mean_bf16(q);
+        out[k * oplane + rem] = FAST ? m : round_bf16(powf(m, lam));
+      } else {
+        const float m = ((q[0] + q[1]) + (q[2] + q[3])) * 0.25f;
+        out[k * oplane + rem] = FAST ? m : powf(m, lam);
+      }
     }
     __syncthreads();
     arg += kn * plane;

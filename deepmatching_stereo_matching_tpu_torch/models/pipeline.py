@@ -20,8 +20,14 @@ lr_mode='direct' matches right->left on shared descriptors with +d
 targets (K2 with reverse=True), so 'fused' takes the 'exact' route there,
 as in JAX.  The post-filter runs on the cropped outputs
 (`apply_postfilter`).  Centred descriptors take the descriptor route
-(K2 -> K3) on 'fused', as in JAX.  bfloat16 raises NotImplementedError:
-the port is float32 only.
+(K2 -> K3) on 'fused', as in JAX.
+
+Config.dtype='bfloat16' (the JAX package's bf16 mode; outputs stay
+float32) runs on 'torch' (descriptors rounded to bfloat16 first, products
+summed in float32, then a bfloat16 pyramid: JAX's 'jnp' path) and on
+'fused' through K1 or K4 -> K5 (the float32 cost rounded once:
+ops/fused_cuda.py).  Every other bf16 path raises NotImplementedError
+naming what is not ported yet (`check_supported`); none runs in float32.
 """
 
 from __future__ import annotations
@@ -36,17 +42,40 @@ from ..ops import costvol as costvol_ops
 from ..ops import costvol_cuda, fused_cuda, pyramid_cuda
 from ..ops import pool as pool_ops
 from ..ops import postfilter as postfilter_ops
-from ..ops._dispatch import check_route
+from ..ops._dispatch import check_route, map_dtype
 from ..ops.pyramid_cuda import descend as backtrack_from
 from . import descriptors
 
 _SENTINEL = torch.iinfo(torch.int32).min // 2
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for what this port does not cover."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(f"dtype={cfg.dtype!r}: the port is float32 only")
+def not_ported(cfg: Config, what: str) -> None:
+    """Raise NotImplementedError where `what` (a route, an option, a
+    strategy) would run cfg.dtype, which only float32 covers there."""
+    if map_dtype(cfg.dtype) != torch.float32:
+        raise NotImplementedError(f"dtype={cfg.dtype!r} {what}: not ported "
+                                  f"yet")
+
+
+def check_supported(cfg: Config, geom: Geometry, route: str) -> None:
+    """Raise NotImplementedError for what this port does not cover:
+    bfloat16 runs on 'torch', and on 'fused' where K1 or K4 covers the
+    configuration."""
+    if check_route(route) == "torch":
+        map_dtype(cfg.dtype)
+        return
+    if route == "exact":
+        not_ported(cfg, "on the 'exact' route (K2, K3)")
+    if cfg.descriptor == "grad_hist":
+        not_ported(cfg, "with grad_hist descriptors (K1b)")
+    if cfg.center_descriptors:
+        not_ported(cfg, "with centred descriptors")
+    if cfg.lr_check and cfg.lr_mode == "direct":
+        not_ported(cfg, "with lr_mode='direct'")
+    if not (fused_cuda.supported(cfg, geom)
+            or fused_cuda.cost_supported(cfg, geom)):
+        not_ported(cfg, f"on 'fused' at {geom}, which K1 and K4 do not "
+                        f"cover ('exact' route)")
 
 
 # ---------------------------------------------------------------------------
@@ -74,7 +103,7 @@ def backtrack(maps: List[torch.Tensor], args: List[torch.Tensor]
     k = torch.argmax(maps[len(args)], dim=-1)       # first max wins ties
     k = backtrack_from(k, args, dim=-1)
     score = torch.gather(maps[0], -1, k[..., None])[..., 0]
-    return k.to(torch.int32), score
+    return k.to(torch.int32), score.float()
 
 
 def match_dmajor(cost_dm: torch.Tensor, levels: int, lam: float,
@@ -97,10 +126,12 @@ def match_from_descriptors(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
                            cfg: Config, geom: Geometry, route: str,
                            reverse: bool = False, origin_offset: int = 0
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cost volume + pyramid + backtracking on prepared descriptors."""
+    """Cost volume + pyramid + backtracking on prepared descriptors; in
+    bfloat16 ('torch' only) the descriptors are rounded first."""
     if check_route(route) == "fused":
         route = "exact"     # descriptor-level callers cannot use K1
     if route == "exact":
+        not_ported(cfg, "on the 'exact' route (K2, K3)")
         cost_dm = costvol_cuda.cost_volume_dmajor(
             desc_src, desc_tgt, geom.disparities, cfg.patch_size,
             cfg.max_disparity, reverse=reverse, origin_offset=origin_offset)
@@ -108,8 +139,9 @@ def match_from_descriptors(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
             return pyramid_cuda.pyramid_backtrack(cost_dm, geom.levels,
                                                   cfg.lam)
         return match_dmajor(cost_dm, geom.levels, cfg.lam)
+    dt = map_dtype(cfg.dtype)
     cost0 = costvol_ops.cost_volume(
-        desc_src, desc_tgt, geom.disparities, cfg.patch_size,
+        desc_src.to(dt), desc_tgt.to(dt), geom.disparities, cfg.patch_size,
         cfg.max_disparity, reverse=reverse, origin_offset=origin_offset)
     maps, args = build_pyramid(cost0, geom.levels, cfg.lam)
     return backtrack(maps, args)
@@ -260,7 +292,7 @@ def match_padded_core(left_p: torch.Tensor, right_p: torch.Tensor,
     image's patch and sliding descriptors once and runs
     `match_from_descriptors` both ways ('fused' becomes 'exact' there).
     """
-    check_supported(cfg)
+    check_supported(cfg, geom, route)
     if cfg.lr_check and cfg.lr_mode == "direct":
         def match(srcs, tgts, reverse):
             return match_from_descriptors(

@@ -41,10 +41,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # p, d0, max_d, levels, magbin
     "dm_fused_smem": [_I, _I, _I, _I, _I],
-    "dm_fused_blocks_per_sm": [_I, _I, _I, _I, _I],
+    # p, d0, max_d, levels, magbin, bf16
+    "dm_fused_blocks_per_sm": [_I, _I, _I, _I, _I, _I],
     # p, max_d
     "dm_cost_rows_smem": [_I, _I],
-    "dm_cost_rows_blocks_per_sm": [_I, _I],
+    # p, max_d, bf16
+    "dm_cost_rows_blocks_per_sm": [_I, _I, _I],
     # d0, levels
     "dm_pyramid_smem": [_I, _I],
     "dm_pyramid_blocks_per_sm": [_I, _I],
@@ -60,13 +62,13 @@ _SIGNATURES = {
     # cost, disp, score, n, d0, h0, w0, levels, lam, stream
     "dm_pyramid_backtrack": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # left, right, lbin, rbin, disp, score, n, hp, wp, p, d0, max_d, levels,
-    # lam, stream
+    # lam, bf16, stream
     "dm_fused_match": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                       _P],
-    # left, right, out, n, hp, wp, p, d0, max_d, stream
-    "dm_cost_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # cur, next, arg, n, d, h, w, pow_pooled, pow_merged, lam, stream
-    "dm_aggregate_level": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+                       _I, _P],
+    # left, right, out, n, hp, wp, p, d0, max_d, bf16, stream
+    "dm_cost_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # cur, next, arg, n, d, h, w, pow_pooled, pow_merged, lam, bf16, stream
+    "dm_aggregate_level": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # a, out, inner, copies, stream (P1, P2, P3)
     "dm_probe_stream": [_P, _P, _I, _I, _P],
     "dm_probe_small": [_P, _P, _I, _I, _P],

@@ -15,6 +15,8 @@ import threading
 import torch
 
 ROUTES = ("fused", "exact", "torch")
+# Config.dtype -> the dtype of the cost volume and the pyramid's maps.
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 _state = threading.local()
 
@@ -28,6 +30,14 @@ def check_route(name: str) -> str:
     if name not in ROUTES:
         raise ValueError(f"unknown route {name!r}; expected one of {ROUTES}")
     return name
+
+
+def map_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a `Config.dtype`."""
+    if name not in DTYPES:
+        raise NotImplementedError(f"dtype={name!r}: the port runs "
+                                  f"{' and '.join(DTYPES)}")
+    return DTYPES[name]
 
 
 @contextlib.contextmanager

@@ -26,8 +26,13 @@ def cost_volume(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
     Args:
       desc_src: (..., H0, W0, C) normalised source patch descriptors.
       desc_tgt: (..., H0, Wt, C) target sliding descriptors.
-    Returns: (..., H0, W0, disparities) float32.
+    Returns: (..., H0, W0, disparities) in the descriptors' dtype.  In
+    bfloat16 the products of the exact float32 widenings (exact) are
+    summed in float32 and the relu'd sum is rounded once, as JAX's
+    einsum with preferred_element_type=float32 does.
     """
+    dt = desc_src.dtype
+    src, tgt_all = desc_src.float(), desc_tgt.float()
     w0 = desc_src.shape[-2]
     wt = desc_tgt.shape[-2]
     dev = desc_src.device
@@ -36,8 +41,8 @@ def cost_volume(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
     for d in range(d_offset, d_offset + disparities):
         x0 = xs + d if reverse else xs - d
         valid = (x0 >= 0) & (x0 < wt) & (d < max_disparity)
-        tgt = desc_tgt.index_select(-2, x0.clamp(0, wt - 1))
-        corr = (desc_src * tgt).sum(-1).clamp_min(0.0)
+        tgt = tgt_all.index_select(-2, x0.clamp(0, wt - 1))
+        corr = (src * tgt).sum(-1).clamp_min(0.0).to(dt)
         planes.append(torch.where(valid, corr, torch.zeros_like(corr)))
     return torch.stack(planes, dim=-1)
 

@@ -11,6 +11,17 @@ split-bf16 scheme were workarounds for Mosaic and the MXU, so
 pixels directly in f32.  K1/K1b and K4 compile one cost block,
 csrc/cost.cuh (K4's volume is K1's bitwise witness); what bounds each on
 the card: see the notes at the top of the .cu files.
+
+Config.dtype='bfloat16' (patch form only: K1 and K4): the pixels stay
+float32 and the float32 cost is rounded to bfloat16 once, after the relu
+and the mask (fused_pallas.py:_cost_block's `c.astype(dtype)`).  K4 then
+stores a bfloat16 volume, bitwise its float32 volume rounded; K1 pools
+the rounded costs through a pyramid whose maps are rounded after each op
+(pyramid_cuda's plain versions define the rounding), with its fast
+rectification in float32 at lam as given, and returns the rounded score
+widened to float32.  Both keep the float32 layouts: K1's levels are
+floats that hold bfloat16 values, so the shared-memory mirrors hold for
+either dtype.
 """
 
 from __future__ import annotations
@@ -24,7 +35,7 @@ from ..config import Config, Geometry
 
 from ..models import descriptors
 from . import _build
-from ._dispatch import run_kernel
+from ._dispatch import map_dtype, run_kernel
 from .pyramid_cuda import (MAX_SMEM, arg_bytes, level_floats, pyramid_body,
                            scratch_bytes)
 
@@ -115,11 +126,11 @@ def cost_smem_bytes(p: int, max_d: int) -> int:
     return _cost_layout_bytes(p, max_d, cost_tile_rows(p, max_d))
 
 
-def cost_blocks_per_sm(p: int, max_d: int) -> int:
-    """Blocks of K4 that one SM of the current card holds at (p, max_d)
-    (CUDA's occupancy calculator, through `dm_cost_rows_blocks_per_sm`).
-    Needs the card."""
-    n = _build.library().dm_cost_rows_blocks_per_sm(p, max_d)
+def cost_blocks_per_sm(p: int, max_d: int, bf16: bool = False) -> int:
+    """Blocks of K4 (its float32 or bfloat16 instance) that one SM of the
+    current card holds at (p, max_d) (CUDA's occupancy calculator, through
+    `dm_cost_rows_blocks_per_sm`).  Needs the card."""
+    n = _build.library().dm_cost_rows_blocks_per_sm(p, max_d, int(bf16))
     if n < 0:
         _build.check(-n, "cost-volume rows kernel occupancy")
     return n
@@ -130,11 +141,12 @@ def _magbin(cfg: Config) -> bool:
 
 
 def supported(cfg: Config, geom: Geometry) -> bool:
-    """True when K1 (patch) or K1b (grad_hist) covers this configuration:
-    not centred, float32, a patch grid and D0 aligned to the 2^L
-    quadtree tile, and `route_bytes` (which bounds `smem_bytes`) inside
-    one block's shared memory — the KITTI large-D geometry is not."""
-    if cfg.center_descriptors or cfg.dtype != "float32":
+    """True when K1 (patch, float32 or bfloat16) or K1b (grad_hist,
+    float32) covers this configuration: not centred, a patch grid and D0
+    aligned to the 2^L quadtree tile, and `route_bytes` (which bounds
+    `smem_bytes`) inside one block's shared memory — the KITTI large-D
+    geometry is not."""
+    if cfg.center_descriptors or (cfg.dtype != "float32" and _magbin(cfg)):
         return False
     unit = 2 ** geom.levels
     if geom.grid_h % unit or geom.grid_w % unit or geom.disparities % unit:
@@ -145,12 +157,13 @@ def supported(cfg: Config, geom: Geometry) -> bool:
 
 
 def blocks_per_sm(cfg: Config, geom: Geometry) -> int:
-    """Blocks of K1 (patch) or K1b (grad_hist) that one SM of the current
-    card holds at this configuration (CUDA's occupancy calculator, through
-    `dm_fused_blocks_per_sm`).  Needs the card."""
+    """Blocks of K1 (patch, the instance of cfg.dtype) or K1b (grad_hist)
+    that one SM of the current card holds at this configuration (CUDA's
+    occupancy calculator, through `dm_fused_blocks_per_sm`).  Needs the
+    card."""
     n = _build.library().dm_fused_blocks_per_sm(
         cfg.patch_size, geom.disparities, cfg.max_disparity, geom.levels,
-        int(_magbin(cfg)))
+        int(_magbin(cfg)), int(_bf16(cfg)))
     if n < 0:
         _build.check(-n, "fused kernel occupancy")
     return n
@@ -158,10 +171,9 @@ def blocks_per_sm(cfg: Config, geom: Geometry) -> int:
 
 def cost_supported(cfg: Config, geom: Geometry) -> bool:
     """True when K4 covers this configuration: patch descriptors, not
-    centred, float32, and `cost_route_bytes` inside one block's shared
-    memory (any grid; ragged edges are masked)."""
+    centred, and `cost_route_bytes` inside one block's shared memory (any
+    grid; ragged edges are masked).  Either dtype."""
     return (cfg.descriptor == "patch" and not cfg.center_descriptors
-            and cfg.dtype == "float32"
             and cost_route_bytes(cfg.patch_size, cfg.max_disparity)
             <= MAX_SMEM)
 
@@ -211,11 +223,12 @@ def match_planes_torch(left: torch.Tensor, right: torch.Tensor, cfg: Config,
                        geom: Geometry, left_bin: Optional[torch.Tensor] = None,
                        right_bin: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K1/K1b: the cost volume above through the fast
-    pyramid (deferred power rectification)."""
-    return pyramid_body(cost_volume_torch(left, right, cfg, geom, left_bin,
-                                          right_bin),
-                        geom.levels, cfg.lam, fast=True)
+    """Plain version of K1/K1b: the cost volume above, rounded to
+    cfg.dtype, through the fast pyramid (deferred power rectification,
+    lam in float32)."""
+    cost = cost_volume_torch(left, right, cfg, geom, left_bin, right_bin)
+    return pyramid_body(cost.to(map_dtype(cfg.dtype)), geom.levels, cfg.lam,
+                        fast=True)
 
 
 def _check_pair(left: torch.Tensor, right: torch.Tensor,
@@ -229,9 +242,19 @@ def _check_pair(left: torch.Tensor, right: torch.Tensor,
                          f"{(geom.padded_height, geom.padded_width)}")
 
 
-def _check_f32(*tensors: torch.Tensor) -> None:
+def _bf16(cfg: Config) -> bool:
+    return map_dtype(cfg.dtype) == torch.bfloat16
+
+
+def _check_planes(cfg: Config, *tensors: torch.Tensor) -> None:
+    """The kernels take float32 planes; their bfloat16 instances are the
+    patch form's (K1, K4)."""
     if any(t.dtype != torch.float32 for t in tensors):
         raise NotImplementedError("the fused kernels take float32 planes")
+    if _bf16(cfg) and _magbin(cfg):
+        raise NotImplementedError(
+            "dtype='bfloat16' with grad_hist descriptors (K1b): not ported "
+            "yet")
 
 
 def match_planes(left: torch.Tensor, right: torch.Tensor, cfg: Config,
@@ -240,8 +263,9 @@ def match_planes(left: torch.Tensor, right: torch.Tensor, cfg: Config,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., Hp, Wp) f32 padded planes -> (disp int32, score f32),
     (..., H0, W0), one pair-direction per leading index: K1 on pixel
-    pairs (patch), K1b on (magnitude, bin) pairs (grad_hist; the bins
-    are integers 0..7 held as f32, and K1b stages them as bytes)."""
+    pairs (patch; its bfloat16 instance where cfg.dtype says so), K1b on
+    (magnitude, bin) pairs (grad_hist; the bins are integers 0..7 held as
+    f32, and K1b stages them as bytes)."""
     p = cfg.patch_size
     *lead, hp, wp = left.shape
     planes = [x for x in (left, right, left_bin, right_bin) if x is not None]
@@ -254,10 +278,10 @@ def match_planes(left: torch.Tensor, right: torch.Tensor, cfg: Config,
     if not run_kernel(*planes):
         return match_planes_torch(left, right, cfg, geom, left_bin,
                                   right_bin)
+    _check_planes(cfg, *planes)
     if not supported(cfg, geom):
         raise NotImplementedError(
             f"the fused kernel does not cover {cfg} at {geom}")
-    _check_f32(*planes)
     n = math.prod(lead)
     lval, rval, lbin, rbin = (x.contiguous() if x is not None else None
                               for x in (left, right, left_bin, right_bin))
@@ -273,16 +297,19 @@ def match_planes(left: torch.Tensor, right: torch.Tensor, cfg: Config,
             rbin.data_ptr() if rbin is not None else None,
             disp.data_ptr(), score.data_ptr(), n, hp, wp, p,
             geom.disparities, cfg.max_disparity, geom.levels, cfg.lam,
-            stream)
+            int(_bf16(cfg)), stream)
         _build.check(rc, "fused kernel launch")
         if lbin is not None:
             match_planes.magbin_launches += 1
+        elif _bf16(cfg):
+            match_planes.bf16_launches += 1
         else:
             match_planes.launches += 1
     return disp, score
 
 
 match_planes.launches = 0          # K1, patch form
+match_planes.bf16_launches = 0     # K1, patch form in bfloat16
 match_planes.magbin_launches = 0   # K1b, magbin form
 
 
@@ -301,30 +328,36 @@ def match_rows(left_p: torch.Tensor, right_p: torch.Tensor, cfg: Config,
 
 def cost_volume_rows(left_p: torch.Tensor, right_p: torch.Tensor,
                      cfg: Config, geom: Geometry) -> torch.Tensor:
-    """(..., Hp, Wp) f32 padded pixel pairs -> (..., D0, H0, W0) f32
-    D-major cost volume through K4 (patch descriptors)."""
+    """(..., Hp, Wp) f32 padded pixel pairs -> (..., D0, H0, W0) D-major
+    cost volume in cfg.dtype through K4 (patch descriptors); in bfloat16
+    it is the float32 volume rounded."""
     p, d0 = cfg.patch_size, geom.disparities
     *lead, hp, wp = left_p.shape
     _check_pair(left_p, right_p, geom)
+    dtype = map_dtype(cfg.dtype)
     if not run_kernel(left_p, right_p):
-        return cost_volume_torch(left_p, right_p, cfg, geom)
+        return cost_volume_torch(left_p, right_p, cfg, geom).to(dtype)
+    _check_planes(cfg, left_p, right_p)
     if not cost_supported(cfg, geom):
         raise NotImplementedError(
             f"the cost-volume kernel does not cover {cfg} at {geom}")
-    _check_f32(left_p, right_p)
     n = math.prod(lead)
     left = left_p.contiguous()
     right = right_p.contiguous()
-    out = torch.empty((*lead, d0, hp // p, wp // p), dtype=torch.float32,
+    out = torch.empty((*lead, d0, hp // p, wp // p), dtype=dtype,
                       device=left.device)
     if out.numel():
         stream = torch.cuda.current_stream(left.device).cuda_stream
         rc = _build.library().dm_cost_rows(
             left.data_ptr(), right.data_ptr(), out.data_ptr(), n, hp, wp, p,
-            d0, cfg.max_disparity, stream)
+            d0, cfg.max_disparity, int(_bf16(cfg)), stream)
         _build.check(rc, "cost-volume rows kernel launch")
-        cost_volume_rows.launches += 1
+        if _bf16(cfg):
+            cost_volume_rows.bf16_launches += 1
+        else:
+            cost_volume_rows.launches += 1
     return out
 
 
-cost_volume_rows.launches = 0
+cost_volume_rows.launches = 0        # K4, float32 volume
+cost_volume_rows.bf16_launches = 0   # K4, bfloat16 volume

@@ -7,13 +7,39 @@ D-major (..., D, H, W) layouts.  Same -1.0 pool pad, same lo/even/odd tie
 order and same ((q00 + q01) + (q10 + q11)) * 0.25 summation order, so the
 pools are bitwise equal to the oracle's; x**lam goes through `torch.pow`,
 which rounds like `np.power` only to ~2 ULP.
+
+On bfloat16 maps every op rounds its result to bfloat16 (torch eager, as
+XLA does on the JAX side), and the power follows `rectify` with the
+exponent of `map_lam`.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def map_lam(lam: float, dtype: torch.dtype) -> float:
+    """`lam` as the JAX package holds it for maps of `dtype`
+    (`jnp.asarray(lam, dt)`): rounded to bfloat16 on bfloat16 maps (1.4
+    becomes 1.3984375), unchanged on float32 maps.  Cached: a kernel
+    wrapper asks for it on every call, and a tensor costs host time."""
+    if dtype == torch.float32:
+        return lam
+    return float(torch.tensor(lam, dtype=dtype))
+
+
+def rectify(x: torch.Tensor, lam: float) -> torch.Tensor:
+    """x**lam with the exponent exactly as given.  On bfloat16 maps, the
+    power of the exact float32 widening rounded once to bfloat16:
+    `torch.pow` on a bfloat16 tensor would round a scalar exponent to
+    bfloat16 by itself, which K1's fast rectification must not."""
+    if x.dtype == torch.float32:
+        return torch.pow(x, lam)
+    return torch.pow(x.float(), lam).to(x.dtype)
 
 
 def _pool(lo_first: torch.Tensor, even: torch.Tensor, odd: torch.Tensor,
@@ -68,10 +94,11 @@ def quad_mean(sub: torch.Tensor, h_dim: int) -> torch.Tensor:
 
 
 def aggregate_children(sub: torch.Tensor, lam: float) -> torch.Tensor:
-    """(..., H, W, K) -> (..., H/2, W/2, K): 4-child mean, then x**lam."""
-    return torch.pow(quad_mean(sub, -3), lam)
+    """(..., H, W, K) -> (..., H/2, W/2, K): 4-child mean, then x**lam
+    (lam rounded to the maps' dtype, as in JAX)."""
+    return rectify(quad_mean(sub, -3), map_lam(lam, sub.dtype))
 
 
 def aggregate_children_dmajor(sub: torch.Tensor, lam: float) -> torch.Tensor:
     """`aggregate_children` on the D-major (..., K, H, W) layout."""
-    return torch.pow(quad_mean(sub, -2), lam)
+    return rectify(quad_mean(sub, -2), map_lam(lam, sub.dtype))

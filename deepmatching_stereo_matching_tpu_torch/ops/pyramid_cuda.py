@@ -12,6 +12,12 @@ memory.  What bounds each on the card: see the notes at the top of the
 
 The plain versions share one definition of the pool, the merge
 (`aggregate_dmajor_torch`) and the descent (`descend`, `backtrack_top`).
+
+bfloat16 volumes (K5 only; K3 takes float32): every map is rounded to
+bfloat16 after each op, the offsets stay int8, scores are widened to
+float32, and the exponent is rounded to bfloat16 as the JAX package's
+`jnp.asarray(lam, dt)` does (`pool.map_lam`), except in K1's fast
+rectification (`pyramid_body(fast=True)`), which JAX runs in float32.
 """
 
 from __future__ import annotations
@@ -83,25 +89,29 @@ def blocks_per_sm(d0: int, levels: int) -> int:
 
 
 def aggregate_dmajor_torch(cost: torch.Tensor, levels: int, lam: float,
-                           fast: bool = False
+                           fast: bool = False, round_lam: bool = True
                            ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """Plain K5: (..., D0, H0, W0) -> (top, args).
+    """Plain K5: (..., D0, H0, W0) -> (top, args), in the volume's dtype.
 
     top is the (..., D0>>L, H0>>L, W0>>L) map; args[l] the int8 pool
     offsets (..., D0>>(l+1), H0>>l, W0>>l).  fast=False rectifies after
     every merge (the exact path); fast=True defers each level's x**lam
     past the next level's pool and skips it at the top (max commutes
     with the monotone power, so the winners are the same).
+    round_lam=False keeps lam in float32 on bfloat16 maps (K1's fast
+    rectification); K5 rounds it.
     """
+    if round_lam:
+        lam = pool.map_lam(lam, cost.dtype)
     args = []
     cur = cost
     for lvl in range(levels):
         pooled, arg = pool.pool3_subsample_dmajor(cur)
         args.append(arg)
         if fast and lvl > 0:
-            pooled = torch.pow(pooled, lam)
+            pooled = pool.rectify(pooled, lam)
         merged = pool.quad_mean(pooled, -2)
-        cur = merged if fast else torch.pow(merged, lam)
+        cur = merged if fast else pool.rectify(merged, lam)
     return cur, args
 
 
@@ -124,17 +134,19 @@ def backtrack_top(cost: torch.Tensor, top: torch.Tensor,
                   args: List[torch.Tensor]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """First-max argmax over the top map, the descent, and the level-0
-    score gather: -> (disp int32, score f32), (..., H0, W0)."""
+    score gather, widened to float32: -> (disp int32, score f32),
+    (..., H0, W0)."""
     k = descend(torch.argmax(top, dim=-3), args)   # first max wins ties
     score = torch.gather(cost, -3, k.unsqueeze(-3)).squeeze(-3)
-    return k.to(torch.int32), score
+    return k.to(torch.int32), score.float()
 
 
 def pyramid_body(cost: torch.Tensor, levels: int, lam: float,
                  fast: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain K3: (..., D0, H0, W0) -> (disp int32, score f32), (..., H0, W0)."""
-    return backtrack_top(cost, *aggregate_dmajor_torch(cost, levels, lam,
-                                                       fast))
+    """Plain K3 (fast=False) and the pyramid of plain K1 (fast=True):
+    (..., D0, H0, W0) -> (disp int32, score f32), (..., H0, W0)."""
+    return backtrack_top(cost, *aggregate_dmajor_torch(
+        cost, levels, lam, fast, round_lam=not fast))
 
 
 def _check_aligned(d0: int, h0: int, w0: int, levels: int) -> None:
@@ -144,9 +156,12 @@ def _check_aligned(d0: int, h0: int, w0: int, levels: int) -> None:
                          f"aligned to 2**levels={unit}")
 
 
-def _check_f32(cost_dm: torch.Tensor, what: str) -> None:
-    if cost_dm.dtype != torch.float32:
-        raise NotImplementedError(f"the {what} kernel takes float32 only")
+def _check_dtype(cost_dm: torch.Tensor, what: str,
+                 dtypes: Tuple[torch.dtype, ...]) -> None:
+    if cost_dm.dtype not in dtypes:
+        raise NotImplementedError(
+            f"the {what} kernel takes {' or '.join(map(str, dtypes))}, not "
+            f"{cost_dm.dtype}")
 
 
 def pyramid_backtrack(cost_dm: torch.Tensor, levels: int, lam: float
@@ -161,7 +176,7 @@ def pyramid_backtrack(cost_dm: torch.Tensor, levels: int, lam: float
             f"pyramid kernel: a (D0={d0}, 2^{levels} x 2^{levels}) tile "
             f"routes by {route_bytes(d0, levels)} B of shared memory, more "
             f"than {MAX_SMEM}")
-    _check_f32(cost_dm, "pyramid")
+    _check_dtype(cost_dm, "pyramid", (torch.float32,))
     n = math.prod(lead)
     cost = cost_dm.contiguous()
     disp = torch.empty((*lead, h0, w0), dtype=torch.int32, device=cost.device)
@@ -183,18 +198,21 @@ pyramid_backtrack.launches = 0
 def aggregate_dmajor(cost_dm: torch.Tensor, levels: int, lam: float,
                      fast: bool = False
                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """(..., D0, H0, W0) f32 D-major volume -> (top, args) as
+    """(..., D0, H0, W0) f32 or bf16 D-major volume -> (top, args) as
     `aggregate_dmajor_torch`, through K5: one launch per level, every
-    level's map and offsets in device memory.  Any D0 and shape aligned
-    to 2**levels; no shared-memory limit."""
+    level's map and offsets in device memory, the maps in the volume's
+    dtype.  Any D0 and shape aligned to 2**levels; no shared-memory
+    limit."""
     *lead, d0, h0, w0 = cost_dm.shape
     _check_aligned(d0, h0, w0, levels)
     if not run_kernel(cost_dm):
         return aggregate_dmajor_torch(cost_dm, levels, lam, fast)
-    _check_f32(cost_dm, "aggregation")
+    _check_dtype(cost_dm, "aggregation", (torch.float32, torch.bfloat16))
+    bf16 = cost_dm.dtype == torch.bfloat16
+    lam = pool.map_lam(lam, cost_dm.dtype)
     n = math.prod(lead)
     cur = cost_dm.contiguous()
-    if cur.data_ptr() % 16:         # the kernel reads 8-byte child pairs
+    if cur.data_ptr() % 16:         # the kernel reads child pairs at once
         cur = cur.clone()
     dev = cur.device
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -202,18 +220,22 @@ def aggregate_dmajor(cost_dm: torch.Tensor, levels: int, lam: float,
     for lvl in range(levels):
         d, h, w = d0 >> lvl, h0 >> lvl, w0 >> lvl
         nxt = torch.empty((*lead, d // 2, h // 2, w // 2),
-                          dtype=torch.float32, device=dev)
+                          dtype=cost_dm.dtype, device=dev)
         arg = torch.empty((*lead, d // 2, h, w), dtype=torch.int8,
                           device=dev)
         if n:
             rc = _build.library().dm_aggregate_level(
                 cur.data_ptr(), nxt.data_ptr(), arg.data_ptr(), n, d, h, w,
-                int(fast and lvl > 0), int(not fast), lam, stream)
+                int(fast and lvl > 0), int(not fast), lam, int(bf16), stream)
             _build.check(rc, "aggregation kernel launch")
-            aggregate_dmajor.launches += 1
+            if bf16:
+                aggregate_dmajor.bf16_launches += 1
+            else:
+                aggregate_dmajor.launches += 1
         args.append(arg)
         cur = nxt
     return cur, args
 
 
-aggregate_dmajor.launches = 0
+aggregate_dmajor.launches = 0        # K5, float32 maps
+aggregate_dmajor.bf16_launches = 0   # K5, bfloat16 maps

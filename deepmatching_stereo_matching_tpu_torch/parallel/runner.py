@@ -28,6 +28,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..config import Config
+from ..models import pipeline
 from ..utils.logging import JsonlLogger
 from . import mesh as mesh_lib
 from . import sharded
@@ -155,6 +156,7 @@ def run_stream(pairs: Iterable[Tuple[np.ndarray, np.ndarray]],
       _match_fn: test hook replacing the sharded step (fault injection).
     Returns a StreamReport; emits per-batch JSONL metrics via `logger`.
     """
+    pipeline.not_ported(cfg, "on the stream runner")
     if mesh is None:
         mesh = mesh_lib.auto_mesh()
     log = logger or JsonlLogger()

@@ -246,6 +246,7 @@ def match_batch_sharded(lefts_p, rights_p, cfg: Config, height: int,
     on every rank; every rank returns the full (B, height, width)
     outputs.  `debug_checks` (ringd only) asserts that the winner maps
     are replicated over the model axis."""
+    pipeline.not_ported(cfg, f"on the sharded strategy {strategy!r}")
     if strategy == "tiled":
         return match_batch_tiled(lefts_p, rights_p, cfg, height, width,
                                  mesh, route)

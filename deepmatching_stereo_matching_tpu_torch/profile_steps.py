@@ -2,7 +2,8 @@
 
     python -m deepmatching_stereo_matching_tpu_torch.profile_steps \
         [--cells bench,grad_hist,kitti128,kitti256] [--routes fused,exact] \
-        [--steps 5] [--strategies tiled,dslab,ringd,wtiled,wtiled1]
+        [--steps 5] [--strategies tiled,dslab,ringd,wtiled,wtiled1] \
+        [--dtype float32,bfloat16]
     python deepmatching_stereo_matching_tpu_torch/profile_steps.py --k1 \
         [--root CHECKOUT]
     python deepmatching_stereo_matching_tpu_torch/profile_steps.py \
@@ -15,8 +16,10 @@ Cells (synthetic pairs made from seeds, `lr_mode="flip"`): bench
 grad_hist descriptors), kitti128 and kitti256 (1242x375 at D=128 x 8
 pairs and D=256 x 4 pairs, tools/bench_large.py's recipe).
 
-For each cell and route, `--steps` calls of `match_padded_core` run once
-unprofiled and once under torch.profiler; with `--strategies`, so do
+For each cell, dtype (`--dtype`, default float32; bfloat16 runs where the
+port covers it: 'fused' on bench and kitti*, else the cell is skipped
+with the reason) and route, `--steps` calls of `match_padded_core` run
+once unprofiled and once under torch.profiler; with `--strategies`, so do
 `parallel.match_batch_sharded` calls of each named sharded strategy on a
 world of one rank over NCCL (tiled on 'fused', the others on 'exact';
 wtiled1 is wtiled with merge_level 1).  Of the profiled steps it
@@ -53,7 +56,9 @@ equal.
 D=256 x 8 instances) and K3 (bench x 64) as --k1 does, hashes K4's volume
 and K3's (disparity, score) at every shape chip_smoke.py launches them
 (`rows_cases`, inputs made on the card from seeds), and hashes the SASS
-of each fused_kernel instance (K1/K1b compile the cost block K4 shares),
+of each fused_kernel instance (K1/K1b compile the cost block K4 shares;
+the float32 instances keep their keys, the bfloat16 ones are new keys and
+are listed, not compared),
 and on the small cases' planes runs K1 too, hashes its (disparity,
 score) and counts its scores that differ from K4's volume at its
 disparities: written to or compared with --hashes FILE as --costvol
@@ -86,7 +91,7 @@ STRATEGIES = {  # name -> (strategy, route, merge_level)
 }
 
 
-def _padded_pairs(cell):
+def _padded_pairs(cell, dtype="float32"):
     """(cfg, geom, left, right): the cell's padded pairs on the card."""
     import torch
     from deepmatching_stereo_matching_tpu_torch.config import Config
@@ -94,7 +99,7 @@ def _padded_pairs(cell):
     from deepmatching_stereo_matching_tpu_torch import api
 
     h, w, max_d, desc, n, block, seed0 = CELLS[cell]
-    cfg = Config(max_disparity=max_d, descriptor=desc)
+    cfg = Config(max_disparity=max_d, descriptor=desc, dtype=dtype)
     lefts, rights = [], []
     for s in range(seed0, seed0 + n):
         field = synthetic.block_disparity_field(
@@ -131,7 +136,7 @@ def _strategy_steps(cfg, geom, lp, rp, names):
         yield f"{name} [{route}]", step
 
 
-def profile_cells(cells, routes, steps, strategies=()):
+def profile_cells(cells, routes, steps, strategies=(), dtypes=("float32",)):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -151,12 +156,20 @@ def profile_cells(cells, routes, steps, strategies=()):
         torch.cuda.synchronize()
         return start.elapsed_time(end) / steps, enqueue * 1e3 / steps
 
-    for cell in cells:
-        cfg, geom, lp, rp = _padded_pairs(cell)
-        todo = [(f"[{route}]",
-                 lambda route=route: pipeline.match_padded_core(
-                     lp, rp, cfg, geom, route)) for route in routes]
-        todo += list(_strategy_steps(cfg, geom, lp, rp, strategies))
+    for cell, dtype in ((c, d) for c in cells for d in dtypes):
+        cfg, geom, lp, rp = _padded_pairs(cell, dtype)
+        todo = []
+        for route in routes:
+            try:
+                pipeline.check_supported(cfg, geom, route)
+            except NotImplementedError as e:
+                print(f"\n== {cell} [{route}] {dtype}: skipped: {e}")
+                continue
+            todo.append((f"[{route}] {dtype}",
+                         lambda route=route: pipeline.match_padded_core(
+                             lp, rp, cfg, geom, route)))
+        if dtype == "float32":
+            todo += list(_strategy_steps(cfg, geom, lp, rp, strategies))
         for label, step in todo:
             for _ in range(3):
                 step()
@@ -425,22 +438,25 @@ def rows_inputs(torch, kind, shape, seed, device="cuda"):
             .float() / 4)
 
 
-def rows_launch(kind, shape, inputs, name="", plain=False):
-    """K4's volume or K3's (disparity, score) for one case, through the
-    kernel's wrapper (or its plain version)."""
+def rows_launch(kind, shape, inputs, name="", plain=False, dtype="float32"):
+    """K4's volume (in `dtype`) or K3's (disparity, score) for one case,
+    through the kernel's wrapper (or its plain version)."""
     from deepmatching_stereo_matching_tpu_torch.config import Config, Geometry
+    import torch
+
     from deepmatching_stereo_matching_tpu_torch.ops import (fused_cuda,
                                                             pyramid_cuda)
 
     if kind == "K4":
         n, h0, w0, p, d0, max_d = shape
-        cfg = Config(max_disparity=max_d, patch_size=p)
+        cfg = Config(max_disparity=max_d, patch_size=p, dtype=dtype)
         geom = Geometry(height=p * h0, width=p * w0, levels=1,
                         padded_height=p * h0, padded_width=p * w0,
                         grid_h=h0, grid_w=w0, disparities=d0)
-        fn = (fused_cuda.cost_volume_torch if plain
-              else fused_cuda.cost_volume_rows)
-        return fn(*inputs, cfg, geom)
+        if plain:
+            return fused_cuda.cost_volume_torch(*inputs, cfg, geom).to(
+                getattr(torch, dtype))
+        return fused_cuda.cost_volume_rows(*inputs, cfg, geom)
     volume = inputs[1] if "ties" in name else inputs[0]
     if plain:
         return pyramid_cuda.pyramid_body(volume, shape[4], 1.4, fast=False)
@@ -496,8 +512,9 @@ def time_rows(hashes: Path):
             print("  " + line.strip())
     got = {}
     for fn, lines in (sass(so, "fused_kernel") or {}).items():
-        m = re.search(r"fused_kernelILi(\d+)ELb([01])E", fn)
-        got[f"SASS fused_kernel<{m.group(1)}, {m.group(2)}>"] = digest(
+        m = re.search(r"fused_kernelILi(\d+)ELb([01])E(?:Lb([01])E)?", fn)
+        bf16 = ", bf16" if m.group(3) == "1" else ""
+        got[f"SASS fused_kernel<{m.group(1)}, {m.group(2)}{bf16}>"] = digest(
             "\n".join(lines))
     print(f"fused_kernel SASS {_build.SRC_DIR}: "
           f"{ {k: v[:12] for k, v in got.items()} }", flush=True)
@@ -538,9 +555,11 @@ def time_rows(hashes: Path):
         np.savez(kept, **earlier)
         print(f"rows: {len(got)} hashes written to {hashes}")
         return 0
-    differ = sorted(k for k in got if want.get(k) != got[k])
-    print(f"rows: {len(got) - len(differ)} of {len(got)} hashes equal to "
-          f"{hashes}; differ: {differ}", flush=True)
+    new = sorted(k for k in got if k not in want)
+    differ = sorted(k for k in got if k in want and want[k] != got[k])
+    print(f"rows: {len(got) - len(new) - len(differ)} of "
+          f"{len(got) - len(new)} hashes equal to {hashes}; differ: "
+          f"{differ}; new, not compared: {new}", flush=True)
     return 1 if differ else 0
 
 
@@ -567,6 +586,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cells", default=",".join(CELLS))
     ap.add_argument("--routes", default="fused,exact")
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--dtype", default="float32",
+                    help="Config.dtype of the profiled steps: float32, "
+                         "bfloat16, or both comma-separated")
     ap.add_argument("--strategies", default="",
                     help=f"sharded strategies to profile too, of "
                          f"{','.join(STRATEGIES)}")
@@ -610,8 +632,9 @@ def main(argv=None) -> int:
     cells = args.cells.split(",")
     routes = [r for r in args.routes.split(",") if r]
     strategies = [s for s in args.strategies.split(",") if s]
+    dtypes = [d for d in args.dtype.split(",") if d]
     if not strategies:
-        profile_cells(cells, routes, args.steps)
+        profile_cells(cells, routes, args.steps, dtypes=dtypes)
         return 0
     import tempfile
 
@@ -623,7 +646,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as rdzv:
         launch.init("nccl", 0, 1, str(Path(rdzv) / "rendezvous"))
         try:
-            profile_cells(cells, routes, args.steps, strategies)
+            profile_cells(cells, routes, args.steps, strategies, dtypes)
         finally:
             dist.destroy_process_group()
     return 0

@@ -284,16 +284,47 @@ def test_formerly_uncovered_configs_match_jax(cfg, route):
                                    atol=2e-5)
 
 
-@pytest.mark.parametrize("cfg,height,width,match", [
-    (Config(max_disparity=16, dtype="bfloat16"), 64, 64, "float32"),
+BF16 = dict(max_disparity=16, dtype="bfloat16")
+
+
+@pytest.mark.parametrize("cfg,match", [
+    (Config(**BF16), "'exact' route"),
+    (Config(**BF16, descriptor="grad_hist"), "grad_hist"),
+    (Config(**BF16, center_descriptors=True), "centred"),
+    (Config(**BF16, lr_mode="direct"), "lr_mode='direct'"),
 ])
 @pytest.mark.parametrize("route", ["fused", "exact"])
-def test_uncovered_configs_raise(cfg, height, width, match, route):
+def test_uncovered_configs_raise(cfg, match, route):
+    """bfloat16 runs on 'fused' only through K1 or K4 -> K5; every other
+    path names what is not ported yet ('exact' first) and never runs in
+    float32."""
     pcfg = carry_over(cfg)
-    geom = pcfg.geometry(height, width)
+    geom = pcfg.geometry(64, 64)
     img = torch.zeros(1, geom.padded_height, geom.padded_width)
-    with pytest.raises(NotImplementedError, match=match):
+    if route == "fused" and match == "'exact' route":
+        out = pipeline.match_padded_core(img, img, pcfg, geom, route)
+        assert fused_cuda.supported(pcfg, geom)
+        assert out["score"].dtype == torch.float32
+        return
+    with pytest.raises(NotImplementedError,
+                       match=match if route == "fused" else "'exact' route"):
         pipeline.match_padded_core(img, img, pcfg, geom, route)
+
+
+def test_bf16_fused_runs_at_64x64():
+    """bf16 'fused' at 64x64, D=16 runs plain K1 and agrees with JAX's
+    bf16 'fused' and with the port's float32 decisions."""
+    cfg = Config(**BF16)
+    left, right, _ = synthetic_pair(2, 64, 64, 16)
+    got = api.match_stereo(left, right, carry_over(cfg), impl="fused",
+                           device="cpu")
+    want = japi.match_stereo(left, right, cfg, impl="fused")
+    f32 = api.match_stereo(left, right, carry_over(Config(max_disparity=16)),
+                           impl="fused", device="cpu")
+    assert got.disparity.dtype == got.score.dtype == np.float32
+    np.testing.assert_array_equal(got.disparity_raw, want.disparity_raw)
+    np.testing.assert_array_equal(got.valid, want.valid)
+    assert np.mean(got.disparity_raw == f32.disparity_raw) >= 0.98
 
 
 @pytest.mark.parametrize("path", ["large_d", "grad_hist"])
