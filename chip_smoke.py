@@ -7,12 +7,13 @@ Phases, each printing its own lines (any failure exits nonzero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds csrc/*.cu from this checkout, one process per
      source; ptxas reports each kernel's registers, shared memory, spills,
-     and the six fused_kernel instances (p = 4 and runtime p, patch and
-     magbin in float32, patch in bfloat16), the four costvol_kernel
-     instances (D-major and rows, 16-byte and 4-byte staging), the four
-     costrows_kernel instances (p = 4 and runtime p, float32 and bfloat16
-     volumes), pyramid_kernel and the two aggregate_level_kernel instances
-     (float32 and bfloat16 maps) must spill nothing;
+     and the eight fused_kernel instances (p = 4 and runtime p, patch and
+     magbin, float32 and bfloat16), the six costvol_kernel instances
+     (D-major and rows, 16-byte and 4-byte staging, in float32; D-major in
+     bfloat16), the four costrows_kernel instances (p = 4 and runtime p,
+     float32 and bfloat16 volumes), the two pyramid_kernel and the two
+     aggregate_level_kernel instances (float32 and bfloat16) must spill
+     nothing;
   3. kernel vs plain PyTorch version on the card, at full width:
      - bench shapes (450x375, D=64 -> padded 384x512, L=4, D0=64; 32
        pairs x 2 directions = 64 instances): cost volume (K2) atol 1e-6,
@@ -61,6 +62,19 @@ Phases, each printing its own lines (any failure exits nonzero):
        bitwise K4 bf16's volume at K1 bf16's disparities where p < 5; K1
        bf16 and K4 bf16 at least 2 blocks per SM, their shared memory per
        block (the float32 layouts) equal to fused_cuda's mirrors;
+     - the bfloat16 instances of the descriptor routes and of K1b: K2 bf16
+       at every D-major shape of `profile_steps.costvol_cases` (forward,
+       reverse, origin_offset, both staging forms) bitwise K2's float32
+       volume of the widened descriptors, rounded; beside it the float32
+       kernel's max |error| against plain on those widenings (the sum
+       before the rounding) and the share of bins that round alike with
+       plain bf16; at the bench (C=16) and grad_hist (C=128) shapes timed,
+       with its blocks per SM and a bf16 matmul yardstick; K6 refuses
+       bf16; K3 bf16 at every K3 shape of `rows_cases` and on the bench's
+       K2 bf16 volume: decisions and scores bitwise plain, and equal to K5
+       bf16 (exact) + `backtrack_top` on the same volume, timed at the
+       bench; K1b bf16 on the bench's 64 grad_hist instances and the small
+       tiles within K1 bf16's gates; each at least 2 blocks per SM;
      - each block's shared memory as the library computes it equals the
        mirror that fused_cuda's routing rules use (K1, K1b, K4);
      - the row-layout slab cost volume (K6) at KITTI D=256 (4 pairs x 2
@@ -91,20 +105,25 @@ Phases, each printing its own lines (any failure exits nonzero):
      flat windows centred to exact zeros as in the oracle); bfloat16
      ('fused') on bench pairs 100/101 (exactly K1 bf16) and on KITTI
      D=256 pair 7 (tools/bench_large.py's bf16 row: exactly K4 bf16, K5
-     bf16), each with kept bad rate - the oracle's <= 0.05 and
-     disparity_raw agreeing >= BF16_F32_AGREE with the port's float32 run
-     of the same route on pixels valid in both; bf16 on 'exact' raises
-     its NotImplementedError;
+     bf16), 'exact' bf16 on bench pairs 100/101 (exactly K2 bf16, K3 bf16)
+     and KITTI D=256 pair 7 (K2 bf16, K5 bf16), grad_hist bf16 on pairs
+     100/101 on 'fused' (K1b bf16) and 'exact' (K2 bf16, K3 bf16), each
+     with kept bad rate - the oracle's <= 0.05 and disparity_raw agreeing
+     >= BF16_F32_AGREE with the port's float32 run of the same route on
+     pixels valid in both; centred descriptors ('fused') and lr_mode
+     'direct' ('exact') in bf16 on bench pairs 100/101 and the adversarial
+     pairs (K2 bf16 with K3 bf16), decisions within the 0.5% gate of the
+     port's plain route on the CPU; a float16 config raises;
      `utils.checks.checked_match_padded` on pair
      100 ('fused': equal to the unchecked pipeline; raises naming the
      non-finite input on a NaN plane); the CLI (`--demo -o DIR`) in a
      subprocess: exit 0, five files, impl 'fused'; again with --dtype
-     bfloat16;
+     bfloat16, on 'fused' and on --impl exact;
   5. timing with CUDA events (any sample <= 0 fails): the batched
      `match_padded_core` step per route for the bench (32 pairs), grad_hist
-     (32 pairs) and KITTI (D=128 x 8 pairs, D=256 x 4 pairs), the bench
-     and KITTI D=256 'fused' steps in bfloat16 beside them, and peak
-     device memory per step and over all;
+     (32 pairs) and KITTI (D=128 x 8 pairs, D=256 x 4 pairs), the bench,
+     grad_hist and KITTI D=256 steps in bfloat16 beside them on both
+     routes, and peak device memory per step and over all;
   6. the sharded strategies (`parallel.match_batch_sharded`) on a world
      of one rank over NCCL, bench pairs 100 and 101, lr_mode 'flip' and
      'direct': tiled ('fused'), dslab, ringd, wtiled with merge_level 1
@@ -114,13 +133,19 @@ Phases, each printing its own lines (any failure exits nonzero):
      merge levels running the torch pyramid); dslab and ringd raw_neq =
      valid_neq = 0 against the oracle; launch counts zeroed before each
      strategy: tiled K1 ('direct': K2, K3), dslab K6, K5, ringd K6,
-     wtiled(1) K6, wtiled(None) K2, K3; then each strategy's step at
+     wtiled(1) K6, wtiled(None) K2, K3; each again in bfloat16, as the JAX
+     package runs it: tiled and wtiled(None) bitwise the unsharded bf16
+     pipeline (K1 bf16, or K2 bf16 and K3 bf16), dslab, ringd and
+     wtiled(1) bitwise their own float32 run (their float32 kernels: the
+     JAX package builds their volumes from float32 descriptors); then
+     each strategy's step at
      KITTI D=256 x 4 pairs ('flip'), timed as in 5; then the stream
      (`parallel.run_stream`, tiled, 'fused', batch 32) over 69 bench
      pairs (seeds 100-168: two batches and a tail of 5), every pair bitwise
      to the unsharded pipeline, 3 `batch_done` and one `tail_batch` log
      events, its Mpx/s beside the step's; again with a match step that
-     fails once (1 retry, same outputs); and through
+     fails once (1 retry, same outputs); again in bfloat16 over 37 pairs
+     (K1 bf16, bitwise the unsharded bf16 pipeline); and through
      `parallel.pairs_from_paths` over the pairs written as PGM (the native
      loader must build; planes bitwise equal to the in-memory path's).
 Then the total wall time, one JSON line with the kernels' numbers (each
@@ -128,7 +153,8 @@ with its bound: the larger of its bytes, each input read once and each
 output written once, over 3.35 TB/s and its operations over 67 TFLOP/s,
 33.5 for the probes P1-P3, which forbid FMA;
 K2 also at C=128 and at KITTI D=256, rows of their own over K2's count;
-K1, K4 and K5 bf16 rows of their own, each with its own launch count;
+K1, K1b, K2 (C=16 and C=128), K3, K4 and K5 bf16 rows of their own, each
+with its own launch count;
 library_ms the yardstick where there is one),
 and as the last line {"ok": true, "device": {...}}.  Needs one CUDA
 device; imports nothing of JAX or the JAX package.
@@ -367,31 +393,34 @@ def main():
     for fn, (regs, spill_st, spill_ld) in sorted(fused_ptxas.items()):
         print(f"fused_kernel<p={fn[0]}, {fn[1]}, {fn[2]}>: {regs} registers, "
               f"spill stores {spill_st} B, spill loads {spill_ld} B")
-    require(len(fused_ptxas) == 6 and all(
+    require(len(fused_ptxas) == 8 and all(
         v[1] == 0 and v[2] == 0 for v in fused_ptxas.values()),
         f"fused_kernel instantiations missing or spilling: {fused_ptxas}")
+    # costvol_kernel<rows, 16-byte staging, element type>.
     costvol_ptxas = ptxas(_build.build_log(),
-                          r"costvol_kernelILb([01])ELb([01])E",
-                          lambda m: (m.group(1) == "1", m.group(2) == "1"))
-    for (rows_, vec16), (regs, spill_st, spill_ld) in sorted(
+                          r"costvol_kernelILb([01])ELb([01])E(f|13__nv_bfloat16)E",
+                          lambda m: (m.group(1) == "1", m.group(2) == "1",
+                                     "f32" if m.group(3) == "f" else "bf16"))
+    for (rows_, vec16, ty), (regs, spill_st, spill_ld) in sorted(
             costvol_ptxas.items()):
         print(f"costvol_kernel<{'rows' if rows_ else 'D-major'}, "
-              f"{'16-byte' if vec16 else '4-byte'} staging>: {regs} "
+              f"{'16-byte' if vec16 else 'narrow'} staging, {ty}>: {regs} "
               f"registers, spill stores {spill_st} B, spill loads "
               f"{spill_ld} B")
-    require(len(costvol_ptxas) == 4 and all(
+    require(len(costvol_ptxas) == 6 and all(
         v[1] == 0 and v[2] == 0 for v in costvol_ptxas.values()),
         f"costvol_kernel instantiations missing or spilling: {costvol_ptxas}")
-    # costrows_kernel<p, volume type>, aggregate_level_kernel<map type>.
+    # costrows_kernel<p, volume type>, pyramid_kernel<bf16>,
+    # aggregate_level_kernel<map type>.
     rows_ptxas = ptxas(_build.build_log(),
                        r"(costrows_kernelILi\d+E(?:f|13__nv_bfloat16)E"
-                       r"|pyramid_kernel"
+                       r"|pyramid_kernelILb[01]E"
                        r"|aggregate_level_kernelI(?:f|13__nv_bfloat16)E)",
                        lambda m: m.group(1).replace("13__nv_bfloat16", "bf16"))
     for fn, (regs, spill_st, spill_ld) in sorted(rows_ptxas.items()):
         print(f"{fn}: {regs} registers, spill stores {spill_st} B, spill "
               f"loads {spill_ld} B")
-    require(len(rows_ptxas) == 7 and all(
+    require(len(rows_ptxas) == 8 and all(
         v[1] == 0 and v[2] == 0 for v in rows_ptxas.values()),
         f"costrows_kernel / pyramid_kernel / aggregate_level_kernel missing "
         f"or spilling: {rows_ptxas}")
@@ -508,6 +537,49 @@ def main():
         require(n >= 2, f"{label}: {n} blocks per SM, fewer than 2")
         return n
 
+    bf16 = torch.bfloat16
+
+    def k2_bf16(label, src, tgt, *args):
+        """K2's bf16 instance on bf16 descriptors: bitwise the float32
+        kernel on their widenings, rounded; beside it the float32 kernel's
+        max |error| against plain on the widenings (the sums before the
+        rounding) and the share of bins that round alike with plain bf16
+        (whose sum order differs)."""
+        vol = costvol_cuda.cost_volume_dmajor(src, tgt, *args)
+        wide = costvol_cuda.cost_volume_dmajor(src.float(), tgt.float(),
+                                               *args)
+        sync()
+        same = vol.dtype == bf16 and torch.equal(vol, wide.to(bf16))
+        err = float((wide - costvol_cuda.cost_volume_dmajor_torch(
+            src.float(), tgt.float(), *args)).abs().max())
+        alike = float((vol == costvol_cuda.cost_volume_dmajor_torch(
+            src, tgt, *args)).float().mean())
+        print(f"{label} {tuple(src.shape)} -> {tuple(vol.shape)} "
+              f"{vol.dtype}: bitwise the float32 kernel on the widened "
+              f"descriptors, rounded {same}; max |float32 kernel - plain| "
+              f"on them {err:.3e}; bins rounding alike with plain bf16 "
+              f"{alike:.6f}")
+        require(same and err <= 1e-6, f"{label}: K2 bf16 is not the float32 "
+                f"kernel's volume of the widened descriptors, rounded")
+        return vol, err
+
+    def k3_bf16(label, vol, levels):
+        """K3's bf16 instance: decisions and scores bitwise plain, and
+        equal to K5 bf16 (exact) + backtrack_top on the same volume."""
+        d, s_ = pyramid_cuda.pyramid_backtrack(vol, levels, 1.4)
+        sync()
+        dp, sp = pyramid_cuda.pyramid_body(vol, levels, 1.4, fast=False)
+        d5, s5 = pyramid_cuda.backtrack_top(
+            vol, *pyramid_cuda.aggregate_dmajor(vol, levels, 1.4))
+        same = torch.equal(d, dp) and torch.equal(s_, sp)
+        same5 = torch.equal(d, d5) and torch.equal(s_, s5)
+        print(f"{label} K3 bf16 {tuple(vol.shape)}: decisions and scores "
+              f"bitwise plain {same} (decision mismatch rate "
+              f"{float((d != dp).float().mean()):.3e}), equal to K5 bf16 "
+              f"(exact) + backtrack_top {same5}")
+        require(same and same5, f"{label}: K3 bf16 disagrees")
+        return d, s_
+
     # 3a. Kernels vs their plain versions at the bench shapes.
     cfg = Config(max_disparity=MAX_D)
     geom = cfg.geometry(H, W)
@@ -548,9 +620,41 @@ def main():
            lambda: pyramid_cuda.pyramid_backtrack(vol, geom.levels, cfg.lam),
            lambda: pyramid_cuda.pyramid_body(vol, geom.levels, cfg.lam),
            (nbytes(vol, d3, s3), pyramid_flops(vol.numel(), geom.levels)))
-    del vol, ds, dt
+    # K2's and K3's bf16 instances on the bench's descriptors rounded, as
+    # the descriptor routes round them.
+    ds16, dt16 = ds.to(bf16), dt.to(bf16)
+    vol16, err2b = k2_bf16("K2 bf16 bench", ds16, dt16, *args2)
+    record("K2 bf16", err2b,
+           lambda: costvol_cuda.cost_volume_dmajor(ds16, dt16, *args2),
+           lambda: costvol_cuda.cost_volume_dmajor_torch(ds16, dt16, *args2),
+           (nbytes(ds16, dt16, vol16),
+            cost_flops(vol16.numel(), ds16.shape[-1])))
+    corr_yardstick("K2 bf16", ds16, dt16, geom.disparities, cfg.patch_size)
+    try:
+        costvol_cuda.cost_volume_rows(ds16, dt16, *args2)
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    print(f"K6 on bf16 descriptors: raises {refused!r}")
+    require(refused is not None and "row-layout" in refused,
+            "K6 took bf16 descriptors")
+    d3b, s3b = k3_bf16("bench (K2 bf16's volume)", vol16, geom.levels)
+    record("K3 bf16", 0.0,
+           lambda: pyramid_cuda.pyramid_backtrack(vol16, geom.levels, cfg.lam),
+           lambda: pyramid_cuda.pyramid_body(vol16, geom.levels, cfg.lam),
+           (nbytes(vol16, d3b, s3b), pyramid_flops(vol16.numel(),
+                                                   geom.levels)))
+    rows["K3 bf16"]["blocks_per_sm"] = pyramid_cuda.blocks_per_sm(
+        geom.disparities, geom.levels, bf16=True)
+    print(f"K3 bf16 bench blocks per SM (occupancy API): "
+          f"{rows['K3 bf16']['blocks_per_sm']}; decisions agree with K3 on "
+          f"the float32 volume {float((d3b == d3).float().mean()):.5f}")
+    require(rows["K3 bf16"]["blocks_per_sm"] >= 2,
+            "K3 bf16: fewer than 2 blocks per SM")
+    del vol, ds, dt, ds16, dt16, vol16, d3b, s3b
     # K3: shared memory against its mirror, blocks per SM, and bitwise to
-    # plain at every rows_cases shape.
+    # plain at every rows_cases shape, in float32 and in bf16 (the volume
+    # rounded).
     for seed, (cname, kind, shape) in enumerate(rows_cases()):
         if kind != "K3":
             continue
@@ -574,6 +678,8 @@ def main():
         require(occ3 >= 2, f"{cname}: {occ3} blocks per SM, fewer than 2")
         if cname == "K3 bench":
             rows["K3"]["blocks_per_sm"] = occ3
+        k3_bf16(cname, (inputs_[1] if "ties" in cname else inputs_[0]).to(
+            bf16), lv_)
         del inputs_, dk, sk, dp_, sp_
 
     def smem_agrees(label, lib_bytes, mirror_bytes):
@@ -612,7 +718,13 @@ def main():
           f"{agree16:.5f}")
     del d1, s1, d16, s16
     fused_vs_plain("K1b", lefts, rights, gh, geom)
-    for k in ("K1", "K1 bf16", "K1b"):
+    # K1b's bfloat16 instance: the same layout, so the same mirror.
+    gh16 = dataclasses.replace(gh, dtype="bfloat16")
+    require(fused_cuda.supported(gh16, geom), "K1b bf16 must cover the bench")
+    fused_smem_agrees("K1b bf16 bench", gh16, geom)
+    rows_occ["K1b bf16"] = blocks_agree("K1b bf16 bench", gh16, geom)
+    fused_vs_plain("K1b bf16", lefts, rights, gh16, geom)
+    for k in ("K1", "K1 bf16", "K1b", "K1b bf16"):
         rows[k]["blocks_per_sm"] = rows_occ[k]
     planes_ms = cuda_ms(torch, lambda: (descriptors.grad_hist_magbin(lefts),
                                         descriptors.grad_hist_magbin(rights)),
@@ -627,7 +739,8 @@ def main():
             (4, h0 * p, w0 * p)) * 0.3 + 0.5).astype(np.float32)).to(dev)
             for _ in range(2))
         for kind, sdtype in (("patch", "float32"), ("grad_hist", "float32"),
-                             ("patch", "bfloat16")):
+                             ("patch", "bfloat16"),
+                             ("grad_hist", "bfloat16")):
             scfg = Config(max_disparity=max_d, levels=levels, patch_size=p,
                           descriptor=kind, dtype=sdtype)
             sgeom = scfg.geometry(h0 * p, w0 * p)
@@ -669,13 +782,17 @@ def main():
                                ("KITTI D=256 slab", 16, SLAB, 4)):
         smem_agrees(f"K2/K6 {label}", _build.library().dm_costvol_smem(
             c_, d0_, p_), costvol_cuda.smem_bytes(c_, d0_, p_))
-        occ = {k: costvol_cuda.blocks_per_sm(c_, d0_, p_, rows=k == "K6")
-               for k in ("K2", "K6")}
+        occ = {k: costvol_cuda.blocks_per_sm(c_, d0_, p_, rows=k == "K6",
+                                             bf16=k == "K2 bf16")
+               for k in ("K2", "K6", "K2 bf16")}
         print(f"K2/K6 {label} blocks per SM (occupancy API): {occ}")
         require(min(occ.values()) >= 2, f"K2/K6 {label}: fewer than 2 "
                 f"blocks per SM")
         if label == "bench":
             rows["K2"]["blocks_per_sm"] = occ["K2"]
+            rows["K2 bf16"]["blocks_per_sm"] = occ["K2 bf16"]
+        if label == "grad_hist":
+            occ_gh = occ
         if label == "KITTI D=256":
             occ_kitti = occ
     dsg = descriptors.left_descriptors(lefts, gh)
@@ -694,7 +811,20 @@ def main():
            (nbytes(dsg, dtg, volg), cost_flops(volg.numel(), dsg.shape[-1])),
            plain_reps=1)
     corr_yardstick("K2 C=128", dsg, dtg, geom.disparities, cfg.patch_size)
-    del dsg, dtg, volg
+    rows["K2 C=128"]["blocks_per_sm"] = occ_gh["K2"]
+    dsg16, dtg16 = dsg.to(bf16), dtg.to(bf16)
+    volg16, errg16 = k2_bf16("K2 C=128 bf16 (grad_hist)", dsg16, dtg16,
+                             *args2)
+    record("K2 C=128 bf16", errg16,
+           lambda: costvol_cuda.cost_volume_dmajor(dsg16, dtg16, *args2),
+           lambda: costvol_cuda.cost_volume_dmajor_torch(dsg16, dtg16,
+                                                         *args2),
+           (nbytes(dsg16, dtg16, volg16),
+            cost_flops(volg16.numel(), dsg16.shape[-1])), plain_reps=1)
+    rows["K2 C=128 bf16"]["blocks_per_sm"] = occ_gh["K2 bf16"]
+    corr_yardstick("K2 C=128 bf16", dsg16, dtg16, geom.disparities,
+                   cfg.patch_size)
+    del dsg, dtg, volg, dsg16, dtg16, volg16
     small_err = 0.0
     for seed, (cname, kind, shape) in enumerate(costvol_cases()):
         if "p=" not in cname and "unaligned" not in cname:
@@ -720,6 +850,16 @@ def main():
               f"- plain| = {err:.3e}" + ("" if kind == "K2" else
                                          f"; bitwise K2's bins {same}"))
         require(err <= 1e-6 and same, f"{cname} disagrees")
+    # K2's bf16 instance at every D-major shape, on the descriptors rounded
+    # (both staging forms: C a multiple of 8 or not, and the pair off
+    # 16-byte alignment; origin_offset 2 there).
+    for seed, (cname, kind, shape) in enumerate(costvol_cases()):
+        if kind == "K2":
+            lead_, h0_, w0_, wt_, c_, d0_, p_, max_d_, rev_, oo_, _, _ = shape
+            src_, tgt_ = costvol_inputs(torch, shape, seed, dtype=bf16)
+            k2_bf16(f"{cname} bf16 (origin_offset {oo_})", src_, tgt_, d0_,
+                    p_, max_d_, rev_, oo_)
+            del src_, tgt_
     print()
 
     # 3b. K4 and K5 at the KITTI shapes, full width.
@@ -974,6 +1114,10 @@ def main():
           f"{rows['K5']['plain']:.4f} ms per 16-instance KITTI D=128 call "
           f"(fast, 5 levels) {card}")
     for k, what in (("K1", "64-instance bench"),
+                    ("K1b", "64-instance grad_hist bench"),
+                    ("K2", "64-instance bench"),
+                    ("K2 C=128", "64-instance grad_hist"),
+                    ("K3", "64-instance bench"),
                     ("K4", "16-instance KITTI D=128"),
                     ("K5", "16-instance KITTI D=128 (fast)")):
         b = rows[f"{k} bf16"]
@@ -1000,6 +1144,9 @@ def main():
                 "K1 bf16": (fused_cuda.match_planes, "bf16_launches"),
                 "K4 bf16": (fused_cuda.cost_volume_rows, "bf16_launches"),
                 "K5 bf16": (pyramid_cuda.aggregate_dmajor, "bf16_launches"),
+                "K1b bf16": (fused_cuda.match_planes, "magbin_bf16_launches"),
+                "K2 bf16": (costvol_cuda.cost_volume_dmajor, "bf16_launches"),
+                "K3 bf16": (pyramid_cuda.pyramid_backtrack, "bf16_launches"),
                 "K6": (costvol_cuda.cost_volume_rows, "launches"),
                 "P1": (probe_cuda.stream, "launches"),
                 "P2": (probe_cuda.small, "launches"),
@@ -1189,11 +1336,11 @@ def main():
             require(raw_neq == 0 and val_neq == 0, f"centred adversarial "
                     f"{route} off the oracle on seed {seed}")
 
-    # 4b'. bfloat16 on 'fused' through the public API (the JAX package's
-    # bf16 rows: bench.py's at the bench geometry, tools/bench_large.py's at
-    # KITTI D=256), held to the oracle's kept bad rate + 0.05 and to
+    # 4b'. bfloat16 through the public API (the JAX package's bf16 rows:
+    # bench.py's at the bench geometry, tools/bench_large.py's at KITTI
+    # D=256), held to the oracle's kept bad rate + 0.05 and to
     # BF16_F32_AGREE with the port's float32 run of the same route.
-    def check_bf16(label, got, f32, ora, gt):
+    def check_bf16(label, route, got, f32, ora, gt):
         hh, ww = gt.shape
         bad = metrics.bad_pixel_rate(got.disparity, gt, count_invalid=False)
         bad_o = metrics.bad_pixel_rate(ora.disparity, gt, count_invalid=False)
@@ -1201,10 +1348,12 @@ def main():
         agree = float(np.mean(got.disparity_raw[both]
                               == f32.disparity_raw[both]))
         agree_all = float(np.mean(got.disparity_raw == f32.disparity_raw))
-        print(f"bf16 [{label}, fused]: kept bad {bad:.4f} (oracle "
+        print(f"bf16 [{label}, {route}]: kept bad {bad:.4f} (oracle "
               f"{bad_o:.4f}, delta {bad - bad_o:+.4f}); disparity_raw agrees "
               f"with float32 on {agree:.5f} of pixels valid in both "
-              f"({agree_all:.5f} of all); valid_neq vs float32 "
+              f"({agree_all:.5f} of all; {int(both.sum())} px valid in "
+              f"both, {int((got.disparity_raw[both] != f32.disparity_raw[both]).sum())} "
+              f"differ); valid_neq vs float32 "
               f"{float(np.mean(got.valid != f32.valid)):.3e}; coverage "
               f"{metrics.coverage(got.disparity):.4f}")
         require(got.disparity.shape == (hh, ww)
@@ -1214,38 +1363,84 @@ def main():
                 f"bf16 {label}: outputs not finite float32 of the image's "
                 f"shape")
         require(bad - bad_o <= 0.05 and agree >= BF16_F32_AGREE,
-                f"bf16 {label} beyond its gates")
+                f"bf16 {label} {route} beyond its gates")
 
     cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
-    bench16 = run_path("bench bf16 fused", {"K1 bf16"}, lambda: [
-        api.match_stereo(l, r, cfg16, impl="fused", device="cuda")
-        for l, r, _ in bench_pairs])
-    for seed, (_, _, gt), got in zip(MAIN_PATH_SEEDS, bench_pairs, bench16):
-        check_bf16(f"bench pair {seed}", got, results["bench", seed, "fused"],
-                   want["bench", seed], gt)
+    bf16_paths = {("bench", "fused"): (cfg16, {"K1 bf16"}),
+                  ("bench", "exact"): (cfg16, {"K2 bf16", "K3 bf16"}),
+                  ("grad_hist", "fused"): (gh16, {"K1b bf16"}),
+                  ("grad_hist", "exact"): (gh16, {"K2 bf16", "K3 bf16"})}
+    for (path, route), (pcfg, expected) in bf16_paths.items():
+        got16 = run_path(f"{path} bf16 {route}", expected,
+                         lambda pcfg=pcfg, route=route: [
+                             api.match_stereo(l, r, pcfg, impl=route,
+                                              device="cuda")
+                             for l, r, _ in bench_pairs])
+        for seed, (_, _, gt), got in zip(MAIN_PATH_SEEDS, bench_pairs, got16):
+            check_bf16(f"{path} pair {seed}", route, got,
+                       results[path, seed, route], want[path, seed], gt)
     k256 = Config(max_disparity=256)
     k256_16 = dataclasses.replace(k256, dtype="bfloat16")
     kl7, kr7, kgt7 = make_kitti_pair(KITTI_SEED, 256)
-    kitti32 = run_path("kitti D=256 fused", {"K4", "K5"}, lambda: (
-        api.match_stereo(kl7, kr7, k256, impl="fused", device="cuda")))
-    kitti16 = run_path("kitti D=256 bf16 fused", {"K4 bf16", "K5 bf16"},
-                       lambda: api.match_stereo(kl7, kr7, k256_16,
-                                                impl="fused", device="cuda"))
+    kitti_runs = {}
+    for route, k32, k16 in (("fused", {"K4", "K5"}, {"K4 bf16", "K5 bf16"}),
+                            ("exact", {"K2", "K5"}, {"K2 bf16", "K5 bf16"})):
+        kitti_runs[route] = [
+            run_path(f"kitti D=256 {tag}{route}", exp,
+                     lambda kc=kc, route=route: api.match_stereo(
+                         kl7, kr7, kc, impl=route, device="cuda"))
+            for tag, kc, exp in (("", k256, k32), ("bf16 ", k256_16, k16))]
     t0 = time.perf_counter()
     kora = oracle.match_stereo(kl7, kr7, k256)
     print(f"oracle [kitti D=256] pair {KITTI_SEED}: "
           f"{time.perf_counter() - t0:.1f} s (host)")
-    check_bf16(f"KITTI D=256 pair {KITTI_SEED}", kitti16, kitti32, kora, kgt7)
+    for route, (k32_, k16_) in kitti_runs.items():
+        check_bf16(f"KITTI D=256 pair {KITTI_SEED}", route, k16_, k32_, kora,
+                   kgt7)
     try:
-        api.match_stereo(*bench_pairs[0][:2], cfg16, impl="exact",
-                         device="cuda")
+        api.match_stereo(*bench_pairs[0][:2],
+                         dataclasses.replace(cfg, dtype="float16"),
+                         impl="exact", device="cuda")
         refused = None
     except NotImplementedError as e:
         refused = str(e)
-    print(f"bf16 on 'exact': raises {refused!r}")
-    require(refused is not None and "'exact' route" in refused,
-            "bf16 on 'exact' did not raise its NotImplementedError")
-    del kitti32, kitti16, kora
+    print(f"float16: raises {refused!r}")
+    require(refused is not None and "float16" in refused,
+            "a float16 config did not raise its NotImplementedError")
+    del kitti_runs, kora
+
+    # 4b''. Centred descriptors and lr_mode 'direct' in bf16 (the descriptor
+    # route, K2 bf16 -> K3 bf16) on bench pairs 100/101 and the adversarial
+    # pairs, against the port's plain route on the CPU: the kernels and the
+    # plain versions sum each bin in other orders, so a bin may round to a
+    # neighbouring bf16 value; decisions within the 0.5% gate.
+    for label, route, kw in (("centred", "fused",
+                              dict(center_descriptors=True)),
+                             ("direct", "exact", dict(lr_mode="direct"))):
+        for pname, pairs_, max_d in (
+                ("bench", [p_[:2] for p_ in bench_pairs], MAX_D),
+                (f"adversarial {ADV_HW[1]}x{ADV_HW[0]}", adv, ADV_D)):
+            ccfg16 = Config(max_disparity=max_d, dtype="bfloat16", **kw)
+            g_ = ccfg16.geometry(*pairs_[0][0].shape[:2])
+            exp = {"K2 bf16", "K3 bf16" if pyramid_cuda.supported(
+                g_.disparities, g_.levels) else "K5 bf16"}
+            got_ = run_path(f"{label} bf16 {pname} {route}", exp,
+                            lambda pairs_=pairs_, c=ccfg16, route=route: [
+                                api.match_stereo(l, r, c, impl=route,
+                                                 device="cuda")
+                                for l, r in pairs_])
+            for i, ((l, r), got) in enumerate(zip(pairs_, got_)):
+                plain = api.match_stereo(l, r, ccfg16, impl=route,
+                                         device="cpu")
+                raw_neq = int(np.sum(got.disparity_raw != plain.disparity_raw))
+                val_neq = int(np.sum(got.valid != plain.valid))
+                print(f"{label} bf16 [{pname}, {route}] pair {i}: raw_neq="
+                      f"{raw_neq} valid_neq={val_neq} of {got.valid.size} px "
+                      f"against the port's plain route on the CPU")
+                require(got.score.dtype == np.float32
+                        and max(raw_neq, val_neq)
+                        <= FUSED_DECISION_TOL * got.valid.size,
+                        f"{label} bf16 {pname} beyond the gate on pair {i}")
 
     # 4c. The invariant checks on the card, on bench pair 100.
     l0, r0, _ = bench_pairs[0]
@@ -1276,14 +1471,16 @@ def main():
             "images" in err_msg, "a NaN input passed the checks")
 
     # 4d. The CLI in its own process on the card, in float32 and bfloat16.
-    for dtype in ("float32", "bfloat16"):
+    for dtype, impl in (("float32", "fused"), ("bfloat16", "fused"),
+                        ("bfloat16", "exact")):
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
             proc = subprocess.run([sys.executable, "-m", f"{PKG}.cli",
-                                   "--demo", "--dtype", dtype, "-o", tmp],
+                                   "--demo", "--dtype", dtype, "--impl", impl,
+                                   "-o", tmp],
                                   cwd=REPO, capture_output=True, text=True,
                                   timeout=600)
-            print(f"cli --demo --dtype {dtype} -o DIR: exit "
+            print(f"cli --demo --dtype {dtype} --impl {impl} -o DIR: exit "
                   f"{proc.returncode} in {time.perf_counter() - t0:.1f} s "
                   f"(host): {proc.stdout.strip()[-300:]}")
             require(proc.returncode == 0, f"the CLI failed:\n{proc.stderr}")
@@ -1293,24 +1490,24 @@ def main():
         require(files == ["disparity.pfm", "disparity_16bit.png",
                           "disparity_color.png", "metrics.json", "valid.png"],
                 f"the CLI wrote {files}")
-        require(meta.get("impl") == "fused" and meta.get("engine") == "cuda:0"
+        require(meta.get("impl") == impl and meta.get("engine") == "cuda:0"
                 and meta["config"]["dtype"] == dtype,
                 f"the CLI ran impl {meta.get('impl')} on "
                 f"{meta.get('engine')} in {meta['config']['dtype']}")
     print(flush=True)
 
     # 5. Timing of the batched steps, each with its peak device memory; the
-    # bf16 steps on 'fused' (the routes bf16 covers) beside the float32 ones.
+    # bf16 steps beside the float32 ones.
     steps = [("bench", cfg, geom, lp, rp), ("grad_hist", gh, geom, lp, rp)]
     steps += [(f"kitti D={d}", *kitti[d]) for d in KITTI]
     steps += [("bench bf16", cfg16, geom, lp, rp),
+              ("grad_hist bf16", gh16, geom, lp, rp),
               ("kitti D=256 bf16",
                dataclasses.replace(kitti[256][0], dtype="bfloat16"),
                *kitti[256][1:])]
     step_ms, step_range, step_peak, peak = {}, {}, {}, 0
     for label, scfg, sgeom, slp, srp in steps:
-        for route in ("fused",) if scfg.dtype == "bfloat16" else (
-                "fused", "exact"):
+        for route in ("fused", "exact"):
             def step(route=route):
                 return pipeline.match_padded_core(slp, srp, scfg, sgeom, route)
             sync()
@@ -1330,24 +1527,34 @@ def main():
                   f"over 7 samples = {n * hh * ww * 1e-6 / (med * 1e-3):.1f} "
                   f"Mpx/s; peak device memory "
                   f"{step_peak[key] / 2**20:.1f} MiB {card}")
-    for label in ("bench", "kitti D=256"):
-        a, b = f"{label} fused", f"{label} bf16 fused"
-        print(f"  step [{label}, fused] bf16 {step_ms[b]:.4f} ms beside float32 "
-              f"{step_ms[a]:.4f} ms ({step_ms[b] / step_ms[a]:.3f}x); peak "
-              f"memory {step_peak[b] / 2**20:.1f} MiB beside "
-              f"{step_peak[a] / 2**20:.1f} MiB {card}")
+    for label in ("bench", "grad_hist", "kitti D=256"):
+        for route in ("fused", "exact"):
+            a, b = f"{label} {route}", f"{label} bf16 {route}"
+            print(f"  step [{label}, {route}] bf16 {step_ms[b]:.4f} ms "
+                  f"[{step_range[b][0]:.4f}..{step_range[b][1]:.4f}] beside "
+                  f"float32 {step_ms[a]:.4f} ms [{step_range[a][0]:.4f}.."
+                  f"{step_range[a][1]:.4f}] ({step_ms[b] / step_ms[a]:.3f}x); "
+                  f"peak memory {step_peak[b] / 2**20:.1f} MiB beside "
+                  f"{step_peak[a] / 2**20:.1f} MiB {card}")
     print(f"peak device memory over the timed steps: {peak / 2**20:.1f} MiB {card}")
     print(flush=True)
 
     # 6. The sharded strategies on a world of one rank over NCCL: the
     # collectives degenerate, the shard bodies and their kernels run.
-    def strategy_kernels(strategy, merge_level, mode):
+    def in_f32(strategy, merge_level):
+        """dslab, ringd and wtiled below the top level build their volumes
+        from float32 descriptors in either dtype, as in the JAX package."""
+        return strategy in ("dslab", "ringd") or (
+            strategy == "wtiled" and merge_level is not None)
+
+    def strategy_kernels(strategy, merge_level, mode, dtype="float32"):
+        b = " bf16" if dtype == "bfloat16" else ""
         if strategy == "tiled":     # 'direct' takes the descriptor route
-            return {"K1"} if mode == "flip" else {"K2", "K3"}
+            return {f"K1{b}"} if mode == "flip" else {f"K2{b}", f"K3{b}"}
         if strategy == "dslab":
             return {"K6", "K5"}
         if strategy == "wtiled" and merge_level is None:
-            return {"K2", "K3"}
+            return {f"K2{b}", f"K3{b}"}
         return {"K6"}
 
     def label_of(strategy, merge_level):
@@ -1356,30 +1563,34 @@ def main():
 
     def stream_phase(smesh):
         """run_stream over STREAM_PAIRS bench pairs (tiled, 'fused'), with
-        and without an injected failure, and pairs_from_paths over the
-        same pairs as PGM files; returns the stream's Mpx/s."""
+        and without an injected failure, in bf16 over a batch and the
+        tail, and pairs_from_paths over the same pairs as PGM files;
+        returns the stream's Mpx/s."""
         stream_pairs = [(l, r) for l, r, _ in pairs]
         stream_pairs += [make_pair(100 + i)[:2]
                          for i in range(BATCH, STREAM_PAIRS)]
         sglob = sharded.strategy_geometry(cfg, H, W, smesh, "tiled")
-        want = []
-        for i in range(0, STREAM_PAIRS, BATCH):
-            chunk = stream_pairs[i:i + BATCH]
-            lps, rps = (torch.from_numpy(sharded.pad_batch(
-                [p[j] for p in chunk], cfg, H, W, smesh, "tiled")).to(dev)
-                for j in (0, 1))
-            out = pipeline.apply_postfilter(pipeline.crop(
-                pipeline.match_padded_core(lps, rps, cfg, sglob, "fused"),
-                H, W), cfg)
-            want.append({k: v.cpu().numpy() for k, v in out.items()})
 
-        def run(source, **kw):
+        def unsharded_batches(scfg, spairs):
+            want = []
+            for i in range(0, len(spairs), BATCH):
+                chunk = spairs[i:i + BATCH]
+                lps, rps = (torch.from_numpy(sharded.pad_batch(
+                    [p[j] for p in chunk], scfg, H, W, smesh, "tiled")).to(
+                        dev) for j in (0, 1))
+                out = pipeline.apply_postfilter(pipeline.crop(
+                    pipeline.match_padded_core(lps, rps, scfg, sglob,
+                                               "fused"), H, W), scfg)
+                want.append({k: v.cpu().numpy() for k, v in out.items()})
+            return want
+
+        def run(source, scfg, want, **kw):
             got = {}
             with tempfile.TemporaryDirectory() as tmp:
                 log_path = os.path.join(tmp, "stream.jsonl")
                 with JsonlLogger(log_path) as logger:
                     rep = runner.run_stream(
-                        source, cfg, H, W, smesh, "tiled", BATCH, "fused",
+                        source, scfg, H, W, smesh, "tiled", BATCH, "fused",
                         on_result=lambda i, out: got.update({i: out}),
                         logger=logger, **kw)
                 with open(log_path) as f:
@@ -1389,8 +1600,9 @@ def main():
                 for b, w_ in enumerate(want) for k in KEYS)
             return rep, events, same
 
+        want = unsharded_batches(cfg, stream_pairs)
         rep, events, same = run_path("stream tiled fused", {"K1"},
-                                     lambda: run(stream_pairs))
+                                     lambda: run(stream_pairs, cfg, want))
         print(f"stream [tiled, fused] {STREAM_PAIRS} pairs {W}x{H}, batch "
               f"{BATCH}: {rep}; log events batch_done "
               f"{events.count('batch_done')}, tail_batch "
@@ -1416,7 +1628,7 @@ def main():
                                                "tiled", "fused")
 
         rep2, events2, same2 = run_path(
-            "stream retry", {"K1"}, lambda: run(stream_pairs,
+            "stream retry", {"K1"}, lambda: run(stream_pairs, cfg, want,
                                                 _match_fn=flaky))
         print(f"stream with one injected failure: retries {rep2.retries}, "
               f"pairs {rep2.pairs_completed}, batch_retry events "
@@ -1424,6 +1636,20 @@ def main():
         require(rep2.retries == 1 and same2
                 and rep2.pairs_completed == STREAM_PAIRS,
                 "the stream did not recover from one failure")
+        # In bf16, over one batch and the tail: the tiled strategy runs the
+        # bf16 pipeline (K1 bf16) in its tiles.
+        n16 = BATCH + STREAM_TAIL
+        cfg16s = dataclasses.replace(cfg, dtype="bfloat16")
+        want16 = unsharded_batches(cfg16s, stream_pairs[:n16])
+        rep16, events16, same16 = run_path(
+            "stream tiled fused bf16", {"K1 bf16"},
+            lambda: run(stream_pairs[:n16], cfg16s, want16))
+        print(f"stream [tiled, fused] bf16 {n16} pairs: {rep16}; every pair "
+              f"bitwise equal to the unsharded bf16 pipeline {same16}")
+        require(same16 and rep16.pairs_completed == n16
+                and rep16.batches_completed == 2
+                and events16.count("tail_batch") == 1,
+                "the bf16 stream's outputs or accounting are wrong")
 
         built = native.available()
         print(f"native loader: {'built' if built else native.build_error()}")
@@ -1528,6 +1754,44 @@ def main():
                     require(launched == expected,
                             f"{label} {mode} launched {sorted(launched)}, "
                             f"expected {sorted(expected)}")
+                    # Again in bf16, as the JAX package runs it: held to
+                    # its own float32 run, or to the unsharded bf16
+                    # pipeline.
+                    scfg16 = dataclasses.replace(scfg, dtype="bfloat16")
+                    for fn, attr in counters.values():
+                        setattr(fn, attr, 0)
+                    got16 = sharded.match_batch_sharded(
+                        sl, sr, scfg16, H, W, mesh, strategy, route, ml)
+                    sync()
+                    counts16 = {k: getattr(fn, attr)
+                                for k, (fn, attr) in counters.items()}
+                    path_launches[f"{label} bf16 {mode}"] = counts16
+                    if in_f32(strategy, ml):
+                        ref16, what = g, "its own float32 run"
+                    else:
+                        ref16, what = {
+                            k: v.cpu().numpy() for k, v in
+                            pipeline.apply_postfilter(pipeline.crop(
+                                pipeline.match_padded_core(
+                                    torch.from_numpy(sl).to(dev),
+                                    torch.from_numpy(sr).to(dev), scfg16,
+                                    glob, route), H, W), scfg16).items()
+                        }, "the unsharded bf16 pipeline"
+                    g16 = {k: v.cpu().numpy() for k, v in got16.items()}
+                    same16 = all(np.array_equal(g16[k], ref16[k],
+                                                equal_nan=k == "disparity")
+                                 for k in KEYS)
+                    launched16 = {k for k, v in counts16.items() if v > 0}
+                    expected16 = strategy_kernels(strategy, ml, mode,
+                                                  "bfloat16")
+                    print(f"strategy [{label}, {route}, {mode}] bf16: "
+                          f"bitwise {what} {same16}; launches {counts16}")
+                    require(same16, f"{label} {mode} bf16 is not bitwise "
+                            f"{what}")
+                    require(launched16 == expected16,
+                            f"{label} {mode} bf16 launched "
+                            f"{sorted(launched16)}, expected "
+                            f"{sorted(expected16)}")
             print(flush=True)
 
             kcfg, kgeom, klp, krp = kitti[256]
@@ -1570,7 +1834,8 @@ def main():
     launches = {k: sum(c[k] for c in path_launches.values()) for k in counters}
     # K2 at grad_hist width and at the KITTI geometry are rows of their
     # own over K2's count: its launches on the paths of that kind.
-    shape_rows = {"K2 C=128": ("K2", "grad_hist"), "K2 KITTI": ("K2", "kitti")}
+    shape_rows = {"K2 C=128": ("K2", "grad_hist"), "K2 KITTI": ("K2", "kitti"),
+                  "K2 C=128 bf16": ("K2 bf16", "grad_hist")}
     for key, (kernel, prefix) in shape_rows.items():
         launches[key] = sum(c[kernel] for p, c in path_launches.items()
                             if p.startswith(prefix))
@@ -1598,6 +1863,15 @@ def main():
                     "csrc/costrows.cu", "ops/fused_pallas.py:808"),
         "K5 bf16": ("K5 level aggregation (bfloat16)", "csrc/aggregate.cu",
                     "ops/pyramid_pallas.py:346"),
+        "K1b bf16": ("K1b fused image->disparity (magbin, grad_hist, "
+                     "bfloat16)", "csrc/fused.cu", "ops/fused_pallas.py:572"),
+        "K2 bf16": ("K2 D-major cost volume (bfloat16)", "csrc/costvol.cu",
+                    "ops/costvol_pallas.py:86"),
+        "K2 C=128 bf16": ("K2 D-major cost volume, grad_hist C=128 "
+                          "(bfloat16)", "csrc/costvol.cu",
+                          "ops/costvol_pallas.py:86"),
+        "K3 bf16": ("K3 pyramid + backtracking (bfloat16)", "csrc/pyramid.cu",
+                    "ops/pyramid_pallas.py:257"),
         "K6": ("K6 row-layout slab cost volume", "csrc/costvol.cu",
                "ops/costvol_pallas.py:57"),
         "P1": ("P1 streaming probe (stream)", "csrc/probe.cu",
@@ -1610,7 +1884,13 @@ def main():
     regs = {"K1": fused_ptxas.get((4, "patch", "f32")),
             "K1 bf16": fused_ptxas.get((4, "patch", "bf16")),
             "K1b": fused_ptxas.get((4, "magbin", "f32")),
-            "K3": rows_ptxas.get("pyramid_kernel"),
+            "K1b bf16": fused_ptxas.get((4, "magbin", "bf16")),
+            "K2": costvol_ptxas.get((False, True, "f32")),
+            "K2 C=128": costvol_ptxas.get((False, True, "f32")),
+            "K2 bf16": costvol_ptxas.get((False, True, "bf16")),
+            "K2 C=128 bf16": costvol_ptxas.get((False, True, "bf16")),
+            "K3": rows_ptxas.get("pyramid_kernelILb0E"),
+            "K3 bf16": rows_ptxas.get("pyramid_kernelILb1E"),
             "K4": rows_ptxas.get("costrows_kernelILi4EfE"),
             "K4 bf16": rows_ptxas.get("costrows_kernelILi4Ebf16E"),
             "K5": rows_ptxas.get("aggregate_level_kernelIfE"),

@@ -8,9 +8,8 @@ same metrics JSON keys, except:
   * `--profile DIR` writes a torch.profiler chrome trace;
   * `--debug-checks` checks the pipeline's invariants on the device
     (utils/checks.py) on the chosen route;
-  * `--dtype bfloat16` runs on 'fused' where K1 or K4 -> K5 covers the
-    configuration and on 'torch'; elsewhere it raises NotImplementedError
-    (models/pipeline.py:check_supported); there is no `--dot-precision`;
+  * `--dtype bfloat16` runs on every route, with the JAX package's
+    semantics (models/pipeline.py); there is no `--dot-precision`;
   * `engine` in the metrics names the torch device ("cuda:0", "cpu"), or
     "oracle".
 `--oracle` runs the port's copy of the NumPy oracle.  Outputs go through
@@ -78,8 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="background-fill invalidated pixels")
     p.add_argument("--dtype", choices=("float32", "bfloat16"),
                    default="float32",
-                   help="cost-volume/pyramid compute dtype (bfloat16: "
-                        "'fused' via K1 or K4 -> K5, and 'torch')")
+                   help="cost-volume/pyramid compute dtype")
     return p
 
 

@@ -62,7 +62,24 @@
 //      __launch_bounds__ holds the registers to that.
 // The earlier chunk (kRowsChunk) and K6's d-chunked grid are gone: every
 // block writes whole rows, whatever the layout.
+//
+// K2's bfloat16 instance (T = __nv_bfloat16, D-major only; Config.dtype=
+// 'bfloat16' on the descriptor routes, costvol_pallas.py:117-118 on bf16
+// descriptors): the descriptors are bf16 and widened exactly to float as
+// they are staged, by plain loads (16 bytes = 8 elements where C is a
+// multiple of 8 and both tensors are 16-byte aligned, else 2 bytes = 1),
+// since the widening needs them in registers; the shared layout, the plan
+// and the FMA chain are the float32 instance's, so each bin's sum is the
+// float32 kernel's on the widened descriptors, and it is rounded once,
+// after the relu and the mask, as it is written (rows of 32 j are 64
+// bytes).  So its volume is bitwise the float32 kernel's on the widened
+// descriptors, rounded.  The product of two bf16 values is exact in
+// float32, so the FMA and a multiply-add give the same sums, the rule JAX's
+// kernel follows.  No JAX path runs K6 in bf16, so there is no row-layout
+// bf16 instance.  The float32 instances compile as before (every bf16
+// step sits under `if constexpr`).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -162,6 +179,51 @@ __device__ __forceinline__ void stage(float* buf, const CostvolPlan& q,
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// stage() for bfloat16 descriptors: elements [kc, kc + ckc) of the same
+// rows, widened to float as they are stored, by 16-byte loads of 8
+// elements (VEC16) or 2-byte loads of one; rows outside the data
+// zero-filled.  Synchronous: the caller's barrier orders it.
+template <bool VEC16>
+__device__ __forceinline__ void stage_bf16(
+    float* buf, const CostvolPlan& q, const __nv_bfloat16* __restrict__ srow,
+    const __nv_bfloat16* __restrict__ trow, int c, int w0, int wt, int j0,
+    int x_lo, int kc, int ckc) {
+  const int rows = kTj + q.w;
+  const int per_row = VEC16 ? ckc >> 3 : ckc;
+  const int total = rows * per_row;
+  for (int e = threadIdx.x; e < total; e += kThreads) {
+    const int row = e / per_row, k = e - row * per_row;
+    const __nv_bfloat16* g = nullptr;
+    if (row < kTj) {
+      if (j0 + row < w0) g = srow + (size_t)(j0 + row) * c;
+    } else {
+      const int x = x_lo + row - kTj;
+      if (x >= 0 && x < wt) g = trow + (size_t)x * c;
+    }
+    if (VEC16) {
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (g) v = __ldg(reinterpret_cast<const uint4*>(g + kc + 8 * k));
+      // Element 2m in the low half of word m, 2m + 1 in the high half.
+      float4* d = reinterpret_cast<float4*>(buf + row * q.s + 8 * k);
+      d[0] = make_float4(__uint_as_float(v.x << 16),
+                         __uint_as_float(v.x & 0xffff0000u),
+                         __uint_as_float(v.y << 16),
+                         __uint_as_float(v.y & 0xffff0000u));
+      d[1] = make_float4(__uint_as_float(v.z << 16),
+                         __uint_as_float(v.z & 0xffff0000u),
+                         __uint_as_float(v.w << 16),
+                         __uint_as_float(v.w & 0xffff0000u));
+    } else {
+      buf[row * q.s + k] = g ? __bfloat162float(g[kc + k]) : 0.0f;
+    }
+  }
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // acc[r][u] of this lane, over the staged floats [0, ckc) of buf.
 __device__ __forceinline__ void correlate(const float* buf,
                                           const CostvolPlan& q, int g,
@@ -206,12 +268,15 @@ __device__ __forceinline__ void correlate(const float* buf,
   }
 }
 
-template <bool ROWS, bool VEC16>
+// T: the descriptors' and the volume's type (float, or __nv_bfloat16 for
+// K2's bf16 instance).
+template <bool ROWS, bool VEC16, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-costvol_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
-               float* __restrict__ out, int h0, int w0, int wt, int c, int d0,
+costvol_kernel(const T* __restrict__ src, const T* __restrict__ tgt,
+               T* __restrict__ out, int h0, int w0, int wt, int c, int d0,
                int p, int max_d, int reverse, int origin_offset,
                int d_offset) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const CostvolPlan q = costvol_plan(c, d0, p);
@@ -234,18 +299,27 @@ costvol_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
     tcol[r] = (kTj + idx) * q.s;
   }
 
-  const float* srow = src + ((size_t)b * h0 + i) * w0 * c;
-  const float* trow = tgt + ((size_t)b * h0 + i) * wt * c;
+  const T* srow = src + ((size_t)b * h0 + i) * w0 * c;
+  const T* trow = tgt + ((size_t)b * h0 + i) * wt * c;
   float acc[kRunsMax][kJr];
 #pragma unroll
   for (int r = 0; r < kRunsMax; ++r)
 #pragma unroll
     for (int u = 0; u < kJr; ++u) acc[r][u] = 0.0f;
 
-  stage<VEC16>(sm, q, srow, trow, c, w0, wt, j0, x_lo, 0, min(q.ck, c));
+  if constexpr (kBf16) {
+    stage_bf16<VEC16>(sm, q, srow, trow, c, w0, wt, j0, x_lo, 0,
+                      min(q.ck, c));
+  } else {
+    stage<VEC16>(sm, q, srow, trow, c, w0, wt, j0, x_lo, 0, min(q.ck, c));
+  }
   for (int ci = 0; ci < q.nck; ++ci) {
     const int kc = ci * q.ck;
-    if (ci + 1 < q.nck) {
+    if constexpr (kBf16) {
+      if (ci + 1 < q.nck)
+        stage_bf16<VEC16>(sm + ((ci + 1) & 1) * q.buf, q, srow, trow, c, w0,
+                          wt, j0, x_lo, kc + q.ck, min(q.ck, c - kc - q.ck));
+    } else if (ci + 1 < q.nck) {
       stage<VEC16>(sm + ((ci + 1) & 1) * q.buf, q, srow, trow, c, w0, wt, j0,
                    x_lo, kc + q.ck, min(q.ck, c - kc - q.ck));
       asm volatile("cp.async.wait_group 1;\n" ::: "memory");
@@ -279,47 +353,49 @@ costvol_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
   // ... and out as whole rows of kTj consecutive j.
   const size_t i_stride = ROWS ? (size_t)d0 * w0 : (size_t)w0;
   const size_t d_stride = ROWS ? (size_t)w0 : (size_t)h0 * w0;
-  float* o = out + (size_t)b * d0 * h0 * w0 + i * i_stride + j0 + lane;
+  T* o = out + (size_t)b * d0 * h0 * w0 + i * i_stride + j0 + lane;
   if (j0 + lane < w0) {
     for (int dd = g; dd < dcn; dd += kWarps)
-      o[(dc0 + dd) * d_stride] = sm[dd * os + lane];
+      store(o + (dc0 + dd) * d_stride, sm[dd * os + lane]);
   }
 }
 
-template <bool ROWS, bool VEC16>
+template <bool ROWS, bool VEC16, typename T>
 dm::SmemAllowance& allowance() {
-  static dm::SmemAllowance a((const void*)costvol_kernel<ROWS, VEC16>);
+  static dm::SmemAllowance a((const void*)costvol_kernel<ROWS, VEC16, T>);
   return a;
 }
 
-template <bool ROWS, bool VEC16>
-int launch(const float* src, const float* tgt, float* out, int n, int h0,
-           int w0, int wt, int c, int d0, int p, int max_d, int reverse,
-           int origin_offset, int d_offset, cudaStream_t stream) {
+template <bool ROWS, bool VEC16, typename T>
+int launch(const T* src, const T* tgt, T* out, int n, int h0, int w0, int wt,
+           int c, int d0, int p, int max_d, int reverse, int origin_offset,
+           int d_offset, cudaStream_t stream) {
   const CostvolPlan q = costvol_plan(c, d0, p);
   if (q.nch <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = allowance<ROWS, VEC16>().allow(q.smem);
+  const cudaError_t err = allowance<ROWS, VEC16, T>().allow(q.smem);
   if (err != cudaSuccess) return (int)err;
   const long long gx = (long long)((w0 + kTj - 1) / kTj) * q.nch;
   if (gx > INT_MAX || h0 > 65535 || n > 65535)
     return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)gx, h0, n);
-  costvol_kernel<ROWS, VEC16><<<grid, kThreads, q.smem, stream>>>(
+  costvol_kernel<ROWS, VEC16, T><<<grid, kThreads, q.smem, stream>>>(
       src, tgt, out, h0, w0, wt, c, d0, p, max_d, reverse, origin_offset,
       d_offset);
   return (int)cudaGetLastError();
 }
 
-// 16-byte staging where every row of C floats starts on a 16-byte
-// boundary.
-bool vec16(const float* src, const float* tgt, int c) {
-  return c % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0 &&
+// 16-byte staging where every row of C elements starts on a 16-byte
+// boundary (C a multiple of 4 floats, or of 8 bf16).
+template <typename T>
+bool vec16(const T* src, const T* tgt, int c) {
+  return c % (16 / sizeof(T)) == 0 &&
+         (reinterpret_cast<uintptr_t>(src) & 15) == 0 &&
          (reinterpret_cast<uintptr_t>(tgt) & 15) == 0;
 }
 
-template <bool ROWS>
-int dispatch(const float* src, const float* tgt, float* out, int n, int h0,
-             int w0, int wt, int c, int d0, int p, int max_d, int reverse,
+template <bool ROWS, typename T>
+int dispatch(const T* src, const T* tgt, T* out, int n, int h0, int w0,
+             int wt, int c, int d0, int p, int max_d, int reverse,
              int origin_offset, int d_offset, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   return vec16(src, tgt, c)
@@ -330,11 +406,11 @@ int dispatch(const float* src, const float* tgt, float* out, int n, int h0,
                                    st);
 }
 
-template <bool ROWS, bool VEC16>
+template <bool ROWS, bool VEC16, typename T>
 int occupancy(int smem) {
-  return dm::blocks_per_sm(allowance<ROWS, VEC16>(),
-                           (const void*)costvol_kernel<ROWS, VEC16>, kThreads,
-                           smem);
+  return dm::blocks_per_sm(allowance<ROWS, VEC16, T>(),
+                           (const void*)costvol_kernel<ROWS, VEC16, T>,
+                           kThreads, smem);
 }
 
 }  // namespace
@@ -347,14 +423,22 @@ extern "C" int dm_costvol_smem(int c, int d0, int p) {
 }
 
 // Blocks of the instance that a launch with 16-byte aligned tensors takes
-// (row layout or D-major) that one SM holds; negative: a CUDA error.
-extern "C" int dm_costvol_blocks_per_sm(int c, int d0, int p, int rows) {
+// (row layout or D-major; float32 or, D-major only, bf16) that one SM
+// holds; negative: a CUDA error.
+extern "C" int dm_costvol_blocks_per_sm(int c, int d0, int p, int rows,
+                                        int bf16) {
   const int smem = dm_costvol_smem(c, d0, p);
-  if (smem <= 0) return -(int)cudaErrorInvalidValue;
+  if (smem <= 0 || (rows && bf16)) return -(int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  if (bf16)
+    return c % 8 == 0 ? occupancy<false, true, bf>(smem)
+                      : occupancy<false, false, bf>(smem);
   const bool v = c % 4 == 0;
   if (rows)
-    return v ? occupancy<true, true>(smem) : occupancy<true, false>(smem);
-  return v ? occupancy<false, true>(smem) : occupancy<false, false>(smem);
+    return v ? occupancy<true, true, float>(smem)
+             : occupancy<true, false, float>(smem);
+  return v ? occupancy<false, true, float>(smem)
+           : occupancy<false, false, float>(smem);
 }
 
 // K2: out is (n, d0, h0, w0).
@@ -364,6 +448,19 @@ extern "C" int dm_costvol_dmajor(const float* src, const float* tgt,
                                  int origin_offset, void* stream) {
   return dispatch<false>(src, tgt, out, n, h0, w0, wt, c, d0, p, max_d,
                          reverse, origin_offset, 0, stream);
+}
+
+// K2's bf16 instance: bf16 descriptors, out (n, d0, h0, w0) bf16.
+extern "C" int dm_costvol_dmajor_bf16(const void* src, const void* tgt,
+                                      void* out, int n, int h0, int w0,
+                                      int wt, int c, int d0, int p, int max_d,
+                                      int reverse, int origin_offset,
+                                      void* stream) {
+  using bf = __nv_bfloat16;
+  return dispatch<false>(static_cast<const bf*>(src),
+                         static_cast<const bf*>(tgt), static_cast<bf*>(out),
+                         n, h0, w0, wt, c, d0, p, max_d, reverse,
+                         origin_offset, 0, stream);
 }
 
 // K6: out is (n, h0, d0, w0), global bins [d_offset, d_offset + d0).

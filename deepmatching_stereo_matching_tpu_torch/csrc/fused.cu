@@ -68,17 +68,17 @@
 // p = 4 is a template instance; any other p runs the same kernel with a
 // runtime p, whose correlation reads the staged pixels per cost.
 //
-// BF16 (patch form only; Config.dtype='bfloat16'): the pixels and the cost
-// arithmetic stay float32, and each cost is rounded to bfloat16 once, after
-// the relu and the mask (fused_pallas.py:_cost_block's c.astype(dtype)),
-// before it is pooled; the quad mean rounds after each add and after the
-// * 0.25, pyramid_up<FAST, BF16> rounds every level's ops, the fast
-// rectification is powf at lam as given (the wrapper passes the float32
-// 1.4: JAX's fast form runs in float32), and the score is the recomputed
-// cost rounded alike.  Levels stay floats holding bfloat16 values, so the
-// layout, the shared memory and the blocks per SM are the float32
-// instance's; the float32 instances compile as before (every bfloat16 step
-// sits under `if constexpr`).
+// BF16 (Config.dtype='bfloat16'; K1's and K1b's bfloat16 instances): the
+// planes and the cost arithmetic stay float32, and each cost is rounded to
+// bfloat16 once, after the relu and the mask (fused_pallas.py:_cost_block's
+// c.astype(dtype), in both forms), before it is pooled; the quad mean
+// rounds after each add and after the * 0.25, pyramid_up<FAST, BF16>
+// rounds every level's ops, the fast rectification is powf at lam as given
+// (the wrapper passes the float32 1.4: JAX's fast form runs in float32),
+// and the score is the recomputed cost rounded alike.  Levels stay floats
+// holding bfloat16 values, so the layout, the shared memory and the blocks
+// per SM are the float32 instance's; the float32 instances compile as
+// before (every bfloat16 step sits under `if constexpr`).
 
 #include "cost.cuh"
 #include "launch.cuh"
@@ -325,8 +325,8 @@ int occupancy(int smem) {
 
 }  // namespace
 
-// lbin/rbin null: patch form (K1, bf16 != 0: its bfloat16 instance); else
-// magbin form (K1b, float32 only), left/right being the magnitude planes.
+// lbin/rbin null: patch form (K1), else magbin form (K1b), left/right being
+// the magnitude planes; bf16 != 0: the form's bfloat16 instance.
 extern "C" int dm_fused_match(const float* left, const float* right,
                               const float* lbin, const float* rbin,
                               int32_t* disp, float* score, int n, int hp,
@@ -334,7 +334,14 @@ extern "C" int dm_fused_match(const float* left, const float* right,
                               float lam, int bf16, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (lbin != nullptr) {
-    if (bf16) return (int)cudaErrorNotSupported;
+    if (bf16) {
+      return p == 4 ? launch<4, true, true>(left, right, lbin, rbin, disp,
+                                            score, n, hp, wp, p, d0, max_d,
+                                            levels, lam, st)
+                    : launch<0, true, true>(left, right, lbin, rbin, disp,
+                                            score, n, hp, wp, p, d0, max_d,
+                                            levels, lam, st);
+    }
     return p == 4 ? launch<4, true, false>(left, right, lbin, rbin, disp,
                                            score, n, hp, wp, p, d0, max_d,
                                            levels, lam, st)
@@ -365,7 +372,8 @@ extern "C" int dm_fused_blocks_per_sm(int p, int d0, int max_d, int levels,
                                       int magbin, int bf16) {
   const int smem = dm_fused_smem(p, d0, max_d, levels, magbin);
   if (magbin) {
-    if (bf16) return -(int)cudaErrorNotSupported;
+    if (bf16) return p == 4 ? occupancy<4, true, true>(smem)
+                            : occupancy<0, true, true>(smem);
     return p == 4 ? occupancy<4, true, false>(smem)
                   : occupancy<0, true, false>(smem);
   }

@@ -27,6 +27,23 @@
 // loads overlap another's levels >= 1 and barriers.
 // Bound on this card by the volume read: 4 B per cost, 0.06 ms for the
 // bench's 64 instances at 3.35 TB/s; ~12 operations per cost.
+//
+// BF16 (K3's bfloat16 instance; pyramid_pallas.py:pyramid_body on a bf16
+// volume, Config.dtype='bfloat16' on the descriptor routes): the volume is
+// bf16 (2 B per cost), each cost widened exactly as it is loaded; every
+// map is rounded to bf16 after each op, as XLA does per op on bf16 arrays:
+// the w-pair sum, the h-pair sum, the * 0.25 and powf (round_bf16), with
+// lam as the wrapper passes it (1.4 rounded to bf16, 1.3984375: JAX's
+// jnp.power(m, jnp.asarray(lam, dt))); comparisons read the exact
+// widenings, and the score is the bf16 cost at the winner, widened.  The
+// levels stay floats holding bf16 values, so the layout, the shared
+// memory and the blocks per SM are the float32 instance's, and the
+// float32 instance compiles as before (every bf16 step sits under
+// `if constexpr`).
+
+#include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "launch.cuh"
 #include "pyramid.cuh"
@@ -56,21 +73,35 @@ __host__ __device__ inline PyramidLayout pyramid_layout(int d0, int levels) {
   return f;
 }
 
+// The volume's element type: float, or __nv_bfloat16 in the BF16 instance.
+template <bool BF16>
+using Cost = std::conditional_t<BF16, __nv_bfloat16, float>;
+
+// One cost, as a float (a bf16 cost widened exactly).
+__device__ __forceinline__ float load_cost(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_cost(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
 // c[r] = cost of plane d + r of one cell (col: the cell in plane 0), 0
 // past d0.
-__device__ __forceinline__ void load_planes(const float* __restrict__ col,
+template <typename T>
+__device__ __forceinline__ void load_planes(const T* __restrict__ col,
                                             size_t plane, int d, int d0,
                                             float (&c)[kStep]) {
 #pragma unroll
   for (int r = 0; r < kStep; ++r)
-    c[r] = d + r < d0 ? __ldg(col + (size_t)(d + r) * plane) : 0.0f;
+    c[r] = d + r < d0 ? load_cost(col + (size_t)(d + r) * plane) : 0.0f;
 }
 
 // Level 0 of the tile, streamed over d per cell from src (the instance's
 // volume at the tile origin): writes the level-1 map lv1 ((D0/2, T/2,
 // T/2)) and the packed level-0 offsets arg0.
-__device__ void level0(const float* __restrict__ src, size_t plane, int w0,
-                       float* lv1, uint8_t* arg0, int d0, int t, float lam) {
+template <bool BF16>
+__device__ void level0(const Cost<BF16>* __restrict__ src, size_t plane,
+                       int w0, float* lv1, uint8_t* arg0, int d0, int t,
+                       float lam) {
   const int cells = t * t, hs = t >> 1, kn = d0 >> 1;
   for (int base = 0; base < cells; base += blockDim.x) {
     if (base + (int)(threadIdx.x & ~31u) >= cells) continue;  // whole warp idle
@@ -81,7 +112,7 @@ __device__ void level0(const float* __restrict__ src, size_t plane, int w0,
     const int I = q / hs, J = q - I * hs;
     const int i = 2 * I + (sub >> 1), j = 2 * J + (sub & 1);
     const int cell = i * t + j;
-    const float* col = src + (size_t)i * w0 + j;
+    const Cost<BF16>* col = src + (size_t)i * w0 + j;
 
     float cur[kStep], nxt[kStep];
     load_planes(col, plane, 0, d0, cur);
@@ -101,9 +132,18 @@ __device__ void level0(const float* __restrict__ src, size_t plane, int w0,
           if (active) arg0[(k >> 2) * cells + cell] = (uint8_t)pack;
           pack = 0u;
         }
-        float m = pooled + __shfl_xor_sync(kFull, pooled, 1);
-        m = m + __shfl_xor_sync(kFull, m, 2);
-        if (active && sub == 0) lv1[k * hs * hs + q] = powf(m * 0.25f, lam);
+        if constexpr (BF16) {
+          float m = dm::round_bf16(
+              __fadd_rn(pooled, __shfl_xor_sync(kFull, pooled, 1)));
+          m = dm::round_bf16(__fadd_rn(m, __shfl_xor_sync(kFull, m, 2)));
+          if (active && sub == 0)
+            lv1[k * hs * hs + q] = dm::round_bf16(
+                powf(dm::round_bf16(__fmul_rn(m, 0.25f)), lam));
+        } else {
+          float m = pooled + __shfl_xor_sync(kFull, pooled, 1);
+          m = m + __shfl_xor_sync(kFull, m, 2);
+          if (active && sub == 0) lv1[k * hs * hs + q] = powf(m * 0.25f, lam);
+        }
         prevc = od;
       }
 #pragma unroll
@@ -112,8 +152,9 @@ __device__ void level0(const float* __restrict__ src, size_t plane, int w0,
   }
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(dm::kThreads, 4)
-pyramid_kernel(const float* __restrict__ cost, int32_t* __restrict__ disp,
+pyramid_kernel(const Cost<BF16>* __restrict__ cost, int32_t* __restrict__ disp,
                float* __restrict__ score, int d0, int h0, int w0, int levels,
                float lam) {
   extern __shared__ float4 smem4[];
@@ -125,16 +166,17 @@ pyramid_kernel(const float* __restrict__ cost, int32_t* __restrict__ disp,
   const int n = blockIdx.y;
   const int y0 = ty * t, x0 = tx * t;
   const size_t plane = (size_t)h0 * w0;
-  const float* src = cost + (size_t)n * d0 * plane + (size_t)y0 * w0 + x0;
+  const Cost<BF16>* src =
+      cost + (size_t)n * d0 * plane + (size_t)y0 * w0 + x0;
   float* lv = reinterpret_cast<float*>(sm + f.lv);
   uint8_t* arg0 = reinterpret_cast<uint8_t*>(sm + f.arg0);
   int8_t* args = reinterpret_cast<int8_t*>(sm + f.args);
 
-  level0(src, plane, w0, lv, arg0, d0, t, lam);
+  level0<BF16>(src, plane, w0, lv, arg0, d0, t, lam);
   __syncthreads();
   const int hs = t >> 1;
-  const float* top = dm::pyramid_up<false>(lv, lv + f.kn * hs * hs, args, d0,
-                                           t, 1, levels, lam);
+  const float* top = dm::pyramid_up<false, BF16>(lv, lv + f.kn * hs * hs,
+                                                 args, d0, t, 1, levels, lam);
   int32_t* dst = disp + (size_t)n * plane;
   float* sco = score + (size_t)n * plane;
   for (int cell = threadIdx.x; cell < t * t; cell += blockDim.x) {
@@ -144,13 +186,31 @@ pyramid_kernel(const float* __restrict__ cost, int32_t* __restrict__ disp,
     k = 2 * k + code - 1;
     const size_t o = (size_t)(y0 + y) * w0 + (x0 + x);
     dst[o] = k;
-    sco[o] = src[(size_t)k * plane + (size_t)y * w0 + x];
+    if constexpr (BF16) {
+      sco[o] = __bfloat162float(src[(size_t)k * plane + (size_t)y * w0 + x]);
+    } else {
+      sco[o] = src[(size_t)k * plane + (size_t)y * w0 + x];
+    }
   }
 }
 
+template <bool BF16>
 dm::SmemAllowance& allowance() {
-  static dm::SmemAllowance a((const void*)pyramid_kernel);
+  static dm::SmemAllowance a((const void*)pyramid_kernel<BF16>);
   return a;
+}
+
+template <bool BF16>
+int launch(const void* cost, int32_t* disp, float* score, int n, int d0,
+           int h0, int w0, int levels, float lam, cudaStream_t stream) {
+  const PyramidLayout f = pyramid_layout(d0, levels);
+  const cudaError_t err = allowance<BF16>().allow(f.total);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((h0 / f.t) * (w0 / f.t), n);
+  pyramid_kernel<BF16><<<grid, dm::kThreads, f.total, stream>>>(
+      static_cast<const Cost<BF16>*>(cost), disp, score, d0, h0, w0, levels,
+      lam);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -161,23 +221,28 @@ extern "C" int dm_pyramid_smem(int d0, int levels) {
   return pyramid_layout(d0, levels).total;
 }
 
-// Blocks one SM holds at this configuration; negative: a CUDA error.
-extern "C" int dm_pyramid_blocks_per_sm(int d0, int levels) {
-  return dm::blocks_per_sm(allowance(), (const void*)pyramid_kernel,
-                           dm::kThreads, dm_pyramid_smem(d0, levels));
+// Blocks of the float32 or bf16 instance one SM holds at this
+// configuration; negative: a CUDA error.
+extern "C" int dm_pyramid_blocks_per_sm(int d0, int levels, int bf16) {
+  const int smem = dm_pyramid_smem(d0, levels);
+  return bf16 ? dm::blocks_per_sm(allowance<true>(),
+                                  (const void*)pyramid_kernel<true>,
+                                  dm::kThreads, smem)
+              : dm::blocks_per_sm(allowance<false>(),
+                                  (const void*)pyramid_kernel<false>,
+                                  dm::kThreads, smem);
 }
 
-extern "C" int dm_pyramid_backtrack(const float* cost, int32_t* disp,
+// cost: (n, d0, h0, w0) float32, or bf16 where bf16 != 0.
+extern "C" int dm_pyramid_backtrack(const void* cost, int32_t* disp,
                                     float* score, int n, int d0, int h0,
-                                    int w0, int levels, float lam,
+                                    int w0, int levels, float lam, int bf16,
                                     void* stream) {
-  const PyramidLayout f = pyramid_layout(d0, levels);
-  const cudaError_t err = allowance().allow(f.total);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((h0 / f.t) * (w0 / f.t), n);
-  pyramid_kernel<<<grid, dm::kThreads, f.total, (cudaStream_t)stream>>>(
-      cost, disp, score, d0, h0, w0, levels, lam);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return bf16 ? launch<true>(cost, disp, score, n, d0, h0, w0, levels, lam,
+                             st)
+              : launch<false>(cost, disp, score, n, d0, h0, w0, levels, lam,
+                              st);
 }
 
 extern "C" const char* dm_error_string(int err) {

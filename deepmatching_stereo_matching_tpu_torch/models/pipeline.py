@@ -23,11 +23,17 @@ as in JAX.  The post-filter runs on the cropped outputs
 (K2 -> K3) on 'fused', as in JAX.
 
 Config.dtype='bfloat16' (the JAX package's bf16 mode; outputs stay
-float32) runs on 'torch' (descriptors rounded to bfloat16 first, products
-summed in float32, then a bfloat16 pyramid: JAX's 'jnp' path) and on
-'fused' through K1 or K4 -> K5 (the float32 cost rounded once:
-ops/fused_cuda.py).  Every other bf16 path raises NotImplementedError
-naming what is not ported yet (`check_supported`); none runs in float32.
+float32) runs on every route and option, with the JAX package's two
+semantics:
+  * the descriptor routes ('torch', 'exact', centred descriptors,
+    lr_mode='direct'): descriptors built, normalised and centred in
+    float32, then rounded to bfloat16 (`match_from_descriptors`); each
+    bin's products summed in float32 and rounded once; then a bfloat16
+    pyramid that rounds every op (K2 bf16 -> K3 bf16, or K5 bf16 in exact
+    mode at large D);
+  * the fused routes (K1, K1b, K4 -> K5): the float32 cost rounded once
+    (ops/fused_cuda.py), then the bfloat16 pyramid.
+`check_supported` refuses only a dtype that the JAX package does not know.
 """
 
 from __future__ import annotations
@@ -49,33 +55,12 @@ from . import descriptors
 _SENTINEL = torch.iinfo(torch.int32).min // 2
 
 
-def not_ported(cfg: Config, what: str) -> None:
-    """Raise NotImplementedError where `what` (a route, an option, a
-    strategy) would run cfg.dtype, which only float32 covers there."""
-    if map_dtype(cfg.dtype) != torch.float32:
-        raise NotImplementedError(f"dtype={cfg.dtype!r} {what}: not ported "
-                                  f"yet")
-
-
-def check_supported(cfg: Config, geom: Geometry, route: str) -> None:
-    """Raise NotImplementedError for what this port does not cover:
-    bfloat16 runs on 'torch', and on 'fused' where K1 or K4 covers the
-    configuration."""
-    if check_route(route) == "torch":
-        map_dtype(cfg.dtype)
-        return
-    if route == "exact":
-        not_ported(cfg, "on the 'exact' route (K2, K3)")
-    if cfg.descriptor == "grad_hist":
-        not_ported(cfg, "with grad_hist descriptors (K1b)")
-    if cfg.center_descriptors:
-        not_ported(cfg, "with centred descriptors")
-    if cfg.lr_check and cfg.lr_mode == "direct":
-        not_ported(cfg, "with lr_mode='direct'")
-    if not (fused_cuda.supported(cfg, geom)
-            or fused_cuda.cost_supported(cfg, geom)):
-        not_ported(cfg, f"on 'fused' at {geom}, which K1 and K4 do not "
-                        f"cover ('exact' route)")
+def check_supported(cfg: Config, route: str) -> None:
+    """Raise for a route the port does not know (ValueError) and for a
+    dtype it does not run (NotImplementedError: float32 and bfloat16 run
+    on every route)."""
+    check_route(route)
+    map_dtype(cfg.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -127,11 +112,13 @@ def match_from_descriptors(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
                            reverse: bool = False, origin_offset: int = 0
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cost volume + pyramid + backtracking on prepared descriptors; in
-    bfloat16 ('torch' only) the descriptors are rounded first."""
+    bfloat16 the descriptors are rounded first (JAX's
+    `match_from_descriptors`), and the volume and the pyramid are bf16."""
     if check_route(route) == "fused":
         route = "exact"     # descriptor-level callers cannot use K1
+    dt = map_dtype(cfg.dtype)
+    desc_src, desc_tgt = desc_src.to(dt), desc_tgt.to(dt)
     if route == "exact":
-        not_ported(cfg, "on the 'exact' route (K2, K3)")
         cost_dm = costvol_cuda.cost_volume_dmajor(
             desc_src, desc_tgt, geom.disparities, cfg.patch_size,
             cfg.max_disparity, reverse=reverse, origin_offset=origin_offset)
@@ -139,9 +126,8 @@ def match_from_descriptors(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
             return pyramid_cuda.pyramid_backtrack(cost_dm, geom.levels,
                                                   cfg.lam)
         return match_dmajor(cost_dm, geom.levels, cfg.lam)
-    dt = map_dtype(cfg.dtype)
     cost0 = costvol_ops.cost_volume(
-        desc_src.to(dt), desc_tgt.to(dt), geom.disparities, cfg.patch_size,
+        desc_src, desc_tgt, geom.disparities, cfg.patch_size,
         cfg.max_disparity, reverse=reverse, origin_offset=origin_offset)
     maps, args = build_pyramid(cost0, geom.levels, cfg.lam)
     return backtrack(maps, args)
@@ -292,7 +278,7 @@ def match_padded_core(left_p: torch.Tensor, right_p: torch.Tensor,
     image's patch and sliding descriptors once and runs
     `match_from_descriptors` both ways ('fused' becomes 'exact' there).
     """
-    check_supported(cfg, geom, route)
+    check_supported(cfg, route)
     if cfg.lr_check and cfg.lr_mode == "direct":
         def match(srcs, tgts, reverse):
             return match_from_descriptors(

@@ -47,20 +47,22 @@ _SIGNATURES = {
     "dm_cost_rows_smem": [_I, _I],
     # p, max_d, bf16
     "dm_cost_rows_blocks_per_sm": [_I, _I, _I],
-    # d0, levels
+    # d0, levels (+ bf16)
     "dm_pyramid_smem": [_I, _I],
-    "dm_pyramid_blocks_per_sm": [_I, _I],
-    # c, d0, p (+ rows)
+    "dm_pyramid_blocks_per_sm": [_I, _I, _I],
+    # c, d0, p (+ rows, bf16)
     "dm_costvol_smem": [_I, _I, _I],
-    "dm_costvol_blocks_per_sm": [_I, _I, _I, _I],
+    "dm_costvol_blocks_per_sm": [_I, _I, _I, _I, _I],
     # src, tgt, out, n, h0, w0, wt, c, d0, p, max_d, reverse, origin_offset, stream
     "dm_costvol_dmajor": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dm_costvol_dmajor_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P],
     # src, tgt, out, n, h0, w0, wt, c, d0, p, max_d, reverse, origin_offset,
     # d_offset, stream
     "dm_costvol_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _P],
-    # cost, disp, score, n, d0, h0, w0, levels, lam, stream
-    "dm_pyramid_backtrack": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # cost, disp, score, n, d0, h0, w0, levels, lam, bf16, stream
+    "dm_pyramid_backtrack": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # left, right, lbin, rbin, disp, score, n, hp, wp, p, d0, max_d, levels,
     # lam, bf16, stream
     "dm_fused_match": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,

@@ -9,6 +9,16 @@ one kernel with the same dot-product loop, so a K6 slab is bitwise equal
 to the same bins of K2.  What bounds it on the card and how it is laid
 out: see the note at the top of csrc/costvol.cu; `plan` mirrors its
 block schedule.
+
+K2 also takes bfloat16 descriptors (Config.dtype='bfloat16' on the
+descriptor routes, `costvol_pallas.py:117-118` on bf16 descriptors) and
+returns a bfloat16 volume: each bin is the float32 dot of the exact
+widenings, relu'd and masked, rounded once.  Its instance widens the
+descriptors as it stages them into the float32 layout, so `plan` and
+`smem_bytes` hold for both dtypes, and its volume is bitwise the float32
+kernel's on the widened descriptors, rounded.  K6 takes float32 only: no
+path of the JAX package runs its row-layout volume in bfloat16 (dslab,
+ringd and wtiled below the top level build it from float32 descriptors).
 """
 
 from __future__ import annotations
@@ -81,27 +91,37 @@ def smem_bytes(c: int, d0: int, p: int) -> int:
     return q.smem if q.nch else 0
 
 
-def blocks_per_sm(c: int, d0: int, p: int, rows: bool = False) -> int:
-    """Blocks of K6 (rows) or K2 that one SM of the current card holds
-    (CUDA's occupancy calculator, through `dm_costvol_blocks_per_sm`).
-    Needs the card."""
-    n = _build.library().dm_costvol_blocks_per_sm(c, d0, p, int(rows))
+def blocks_per_sm(c: int, d0: int, p: int, rows: bool = False,
+                  bf16: bool = False) -> int:
+    """Blocks of K6 (rows) or K2 (float32, or its bfloat16 instance) that
+    one SM of the current card holds (CUDA's occupancy calculator, through
+    `dm_costvol_blocks_per_sm`).  Needs the card."""
+    n = _build.library().dm_costvol_blocks_per_sm(c, d0, p, int(rows),
+                                                  int(bf16))
     if n < 0:
         _build.check(-n, "cost-volume kernel occupancy")
     return n
 
 
 def _check_descriptors(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
-                       disparities: int, patch_size: int):
+                       disparities: int, patch_size: int,
+                       rows: bool = False):
     """(lead, h0, w0, wt, c) of a source/target descriptor pair the
-    kernel takes."""
+    kernel takes: both float32, or both bfloat16 in the D-major layout."""
     *lead, h0, w0, c = desc_src.shape
     wt = desc_tgt.shape[-2]
     if tuple(desc_tgt.shape) != (*lead, h0, wt, c):
         raise ValueError(f"descriptor shapes {tuple(desc_src.shape)} and "
                          f"{tuple(desc_tgt.shape)} do not pair")
-    if desc_src.dtype != torch.float32 or desc_tgt.dtype != torch.float32:
-        raise NotImplementedError("the cost-volume kernel takes float32 only")
+    if (desc_src.dtype != desc_tgt.dtype
+            or desc_src.dtype not in (torch.float32, torch.bfloat16)):
+        raise NotImplementedError(
+            f"the cost-volume kernel takes a float32 or bfloat16 descriptor "
+            f"pair, not {desc_src.dtype} and {desc_tgt.dtype}")
+    if rows and desc_src.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "the row-layout cost volume (K6) takes float32 descriptors: no "
+            "path of the JAX package runs it in bfloat16")
     plan(c, disparities, patch_size)
     return lead, h0, w0, wt, c
 
@@ -121,43 +141,50 @@ def cost_volume_dmajor(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
                        reverse: bool = False, origin_offset: int = 0
                        ) -> torch.Tensor:
     """K2: (..., H0, W0, C) source patches, (..., H0, Wt, C) target
-    sliding descriptors -> (..., D, H0, W0) f32 D-major cost volume."""
+    sliding descriptors, both float32 or both bfloat16 -> (..., D, H0, W0)
+    D-major cost volume in the descriptors' dtype."""
     if not run_kernel(desc_src, desc_tgt):
         return cost_volume_dmajor_torch(desc_src, desc_tgt, disparities,
                                         patch_size, max_disparity, reverse,
                                         origin_offset)
     lead, h0, w0, wt, c = _check_descriptors(
         desc_src, desc_tgt, disparities, patch_size)
+    bf16 = desc_src.dtype == torch.bfloat16
     src = desc_src.contiguous()
     tgt = desc_tgt.contiguous()
-    out = torch.empty((*lead, disparities, h0, w0), dtype=torch.float32,
+    out = torch.empty((*lead, disparities, h0, w0), dtype=src.dtype,
                       device=src.device)
     if out.numel():
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = _build.library().dm_costvol_dmajor(
-            src.data_ptr(), tgt.data_ptr(), out.data_ptr(), math.prod(lead),
-            h0, w0, wt, c, disparities, patch_size, max_disparity,
-            int(reverse), origin_offset, stream)
+        lib = _build.library()
+        launch = lib.dm_costvol_dmajor_bf16 if bf16 else lib.dm_costvol_dmajor
+        rc = launch(src.data_ptr(), tgt.data_ptr(), out.data_ptr(),
+                    math.prod(lead), h0, w0, wt, c, disparities, patch_size,
+                    max_disparity, int(reverse), origin_offset, stream)
         _build.check(rc, "cost-volume kernel launch")
-        cost_volume_dmajor.launches += 1
+        if bf16:
+            cost_volume_dmajor.bf16_launches += 1
+        else:
+            cost_volume_dmajor.launches += 1
     return out
 
 
-cost_volume_dmajor.launches = 0
+cost_volume_dmajor.launches = 0        # K2, float32
+cost_volume_dmajor.bf16_launches = 0   # K2, bfloat16
 
 
 def cost_volume_rows(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
                      disparities: int, patch_size: int, max_disparity: int,
                      reverse: bool = False, origin_offset: int = 0,
                      d_offset: int = 0) -> torch.Tensor:
-    """K6: descriptors as for K2 -> (..., H0, D, W0) f32 row-layout cost
-    volume of the global bins [d_offset, d_offset + D)."""
+    """K6: float32 descriptors as for K2 -> (..., H0, D, W0) f32
+    row-layout cost volume of the global bins [d_offset, d_offset + D)."""
     if not run_kernel(desc_src, desc_tgt):
         return costvol.cost_volume_rows_torch(
             desc_src, desc_tgt, disparities, patch_size, max_disparity,
             reverse, origin_offset, d_offset)
     lead, h0, w0, wt, c = _check_descriptors(
-        desc_src, desc_tgt, disparities, patch_size)
+        desc_src, desc_tgt, disparities, patch_size, rows=True)
     src = desc_src.contiguous()
     tgt = desc_tgt.contiguous()
     out = torch.empty((*lead, h0, disparities, w0), dtype=torch.float32,

@@ -12,16 +12,16 @@ pixels directly in f32.  K1/K1b and K4 compile one cost block,
 csrc/cost.cuh (K4's volume is K1's bitwise witness); what bounds each on
 the card: see the notes at the top of the .cu files.
 
-Config.dtype='bfloat16' (patch form only: K1 and K4): the pixels stay
-float32 and the float32 cost is rounded to bfloat16 once, after the relu
-and the mask (fused_pallas.py:_cost_block's `c.astype(dtype)`).  K4 then
-stores a bfloat16 volume, bitwise its float32 volume rounded; K1 pools
-the rounded costs through a pyramid whose maps are rounded after each op
-(pyramid_cuda's plain versions define the rounding), with its fast
-rectification in float32 at lam as given, and returns the rounded score
-widened to float32.  Both keep the float32 layouts: K1's levels are
-floats that hold bfloat16 values, so the shared-memory mirrors hold for
-either dtype.
+Config.dtype='bfloat16' (K1, K1b and K4): the planes stay float32 and
+the float32 cost is rounded to bfloat16 once, after the relu and the mask
+(fused_pallas.py:_cost_block's `c.astype(dtype)`, in the patch and the
+magbin form).  K4 then stores a bfloat16 volume, bitwise its float32
+volume rounded; K1/K1b pool the rounded costs through a pyramid whose
+maps are rounded after each op (pyramid_cuda's plain versions define the
+rounding), with the fast rectification in float32 at lam as given, and
+return the rounded score widened to float32.  All keep the float32
+layouts: K1's levels are floats that hold bfloat16 values, so the
+shared-memory mirrors hold for either dtype.
 """
 
 from __future__ import annotations
@@ -141,12 +141,12 @@ def _magbin(cfg: Config) -> bool:
 
 
 def supported(cfg: Config, geom: Geometry) -> bool:
-    """True when K1 (patch, float32 or bfloat16) or K1b (grad_hist,
-    float32) covers this configuration: not centred, a patch grid and D0
-    aligned to the 2^L quadtree tile, and `route_bytes` (which bounds
-    `smem_bytes`) inside one block's shared memory — the KITTI large-D
-    geometry is not."""
-    if cfg.center_descriptors or (cfg.dtype != "float32" and _magbin(cfg)):
+    """True when K1 (patch) or K1b (grad_hist), in either dtype, covers
+    this configuration: not centred, a patch grid and D0 aligned to the
+    2^L quadtree tile, and `route_bytes` (which bounds `smem_bytes`)
+    inside one block's shared memory — the KITTI large-D geometry is
+    not."""
+    if cfg.center_descriptors:
         return False
     unit = 2 ** geom.levels
     if geom.grid_h % unit or geom.grid_w % unit or geom.disparities % unit:
@@ -157,10 +157,10 @@ def supported(cfg: Config, geom: Geometry) -> bool:
 
 
 def blocks_per_sm(cfg: Config, geom: Geometry) -> int:
-    """Blocks of K1 (patch, the instance of cfg.dtype) or K1b (grad_hist)
-    that one SM of the current card holds at this configuration (CUDA's
-    occupancy calculator, through `dm_fused_blocks_per_sm`).  Needs the
-    card."""
+    """Blocks of K1 (patch) or K1b (grad_hist), the instance of
+    cfg.dtype, that one SM of the current card holds at this
+    configuration (CUDA's occupancy calculator, through
+    `dm_fused_blocks_per_sm`).  Needs the card."""
     n = _build.library().dm_fused_blocks_per_sm(
         cfg.patch_size, geom.disparities, cfg.max_disparity, geom.levels,
         int(_magbin(cfg)), int(_bf16(cfg)))
@@ -246,15 +246,10 @@ def _bf16(cfg: Config) -> bool:
     return map_dtype(cfg.dtype) == torch.bfloat16
 
 
-def _check_planes(cfg: Config, *tensors: torch.Tensor) -> None:
-    """The kernels take float32 planes; their bfloat16 instances are the
-    patch form's (K1, K4)."""
+def _check_planes(*tensors: torch.Tensor) -> None:
+    """The kernels take float32 planes, in either Config.dtype."""
     if any(t.dtype != torch.float32 for t in tensors):
         raise NotImplementedError("the fused kernels take float32 planes")
-    if _bf16(cfg) and _magbin(cfg):
-        raise NotImplementedError(
-            "dtype='bfloat16' with grad_hist descriptors (K1b): not ported "
-            "yet")
 
 
 def match_planes(left: torch.Tensor, right: torch.Tensor, cfg: Config,
@@ -263,9 +258,9 @@ def match_planes(left: torch.Tensor, right: torch.Tensor, cfg: Config,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., Hp, Wp) f32 padded planes -> (disp int32, score f32),
     (..., H0, W0), one pair-direction per leading index: K1 on pixel
-    pairs (patch; its bfloat16 instance where cfg.dtype says so), K1b on
-    (magnitude, bin) pairs (grad_hist; the bins are integers 0..7 held as
-    f32, and K1b stages them as bytes)."""
+    pairs (patch), K1b on (magnitude, bin) pairs (grad_hist; the bins are
+    integers 0..7 held as f32, and K1b stages them as bytes); each in its
+    bfloat16 instance where cfg.dtype says so."""
     p = cfg.patch_size
     *lead, hp, wp = left.shape
     planes = [x for x in (left, right, left_bin, right_bin) if x is not None]
@@ -278,7 +273,7 @@ def match_planes(left: torch.Tensor, right: torch.Tensor, cfg: Config,
     if not run_kernel(*planes):
         return match_planes_torch(left, right, cfg, geom, left_bin,
                                   right_bin)
-    _check_planes(cfg, *planes)
+    _check_planes(*planes)
     if not supported(cfg, geom):
         raise NotImplementedError(
             f"the fused kernel does not cover {cfg} at {geom}")
@@ -299,7 +294,9 @@ def match_planes(left: torch.Tensor, right: torch.Tensor, cfg: Config,
             geom.disparities, cfg.max_disparity, geom.levels, cfg.lam,
             int(_bf16(cfg)), stream)
         _build.check(rc, "fused kernel launch")
-        if lbin is not None:
+        if lbin is not None and _bf16(cfg):
+            match_planes.magbin_bf16_launches += 1
+        elif lbin is not None:
             match_planes.magbin_launches += 1
         elif _bf16(cfg):
             match_planes.bf16_launches += 1
@@ -308,9 +305,10 @@ def match_planes(left: torch.Tensor, right: torch.Tensor, cfg: Config,
     return disp, score
 
 
-match_planes.launches = 0          # K1, patch form
-match_planes.bf16_launches = 0     # K1, patch form in bfloat16
-match_planes.magbin_launches = 0   # K1b, magbin form
+match_planes.launches = 0               # K1, patch form
+match_planes.bf16_launches = 0          # K1, patch form in bfloat16
+match_planes.magbin_launches = 0        # K1b, magbin form
+match_planes.magbin_bf16_launches = 0   # K1b, magbin form in bfloat16
 
 
 def match_rows(left_p: torch.Tensor, right_p: torch.Tensor, cfg: Config,
@@ -337,7 +335,7 @@ def cost_volume_rows(left_p: torch.Tensor, right_p: torch.Tensor,
     dtype = map_dtype(cfg.dtype)
     if not run_kernel(left_p, right_p):
         return cost_volume_torch(left_p, right_p, cfg, geom).to(dtype)
-    _check_planes(cfg, left_p, right_p)
+    _check_planes(left_p, right_p)
     if not cost_supported(cfg, geom):
         raise NotImplementedError(
             f"the cost-volume kernel does not cover {cfg} at {geom}")

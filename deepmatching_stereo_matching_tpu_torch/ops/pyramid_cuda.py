@@ -13,11 +13,13 @@ memory.  What bounds each on the card: see the notes at the top of the
 The plain versions share one definition of the pool, the merge
 (`aggregate_dmajor_torch`) and the descent (`descend`, `backtrack_top`).
 
-bfloat16 volumes (K5 only; K3 takes float32): every map is rounded to
-bfloat16 after each op, the offsets stay int8, scores are widened to
-float32, and the exponent is rounded to bfloat16 as the JAX package's
-`jnp.asarray(lam, dt)` does (`pool.map_lam`), except in K1's fast
-rectification (`pyramid_body(fast=True)`), which JAX runs in float32.
+bfloat16 volumes (K3 and K5 each have a bfloat16 instance): every map is
+rounded to bfloat16 after each op, the offsets stay int8, scores are
+widened to float32, and the exponent is rounded to bfloat16 as the JAX
+package's `jnp.asarray(lam, dt)` does (`pool.map_lam`), except in K1's
+fast rectification (`pyramid_body(fast=True)`), which JAX runs in
+float32.  K3's levels stay floats holding bfloat16 values, so
+`route_bytes`, `smem_bytes` and the blocks per SM hold for both dtypes.
 """
 
 from __future__ import annotations
@@ -78,11 +80,11 @@ def supported(d0: int, levels: int) -> bool:
     return d0 % (2 ** levels) == 0 and route_bytes(d0, levels) <= MAX_SMEM
 
 
-def blocks_per_sm(d0: int, levels: int) -> int:
-    """Blocks of K3 that one SM of the current card holds (CUDA's
-    occupancy calculator, through `dm_pyramid_blocks_per_sm`).  Needs the
-    card."""
-    n = _build.library().dm_pyramid_blocks_per_sm(d0, levels)
+def blocks_per_sm(d0: int, levels: int, bf16: bool = False) -> int:
+    """Blocks of K3 (float32, or its bfloat16 instance) that one SM of
+    the current card holds (CUDA's occupancy calculator, through
+    `dm_pyramid_blocks_per_sm`).  Needs the card."""
+    n = _build.library().dm_pyramid_blocks_per_sm(d0, levels, int(bf16))
     if n < 0:
         _build.check(-n, "pyramid kernel occupancy")
     return n
@@ -166,7 +168,8 @@ def _check_dtype(cost_dm: torch.Tensor, what: str,
 
 def pyramid_backtrack(cost_dm: torch.Tensor, levels: int, lam: float
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(..., D0, H0, W0) f32 D-major volume -> (disp int32, score f32)."""
+    """(..., D0, H0, W0) f32 or bf16 D-major volume -> (disp int32, score
+    f32), exact mode (lam rounded to the volume's dtype)."""
     *lead, d0, h0, w0 = cost_dm.shape
     _check_aligned(d0, h0, w0, levels)
     if not run_kernel(cost_dm):
@@ -176,7 +179,8 @@ def pyramid_backtrack(cost_dm: torch.Tensor, levels: int, lam: float
             f"pyramid kernel: a (D0={d0}, 2^{levels} x 2^{levels}) tile "
             f"routes by {route_bytes(d0, levels)} B of shared memory, more "
             f"than {MAX_SMEM}")
-    _check_dtype(cost_dm, "pyramid", (torch.float32,))
+    _check_dtype(cost_dm, "pyramid", (torch.float32, torch.bfloat16))
+    bf16 = cost_dm.dtype == torch.bfloat16
     n = math.prod(lead)
     cost = cost_dm.contiguous()
     disp = torch.empty((*lead, h0, w0), dtype=torch.int32, device=cost.device)
@@ -186,13 +190,17 @@ def pyramid_backtrack(cost_dm: torch.Tensor, levels: int, lam: float
         stream = torch.cuda.current_stream(cost.device).cuda_stream
         rc = _build.library().dm_pyramid_backtrack(
             cost.data_ptr(), disp.data_ptr(), score.data_ptr(), n, d0, h0,
-            w0, levels, lam, stream)
+            w0, levels, pool.map_lam(lam, cost.dtype), int(bf16), stream)
         _build.check(rc, "pyramid kernel launch")
-        pyramid_backtrack.launches += 1
+        if bf16:
+            pyramid_backtrack.bf16_launches += 1
+        else:
+            pyramid_backtrack.launches += 1
     return disp, score
 
 
-pyramid_backtrack.launches = 0
+pyramid_backtrack.launches = 0        # K3, float32 volume
+pyramid_backtrack.bf16_launches = 0   # K3, bfloat16 volume
 
 
 def aggregate_dmajor(cost_dm: torch.Tensor, levels: int, lam: float,

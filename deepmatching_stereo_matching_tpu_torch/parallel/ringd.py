@@ -15,6 +15,8 @@ docstring).  Only (H, W) planes cross ranks:
 
 The per-level pools are torch ops, as they are XLA in JAX.  Every rank
 ends with the same winner maps, bitwise equal to the unsharded ones.
+The slab volume is built from float32 descriptors in either Config.dtype,
+as in the JAX package, so a bfloat16 config runs bitwise its float32 run.
 """
 
 from __future__ import annotations

@@ -155,8 +155,10 @@ def run_stream(pairs: Iterable[Tuple[np.ndarray, np.ndarray]],
         (real pairs, height, width) numpy outputs.
       _match_fn: test hook replacing the sharded step (fault injection).
     Returns a StreamReport; emits per-batch JSONL metrics via `logger`.
+    In bfloat16 the stream computes as its strategy does
+    (`sharded.match_batch_sharded`).
     """
-    pipeline.not_ported(cfg, "on the stream runner")
+    pipeline.check_supported(cfg, route)
     if mesh is None:
         mesh = mesh_lib.auto_mesh()
     log = logger or JsonlLogger()

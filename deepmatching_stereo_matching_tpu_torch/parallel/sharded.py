@@ -18,6 +18,16 @@ unsharded `pipeline.match_padded` run at the strategy's padded extents,
 bitwise: ties break by index, every reduction keeps its order, padded
 rows and bins score 0 and never win, and a K6 slab is bitwise the same
 bins of the unsharded cost volume (csrc/costvol.cu).
+
+Config.dtype='bfloat16', as the JAX package runs it: ``tiled`` and
+``wtiled`` with merge_level None run the unsharded pipeline's bfloat16
+path in each tile (K1/K1b bf16, or the descriptor route K2 bf16 -> K3/K5
+bf16), bitwise the unsharded bf16 pipeline.  ``dslab``, ``ringd`` and
+``wtiled`` below the top level build their volumes from float32
+descriptors and never cast them (the JAX package's `parallel/sharded.py`,
+`ringd.py` and `wtiled.py` do the same), so they compute in float32
+whatever cfg.dtype says: their outputs are bitwise their float32 run's.
+That is the reference's behaviour, kept, not a widening of the port's.
 """
 
 from __future__ import annotations
@@ -98,7 +108,7 @@ def slab_cost_volume(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
                      route: str) -> torch.Tensor:
     """One rank's disparity slab [d_offset, d_offset + d_local) in the row
     layout (..., H0, Dl, W0): K6 on the kernel routes, stock torch on
-    'torch'."""
+    'torch'; float32 in either Config.dtype, as in the JAX package."""
     volume = (costvol_ops.cost_volume_rows_torch
               if check_route(route) == "torch"
               else costvol_cuda.cost_volume_rows)
@@ -245,8 +255,10 @@ def match_batch_sharded(lefts_p, rights_p, cfg: Config, height: int,
     `lefts_p`/`rights_p` are the full (B, Hp, Wp) batch from `pad_batch`
     on every rank; every rank returns the full (B, height, width)
     outputs.  `debug_checks` (ringd only) asserts that the winner maps
-    are replicated over the model axis."""
-    pipeline.not_ported(cfg, f"on the sharded strategy {strategy!r}")
+    are replicated over the model axis.  In bfloat16, dslab, ringd and
+    wtiled below the top level compute in float32, as in the JAX package
+    (module docstring)."""
+    pipeline.check_supported(cfg, route)
     if strategy == "tiled":
         return match_batch_tiled(lefts_p, rights_p, cfg, height, width,
                                  mesh, route)

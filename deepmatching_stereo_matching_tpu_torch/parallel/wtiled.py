@@ -20,6 +20,12 @@ docstring), on a ("data", "th", "tw") mesh:
 
 Every output is bitwise equal to the unsharded pipeline's at the same
 padded extents, for both LR modes.
+
+Config.dtype='bfloat16', as the JAX package runs it: with l0 == levels the
+tile runs `match_from_descriptors`, which rounds the descriptors to
+bfloat16 (K2 bf16 -> K3/K5 bf16); with l0 < levels the tile's volume (K6)
+and its pyramid are built from float32 descriptors, as in the JAX
+package's `_match_tile`, so that run is bitwise its float32 run.
 """
 
 from __future__ import annotations

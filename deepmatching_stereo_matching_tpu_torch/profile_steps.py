@@ -10,15 +10,16 @@
         --costvol --hashes FILE [--root CHECKOUT]
     python deepmatching_stereo_matching_tpu_torch/profile_steps.py \
         --rows --hashes FILE [--root CHECKOUT]
+    python deepmatching_stereo_matching_tpu_torch/profile_steps.py \
+        --sass-diff CHECKOUT
 
 Cells (synthetic pairs made from seeds, `lr_mode="flip"`): bench
 (450x375, D=64, 32 pairs, bench.py's recipe), grad_hist (the same with
 grad_hist descriptors), kitti128 and kitti256 (1242x375 at D=128 x 8
 pairs and D=256 x 4 pairs, tools/bench_large.py's recipe).
 
-For each cell, dtype (`--dtype`, default float32; bfloat16 runs where the
-port covers it: 'fused' on bench and kitti*, else the cell is skipped
-with the reason) and route, `--steps` calls of `match_padded_core` run
+For each cell, dtype (`--dtype`, default float32; bfloat16 runs on every
+route) and route, `--steps` calls of `match_padded_core` run
 once unprofiled and once under torch.profiler; with `--strategies`, so do
 `parallel.match_batch_sharded` calls of each named sharded strategy on a
 world of one rank over NCCL (tiled on 'fused', the others on 'exact';
@@ -48,7 +49,9 @@ every cost-volume launch chip_smoke.py makes (`costvol_cases`, inputs
 made on the card from seeds), and times the bench's descriptors (patch
 and grad_hist, 64 instances, left + sliding): the hashes go to --hashes
 FILE where it does not exist, else each is compared with it (exit 1 if
-any differs).
+any differs).  K2's bfloat16 instance runs every K2 case again on the
+descriptors rounded to bf16 (keys "... bf16", new keys: listed, not
+compared) and is timed at the bench and at C=128.
 Run on the parent first, then the change, to show the volumes bitwise
 equal.
 
@@ -62,9 +65,16 @@ are listed, not compared),
 and on the small cases' planes runs K1 too, hashes its (disparity,
 score) and counts its scores that differ from K4's volume at its
 disparities: written to or compared with --hashes FILE as --costvol
-does.  The first run also keeps the small cases' inputs and outputs
+does.  K3's bfloat16 instance runs every K3 case again on the volume
+rounded to bf16 (new keys "... bf16") and is timed at the bench.  The first run also keeps the small cases' inputs and outputs
 beside FILE (FILE.npz), so that a later run prints how far a differing
 case is off.
+
+--sass-diff CHECKOUT builds this checkout's library and CHECKOUT's and
+compares the SASS of every instance of every kernel, matched by template
+arguments (labels renumbered alike, column padding ignored): a kernel
+whose source gained an instance shows whether its earlier instances
+compile as before.
 """
 
 from __future__ import annotations
@@ -161,7 +171,7 @@ def profile_cells(cells, routes, steps, strategies=(), dtypes=("float32",)):
         todo = []
         for route in routes:
             try:
-                pipeline.check_supported(cfg, geom, route)
+                pipeline.check_supported(cfg, route)
             except NotImplementedError as e:
                 print(f"\n== {cell} [{route}] {dtype}: skipped: {e}")
                 continue
@@ -262,19 +272,22 @@ def costvol_cases():
     return cases
 
 
-def costvol_inputs(torch, shape, seed, device="cuda"):
+def costvol_inputs(torch, shape, seed, device="cuda", dtype=None):
     """Unit-norm descriptors for one case, made on the device from a seed:
     (src, tgt), the target's last p - 1 columns zero as sliding
-    descriptors are, and off 16-byte alignment where the case says so."""
+    descriptors are, and off 16-byte alignment where the case says so
+    (one element off).  `dtype` (default float32): bfloat16 rounds the
+    float32 descriptors."""
     lead, h0, w0, wt, c, d0, p, *_, aligned = shape
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def make(cols):
         x = torch.randn((*lead, h0, cols, c), generator=gen, device=device)
-        x = x / x.square().sum(-1, keepdim=True).sqrt()
+        x = (x / x.square().sum(-1, keepdim=True).sqrt()).to(
+            dtype or torch.float32)
         if aligned:
             return x
-        buf = torch.empty(x.numel() + 1, device=device)
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)
         buf[1:].copy_(x.flatten())
         return buf[1:].view(x.shape)
 
@@ -294,7 +307,9 @@ def costvol_launch(costvol_cuda, kind, shape, src, tgt):
 
 def sass(so, kernel):
     """{function: its SASS lines} of every instance of `kernel` in the
-    built library, or None where the toolkit has no cuobjdump."""
+    built library, or None where the toolkit has no cuobjdump.  A body
+    ends at the next function or at the header of the next cubin
+    ("Fatbin ..."), which follows the last function of a source file."""
     import os
     import shutil
     import subprocess
@@ -311,6 +326,8 @@ def sass(so, kernel):
             cur = fn if kernel in fn else None
             if cur:
                 bodies[cur] = []
+        elif line.startswith("Fatbin"):
+            cur = None
         elif cur:
             bodies[cur].append(line)
     return bodies
@@ -345,13 +362,19 @@ def time_costvol(hashes: Path):
     print(f"costvol_kernel SASS {_build.SRC_DIR}: {costvol_sass(so)}",
           flush=True)
     timed = ("K2 bench fwd", "K2 bench C=128 fwd", "K2 kitti D=256 fwd",
-             "K6 kitti D=256 fwd")
+             "K6 kitti D=256 fwd", "K2 bench fwd bf16",
+             "K2 bench C=128 fwd bf16")
     got = {}
-    for seed, (name, kind, shape) in enumerate(costvol_cases()):
-        src, tgt = costvol_inputs(torch, shape, seed)
+    cases = [(seed, name, kind, shape, torch.float32)
+             for seed, (name, kind, shape) in enumerate(costvol_cases())]
+    cases += [(seed, f"{name} bf16", kind, shape, torch.bfloat16)
+              for seed, name, kind, shape, _ in cases if kind == "K2"]
+    for seed, name, kind, shape, dtype in cases:
+        src, tgt = costvol_inputs(torch, shape, seed, dtype=dtype)
         vol = costvol_launch(costvol_cuda, kind, shape, src, tgt)
         torch.cuda.synchronize()
-        got[name] = hashlib.sha256(vol.cpu().numpy().tobytes()).hexdigest()
+        bits = vol.view(torch.int16) if dtype == torch.bfloat16 else vol
+        got[name] = hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()
         if name in timed:
             ms = _median_launch_ms(torch, lambda: costvol_launch(
                 costvol_cuda, kind, shape, src, tgt))
@@ -378,9 +401,11 @@ def time_costvol(hashes: Path):
         print(f"costvol: {len(got)} volume hashes written to {hashes}")
         return 0
     want = json.loads(hashes.read_text())
-    differ = sorted(k for k in got if want.get(k) != got[k])
-    print(f"costvol: {len(got) - len(differ)} of {len(got)} volumes bitwise "
-          f"equal to {hashes}; differ: {differ}", flush=True)
+    new = sorted(k for k in got if k not in want)
+    differ = sorted(k for k in got if k in want and want[k] != got[k])
+    print(f"costvol: {len(got) - len(new) - len(differ)} of "
+          f"{len(got) - len(new)} volumes bitwise equal to {hashes}; differ: "
+          f"{differ}; new, not compared: {new}", flush=True)
     return 1 if differ else 0
 
 
@@ -439,8 +464,9 @@ def rows_inputs(torch, kind, shape, seed, device="cuda"):
 
 
 def rows_launch(kind, shape, inputs, name="", plain=False, dtype="float32"):
-    """K4's volume (in `dtype`) or K3's (disparity, score) for one case,
-    through the kernel's wrapper (or its plain version)."""
+    """K4's volume (in `dtype`) or K3's (disparity, score) on the case's
+    volume rounded to `dtype`, through the kernel's wrapper (or its plain
+    version)."""
     from deepmatching_stereo_matching_tpu_torch.config import Config, Geometry
     import torch
 
@@ -457,7 +483,8 @@ def rows_launch(kind, shape, inputs, name="", plain=False, dtype="float32"):
             return fused_cuda.cost_volume_torch(*inputs, cfg, geom).to(
                 getattr(torch, dtype))
         return fused_cuda.cost_volume_rows(*inputs, cfg, geom)
-    volume = inputs[1] if "ties" in name else inputs[0]
+    volume = (inputs[1] if "ties" in name else inputs[0]).to(
+        getattr(torch, dtype))
     if plain:
         return pyramid_cuda.pyramid_body(volume, shape[4], 1.4, fast=False)
     return pyramid_cuda.pyramid_backtrack(volume, shape[4], 1.4)
@@ -518,11 +545,15 @@ def time_rows(hashes: Path):
             "\n".join(lines))
     print(f"fused_kernel SASS {_build.SRC_DIR}: "
           f"{ {k: v[:12] for k, v in got.items()} }", flush=True)
-    timed = ("K4 kitti D=128", "K4 kitti D=256", "K3 bench")
+    timed = ("K4 kitti D=128", "K4 kitti D=256", "K3 bench", "K3 bench bf16")
     levels_of = {f"K4 {small_name(*t)}": t[3] for t in SMALL_TILES}
-    for seed, (name, kind, shape) in enumerate(rows_cases()):
+    cases = [(seed, name, kind, shape, "float32")
+             for seed, (name, kind, shape) in enumerate(rows_cases())]
+    cases += [(seed, f"{name} bf16", kind, shape, "bfloat16")
+              for seed, name, kind, shape, _ in cases if kind == "K3"]
+    for seed, name, kind, shape, dtype in cases:
         inputs = rows_inputs(torch, kind, shape, seed)
-        out = rows_launch(kind, shape, inputs, name)
+        out = rows_launch(kind, shape, inputs, name, dtype=dtype)
         torch.cuda.synchronize()
         if name in levels_of:
             k1, off = k1_witness(shape, levels_of[name], inputs, out)
@@ -543,9 +574,11 @@ def time_rows(hashes: Path):
                 print(f"  {key} differs at {int((x != was).sum())} of "
                       f"{x.numel()}: max |diff| "
                       f"{float((x.double() - was.double()).abs().max()):.3e}")
-        if name in timed:
+        if name in timed:     # K3's volume rounded once, outside the timing
+            tin = (tuple(x.to(getattr(torch, dtype)) for x in inputs)
+                   if kind == "K3" else inputs)
             ms = _median_launch_ms(torch, lambda: rows_launch(
-                kind, shape, inputs, name))
+                kind, shape, tin, name, dtype=dtype))
             print(f"{name} {shape} {_build.SRC_DIR}: ms per call, 5 x 20 "
                   f"launches: " + " ".join(f"{x:.4f}" for x in ms)
                   + f"; median {float(np.median(ms)):.4f}", flush=True)
@@ -560,6 +593,80 @@ def time_rows(hashes: Path):
     print(f"rows: {len(got) - len(new) - len(differ)} of "
           f"{len(got) - len(new)} hashes equal to {hashes}; differ: "
           f"{differ}; new, not compared: {new}", flush=True)
+    return 1 if differ else 0
+
+
+# Kernel instances matched across checkouts for --sass-diff: a pattern on
+# the mangled name -> the instance's template arguments.  An instance whose
+# checkout did not template its kernel yet (pyramid_kernel, float32
+# costvol_kernel) matches its float32 instance.
+SASS_KERNELS = {
+    "fused_kernel": r"fused_kernelILi(\d+)ELb([01])ELb([01])E",
+    "costvol_kernel": r"costvol_kernelILb([01])ELb([01])E(f|13__nv_bfloat16|)E",
+    "costrows_kernel": r"costrows_kernelILi(\d+)E(f|13__nv_bfloat16)E",
+    "pyramid_kernel": r"pyramid_kernel(?:ILb([01])E)?",
+    "aggregate_level_kernel": r"aggregate_level_kernelI(f|13__nv_bfloat16)E",
+}
+
+
+def _instance(fn):
+    """(kernel, template arguments) of a mangled SASS function name."""
+    import re
+
+    for kernel, pattern in SASS_KERNELS.items():
+        m = re.search(pattern, fn)
+        if m:
+            args = tuple({"": "f", None: "0"}.get(g, g) for g in m.groups())
+            return kernel, tuple("bf16" if a == "13__nv_bfloat16" else a
+                                 for a in args)
+    return None
+
+
+def sass_bodies(root: Path):
+    """{(kernel, template arguments): its SASS lines} of the library built
+    from the port package under `root` (in a process of its own)."""
+    import re
+    import subprocess
+
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from deepmatching_stereo_matching_tpu_torch.ops import _build; "
+            "print(_build.build(force=True))")
+    so = subprocess.run([sys.executable, "-c", code, str(root)],
+                        capture_output=True, text=True, check=True
+                        ).stdout.strip().splitlines()[-1]
+    out = {}
+    for kernel in SASS_KERNELS:
+        for fn, lines in (sass(so, kernel) or {}).items():
+            key = _instance(fn)
+            if key is None:
+                continue
+            while lines and not lines[-1].strip(" \t."):
+                lines = lines[:-1]  # the separator after the last one differs
+            # cuobjdump pads every line of a cubin to its longest
+            # instruction, which a new instance in the same source moves.
+            out[key] = [" ".join(re.sub(r"\.L_x_\d+", ".L_x", x).split())
+                        for x in lines]
+    return out
+
+
+def sass_diff(other: Path) -> int:
+    """--sass-diff: the instruction bodies of every kernel instance of this
+    checkout against those of `other`'s, matched by template arguments;
+    exit 1 if an instance both have differs."""
+    here = sass_bodies(Path(__file__).resolve().parent.parent)
+    there = sass_bodies(other)
+    differ = []
+    for key in sorted(here.keys() | there.keys()):
+        if key not in here or key not in there:
+            print(f"{key}: only in {'this checkout' if key in here else other}")
+            continue
+        same = here[key] == there[key]
+        print(f"{key}: {len(here[key])} SASS lines, "
+              f"{'equal' if same else 'DIFFER'}")
+        if not same:
+            differ.append(key)
+    print(f"sass-diff against {other}: {len(differ)} instances differ: "
+          f"{differ}", flush=True)
     return 1 if differ else 0
 
 
@@ -600,6 +707,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", action="store_true",
                     help="time K4/K3 and hash their outputs on every "
                          "chip_smoke shape")
+    ap.add_argument("--sass-diff", type=Path, metavar="ROOT",
+                    help="compare every kernel instance's SASS with the "
+                         "build of the checkout at ROOT")
     ap.add_argument("--hashes", type=Path,
                     help="--costvol/--rows: the hash file to write, or to "
                          "compare with where it exists")
@@ -624,6 +734,8 @@ def main(argv=None) -> int:
     if args.k1:
         time_k1()
         return 0
+    if args.sass_diff:
+        return sass_diff(args.sass_diff.resolve())
     if args.costvol or args.rows:
         if args.hashes is None:
             ap.error("--costvol and --rows need --hashes")

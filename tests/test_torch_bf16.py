@@ -22,7 +22,13 @@ plain versions here).
     D0 = 64, more than its 32-plane slab): offsets equal, top maps
     bitwise;
   * the K4 rule: the plain bf16 volume is the float32 volume rounded;
-  * every bf16 path not ported yet raises NotImplementedError naming it.
+  * the strategies on a world of 4 gloo ranks, as the JAX package runs
+    them in bf16: tiled and wtiled(merge_level=None) bitwise the port's
+    unsharded bf16 pipeline; dslab, ringd and wtiled(merge_level <
+    levels) bitwise their own float32 run, the rule JAX's strategies
+    follow (shown here on JAX's too); the port's bf16 decisions agree
+    with JAX's; the bf16 stream bitwise the unsharded bf16 pipeline;
+    only float16 raises.
 """
 
 import dataclasses
@@ -46,7 +52,8 @@ from deepmatching_stereo_matching_tpu_torch.config import carry_over
 from deepmatching_stereo_matching_tpu_torch.models import pipeline
 from deepmatching_stereo_matching_tpu_torch.ops import fused_cuda, pool
 from deepmatching_stereo_matching_tpu_torch.ops import pyramid_cuda
-from deepmatching_stereo_matching_tpu_torch.parallel import runner, sharded
+from deepmatching_stereo_matching_tpu_torch.parallel import (
+    launch, mesh as mesh_lib, runner, sharded, wtiled)
 
 AGREE = 0.998          # port vs JAX bf16, decisions and validity
 F32_AGREE = 0.98       # bf16 vs f32 decisions (tests/test_bf16.py)
@@ -313,18 +320,192 @@ def test_plain_bf16_k1_is_the_rounded_cost_through_the_fast_pyramid():
 
 
 # ---------------------------------------------------------------------------
-# What bf16 does not cover yet
+# The strategies and the stream in bf16, on a world of 4 gloo ranks
 # ---------------------------------------------------------------------------
 
+SH, SW, SD = 96, 144, 16
+# id -> (strategy, mesh shape, route, merge_level, Config kwargs)
+STRATEGY_CASES = {
+    "tiled-2x2-flip": ("tiled", (2, 2), "fused", None, {}),
+    "tiled-1x4-direct": ("tiled", (1, 4), "fused", None,
+                         {"lr_mode": "direct"}),
+    "wtiled-1x1x4-full-flip": ("wtiled", (1, 1, 4), "exact", None, {}),
+    "wtiled-1x2x2-gradhist-direct": ("wtiled", (1, 2, 2), "exact", None,
+                                     {"lr_mode": "direct",
+                                      "descriptor": "grad_hist"}),
+    "dslab-2x2-flip": ("dslab", (2, 2), "exact", None, {}),
+    "ringd-1x4-flip": ("ringd", (1, 4), "exact", None, {"levels": 2}),
+    "wtiled-1x1x4-merge1-flip": ("wtiled", (1, 1, 4), "exact", 1, {}),
+}
+STREAM_PAIRS, STREAM_BATCH = 6, 4       # a batch and a padded tail
+KEYS = ("disparity", "disparity_raw", "valid", "score", "disparity_right")
 
-def test_bf16_strategies_and_stream_raise():
-    cfg = carry_over(Config(max_disparity=16, dtype="bfloat16"))
-    for strategy in ("tiled", "dslab", "ringd", "wtiled"):
-        with pytest.raises(NotImplementedError, match=strategy):
-            sharded.match_batch_sharded(None, None, cfg, 64, 64, None,
-                                        strategy)
-    with pytest.raises(NotImplementedError, match="stream"):
-        runner.run_stream([], cfg, 64, 64)
+
+def computes_in_f32(name):
+    """The JAX package builds these strategies' volumes from float32
+    descriptors whatever cfg.dtype says (dslab, ringd, and wtiled below
+    the top level); the others run the unsharded bf16 pipeline."""
+    strategy, _, _, ml, _ = STRATEGY_CASES[name]
+    return strategy in ("dslab", "ringd") or ml is not None
+
+
+def strategy_config(name, dtype):
+    return Config(max_disparity=SD, dtype=dtype, **STRATEGY_CASES[name][4])
+
+
+@functools.lru_cache(maxsize=None)
+def strategy_pairs(n, seed):
+    lefts, rights = [], []
+    for i in range(n):
+        field = synthetic.block_disparity_field(
+            SH, SW, SD, np.random.default_rng(seed + i), block=24)
+        left, right, _ = synthetic.make_pair(SH, SW, field, seed=seed + i)
+        lefts.append(left)
+        rights.append(right)
+    return lefts, rights
+
+
+def strategy_case(name, dtype):
+    strategy, shape, route, ml, _ = STRATEGY_CASES[name]
+    lefts, rights = strategy_pairs(2, sorted(STRATEGY_CASES).index(name))
+    return dict(cfg=carry_over(strategy_config(name, dtype)),
+                strategy=strategy, mesh=shape, route=route, merge_level=ml,
+                height=SH, width=SW, lefts=lefts, rights=rights)
+
+
+def _rank_bf16(cases, stream_pairs):
+    """Rank body: every strategy case, then the bf16 stream (tiled,
+    'fused', mesh 2 x 2) with its batches as `on_result` hands them."""
+    outs = launch.match_cases(cases)
+    got = {}
+    cfg = carry_over(Config(max_disparity=SD, dtype="bfloat16"))
+    rep = runner.run_stream(stream_pairs, cfg, SH, SW,
+                            mesh_lib.make_mesh(2, 2), "tiled", STREAM_BATCH,
+                            "fused", on_result=lambda i, o: got.update({i: o}))
+    return outs, got, rep.pairs_completed
+
+
+@pytest.fixture(scope="module")
+def bf16_world():
+    """Each case in bf16 and float32, and the bf16 stream, through one
+    world of 4 gloo ranks: {(name, dtype): outputs of each rank},
+    [(stream batches, pairs completed) of each rank]."""
+    keys = [(n, dt) for n in sorted(STRATEGY_CASES)
+            for dt in ("bfloat16", "float32")]
+    lefts, rights = strategy_pairs(STREAM_PAIRS, 50)
+    per_rank = launch.spawn(
+        _rank_bf16, 4, ([strategy_case(*k) for k in keys],
+                        list(zip(lefts, rights))), timeout=240)
+    return ({k: [outs[i] for outs, _, _ in per_rank]
+             for i, k in enumerate(keys)},
+            [(got, n) for _, got, n in per_rank])
+
+
+def unsharded(case, lefts, rights, mesh_shape):
+    """The port's unsharded pipeline at the strategy's padded extents."""
+    cfg = case["cfg"]
+    if case["strategy"] == "tiled":
+        geom = mesh_lib.tiled_geometry(cfg, SH, SW, mesh_shape[1])[0]
+    else:
+        geom = wtiled.tiled2d_geometry(cfg, SH, SW, mesh_shape[1],
+                                       mesh_shape[2], case["merge_level"])[0]
+    lp, rp = (torch.zeros(len(xs), geom.padded_height, geom.padded_width)
+              for xs in (lefts, rights))
+    for dst, xs in ((lp, lefts), (rp, rights)):
+        for i, x in enumerate(xs):
+            g = torch.from_numpy(oracle.to_grayscale_f32(x))
+            dst[i, :g.shape[0], :g.shape[1]] = g
+    out = pipeline.match_padded_core(lp, rp, cfg, geom, case["route"])
+    return {k: v.numpy() for k, v in pipeline.apply_postfilter(
+        pipeline.crop(out, SH, SW), cfg).items()}
+
+
+def assert_bitwise(got, want, what):
+    for k in KEYS:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=f"{what} {k}")
+
+
+@pytest.mark.parametrize("name", sorted(STRATEGY_CASES))
+def test_bf16_strategy_follows_the_reference(bf16_world, name):
+    """tiled and wtiled(merge_level=None) in bf16 are bitwise the port's
+    unsharded bf16 pipeline (and not its float32 run); dslab, ringd and
+    wtiled(merge_level < levels) in bf16 are bitwise their own float32
+    run, as the JAX package's strategies are (test below)."""
+    outs = bf16_world[0]
+    case = strategy_case(name, "bfloat16")
+    want = (outs[name, "float32"][0] if computes_in_f32(name)
+            else unsharded(case, case["lefts"], case["rights"],
+                           case["mesh"]))
+    for rank, got in enumerate(outs[name, "bfloat16"]):
+        assert got["score"].dtype == np.float32
+        assert_bitwise(got, want, f"rank {rank}")
+    if not computes_in_f32(name):
+        assert not np.array_equal(outs[name, "bfloat16"][0]["score"],
+                                  outs[name, "float32"][0]["score"])
+
+
+@functools.lru_cache(maxsize=None)
+def jax_strategy(name, dtype):
+    from deepmatching_stereo_matching_tpu import parallel as jparallel
+    import jax
+
+    strategy, shape, route, ml, _ = STRATEGY_CASES[name]
+    cfg = strategy_config(name, dtype)
+    mesh = (jparallel.make_mesh(*shape) if len(shape) == 2
+            else jparallel.make_mesh2d(*shape))
+    case = strategy_case(name, dtype)
+    lefts, rights = (jax.device_put(jparallel.pad_batch(
+        case[k], cfg, SH, SW, mesh, strategy, ml),
+        jparallel.input_sharding(mesh, strategy))
+        for k in ("lefts", "rights"))
+    out = jparallel.match_batch_sharded(
+        lefts, rights, cfg, SH, SW, mesh, strategy,
+        "fused" if route == "fused" else "jnp", ml)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("name", sorted(STRATEGY_CASES))
+def test_jax_bf16_strategy_rule_and_port_agreement(bf16_world, name):
+    """The rule on the JAX package's strategies: dslab, ringd and
+    wtiled(merge_level < levels) in bf16 bitwise their float32 run (the
+    NaN of invalid pixels compared as equal); tiled and wtiled(None) not.
+    The port's bf16 decisions agree with JAX's bf16 on >= AGREE."""
+    j16, j32 = jax_strategy(name, "bfloat16"), jax_strategy(name, "float32")
+    if computes_in_f32(name):
+        for k in KEYS:
+            assert np.array_equal(j16[k], j32[k], equal_nan=True), k
+    else:
+        assert not np.array_equal(j16["score"], j32["score"])
+    got = bf16_world[0][name, "bfloat16"][0]
+    for k in ("disparity_raw", "valid"):
+        rate = float(np.mean(got[k] == j16[k]))
+        print(f"{name} bf16 port vs JAX: {k} {rate:.5f}")
+        assert rate >= AGREE, (k, rate)
+
+
+def test_bf16_strategies_and_stream_raise(bf16_world):
+    """What raised before bf16 ran on the strategies: every strategy now
+    returns float32 outputs for a bf16 config (the cases above), and the
+    stream's batches are bitwise the unsharded bf16 pipeline's.  Only a
+    dtype the JAX package does not know, float16, still raises."""
+    for (name, dtype), per_rank in bf16_world[0].items():
+        assert all(o["score"].dtype == np.float32
+                   and o["disparity"].shape == (2, SH, SW)
+                   for o in per_rank), (name, dtype)
+    lefts, rights = strategy_pairs(STREAM_PAIRS, 50)
+    cfg = carry_over(Config(max_disparity=SD, dtype="bfloat16"))
+    case = dict(cfg=cfg, strategy="tiled", route="fused", merge_level=None)
+    for got, completed in bf16_world[1]:
+        assert completed == STREAM_PAIRS and sorted(got) == [0, 1]
+        for b, i in enumerate(range(0, STREAM_PAIRS, STREAM_BATCH)):
+            want = unsharded(case, lefts[i:i + STREAM_BATCH],
+                             rights[i:i + STREAM_BATCH], (2, 2))
+            assert_bitwise(got[b], want, f"stream batch {b}")
+    cfg16 = carry_over(Config(max_disparity=SD, dtype="float16"))
     with pytest.raises(NotImplementedError, match="float16"):
-        pipeline.check_supported(carry_over(Config(dtype="float16")),
-                                 cfg.geometry(64, 64), "torch")
+        pipeline.check_supported(cfg16, "torch")
+    with pytest.raises(NotImplementedError, match="float16"):
+        sharded.match_batch_sharded(None, None, cfg16, 64, 64, None,
+                                    "tiled")
+    with pytest.raises(NotImplementedError, match="float16"):
+        runner.run_stream([], cfg16, 64, 64)

@@ -172,20 +172,23 @@ def test_cli_without_a_card_exits_2(monkeypatch, capsys):
 
 def test_cli_oracle_and_unsupported_dtype(tmp_path, capsys):
     """--oracle, and --dtype bfloat16, which runs on 'fused' (K1's plain
-    version here) and writes its outputs; on 'exact' it is not ported
-    yet."""
+    version here) and on 'exact' (K2 bf16 -> K3 bf16, plain), writing its
+    outputs and recording the dtype; a dtype the JAX package does not
+    know is refused by the parser."""
     meta = run_port_cli(capsys, "--demo", "--demo-size", "48", "64", "-D",
                         "8", "--cpu", "--oracle")
     assert meta["engine"] == "oracle" and "impl" not in meta
-    meta = run_port_cli(capsys, "--demo", "--demo-size", "48", "64", "-D",
-                        "8", "--cpu", "--dtype", "bfloat16", "-o",
-                        str(tmp_path / "bf16"))
-    assert meta["impl"] == "fused" and meta["config"]["dtype"] == "bfloat16"
-    assert sorted(os.listdir(tmp_path / "bf16")) == OUTPUT_FILES
-    assert meta["coverage"] > 0.3
-    with pytest.raises(NotImplementedError, match="'exact' route"):
-        cli.main(["--demo", "--cpu", "--dtype", "bfloat16", "--impl",
-                  "exact"])
+    for impl in ("fused", "exact"):
+        out = tmp_path / f"bf16_{impl}"
+        meta = run_port_cli(capsys, "--demo", "--demo-size", "48", "64",
+                            "-D", "8", "--cpu", "--dtype", "bfloat16",
+                            "--impl", impl, "-o", str(out))
+        assert meta["impl"] == impl
+        assert meta["config"]["dtype"] == "bfloat16"
+        assert sorted(os.listdir(out)) == OUTPUT_FILES
+        assert meta["coverage"] > 0.3
+    with pytest.raises(SystemExit):
+        cli.main(["--demo", "--cpu", "--dtype", "float16"])
 
 
 def test_cli_profile_writes_a_trace(tmp_path, capsys):

@@ -295,20 +295,26 @@ BF16 = dict(max_disparity=16, dtype="bfloat16")
 ])
 @pytest.mark.parametrize("route", ["fused", "exact"])
 def test_uncovered_configs_raise(cfg, match, route):
-    """bfloat16 runs on 'fused' only through K1 or K4 -> K5; every other
-    path names what is not ported yet ('exact' first) and never runs in
-    float32."""
+    """The bfloat16 configurations that raised NotImplementedError until
+    they were ported (`match` names what each raised for) now run on both
+    kernel routes: batched `match_padded_core` returns float32 scores, and
+    its decisions agree with JAX's bf16 `match_padded` of the same route
+    ('fused' -> 'fused', 'exact' -> 'pallas') on >= 99.8% of pixels."""
     pcfg = carry_over(cfg)
-    geom = pcfg.geometry(64, 64)
-    img = torch.zeros(1, geom.padded_height, geom.padded_width)
-    if route == "fused" and match == "'exact' route":
-        out = pipeline.match_padded_core(img, img, pcfg, geom, route)
-        assert fused_cuda.supported(pcfg, geom)
-        assert out["score"].dtype == torch.float32
-        return
-    with pytest.raises(NotImplementedError,
-                       match=match if route == "fused" else "'exact' route"):
-        pipeline.match_padded_core(img, img, pcfg, geom, route)
+    pairs = padded_pairs(cfg, (2, 5), 64, 64)
+    lb = torch.from_numpy(np.stack([l for l, _ in pairs]))
+    rb = torch.from_numpy(np.stack([r for _, r in pairs]))
+    out = pipeline.crop(pipeline.match_padded_core(
+        lb, rb, pcfg, pcfg.geometry(64, 64), route), 64, 64)
+    assert out["score"].dtype == torch.float32
+    assert out["disparity"].dtype == torch.float32
+    for i, (l, r) in enumerate(pairs):
+        want = jpipeline.match_padded(jnp.asarray(l), jnp.asarray(r), cfg,
+                                      64, 64, JAX_IMPL[route])
+        for k in ("disparity_raw", "valid"):
+            rate = float(np.mean(out[k][i].numpy() == np.asarray(want[k])))
+            print(f"{match} {route} pair {i}: {k} {rate:.5f}")
+            assert rate >= 0.998, (k, rate)
 
 
 def test_bf16_fused_runs_at_64x64():
