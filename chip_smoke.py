@@ -11,8 +11,9 @@ Phases, each printing its own lines (any failure exits nonzero):
      magbin, float32 and bfloat16), the six costvol_kernel instances
      (D-major and rows, 16-byte and 4-byte staging, in float32; D-major in
      bfloat16), the four costrows_kernel instances (p = 4 and runtime p,
-     float32 and bfloat16 volumes), the two pyramid_kernel and the two
-     aggregate_level_kernel instances (float32 and bfloat16) must spill
+     float32 and bfloat16 volumes), the two pyramid_kernel instances, the
+     eight aggregate_kernel instances (float32 and bfloat16, 16-byte and
+     narrow form, fast and exact) and the three probe kernels must spill
      nothing;
   3. kernel vs plain PyTorch version on the card, at full width:
      - bench shapes (450x375, D=64 -> padded 384x512, L=4, D0=64; 32
@@ -46,11 +47,21 @@ Phases, each printing its own lines (any failure exits nonzero):
      - KITTI shapes (1242x375 -> padded 384x1536, L=5, 96x384 patch grid):
        image->volume (K4) at D=128, 8 pairs x 2 directions, atol 2e-5;
        level aggregation (K5) on that volume and at D=256 (4 pairs x 2),
-       fast and exact: offsets equal and top maps bitwise;
+       fast and exact: offsets equal and top maps bitwise, one launch per
+       call; K5's shared memory per block as the library computes it equal
+       to `pyramid_cuda.aggregate_smem_bytes`, and at least 2 blocks per SM
+       at both KITTI shapes in each dtype and mode; its event and device
+       (profiler) time at D=128 beside its time before the redesign;
      - K4 at least 2 blocks per SM at both KITTI shapes; on a grid of
        ragged 8x32-patch tiles (28x76 patches, D0=100, max_d=99), on
        ragged grids at the runtime-p instance (p 3, 5, 6, 7) and at D0 = 14
        (not a multiple of 4), atol 2e-5;
+     - K5 at every other K5 shape of `profile_steps.rows_cases` (L 1-6,
+       tile counts that do not divide the grid, D0 = 2^L and D0 not a
+       multiple of 32, the narrow form at W0 = 2 mod 4 and off 16-byte
+       alignment, dslab's bench volume), fast and exact, float32 and bf16,
+       real-valued and tie-heavy: top and offsets bitwise plain, one launch
+       per call (two at L = 6);
      - the bfloat16 instances (Config.dtype='bfloat16'): K4 bf16 at both
        KITTI shapes, the 28x76 ragged grid and the ragged runtime-p and
        D0 = 14 grids bitwise K4's float32 volume rounded to bf16; K5 bf16
@@ -89,7 +100,10 @@ Phases, each printing its own lines (any failure exits nonzero):
      bitwise equal to its plain version at its full repetitions, timed,
      and failing above 1.05 of the 67 TFLOP/s float32 peak; where
      `cuobjdump` exists, each probe kernel's SASS holds 256 FMUL and no
-     FFMA (no product merged or contracted);
+     FFMA (no product merged or contracted), and P3's 119 shared loads a
+     repetition; P3's blocks per SM and persistent grid, its registers,
+     and its issue-rate ceiling (FP32 and shared-load warp-instructions
+     at four per SM per clock of `nvidia-smi`'s clocks.max.sm);
   4. main path through `api.match_stereo` against the NumPy oracle: two
      bench pairs (patch: 'fused' within the bench's 0.5% decision gate,
      'exact' bitwise on decisions), one KITTI pair at D=128 (the
@@ -97,7 +111,8 @@ Phases, each printing its own lines (any failure exits nonzero):
      'fused' within the 0.5% gate and |d bad-rate| <= 0.005) and two bench
      pairs with grad_hist (both routes within the 0.5% gate); each path
      and route runs with the launch counts set to 0 just before it, and
-     must launch exactly its kernels: bench K1 | K2, K3; KITTI K4, K5 |
+     must launch exactly its kernels, K5 once per aggregate_dmajor call
+     (the wrapper's `calls`): bench K1 | K2, K3; KITTI K4, K5 |
      K2, K5; grad_hist K1b | K2, K3 ('fused' | 'exact'); centred
      descriptors on bench pairs 100/101 ('fused': exactly K2, K3;
      raw_neq = valid_neq = 0) and on adversarial pairs (97x141, D=24,
@@ -155,7 +170,8 @@ output written once, over 3.35 TB/s and its operations over 67 TFLOP/s,
 K2 also at C=128 and at KITTI D=256, rows of their own over K2's count;
 K1, K1b, K2 (C=16 and C=128), K3, K4 and K5 bf16 rows of their own, each
 with its own launch count;
-library_ms the yardstick where there is one),
+library_ms the yardstick where there is one; K5's rows with device_ms,
+P3's with issue_ceiling_ms),
 and as the last line {"ok": true, "device": {...}}.  Needs one CUDA
 device; imports nothing of JAX or the JAX package.
 """
@@ -194,6 +210,9 @@ EARLIER_MS.update({"K2": 4.4331, "K2 C=128": 110.9849, "K6": 6.4251})
 # ... and K3/K4 before their redesign (PERF.md, the same card): K3 at the
 # bench, K4 at KITTI D=128 x 16 instances.
 EARLIER_MS.update({"K3": 0.4879, "K4": 1.3301})
+# ... and K5 (one launch per level) and P3 before their redesign (PERF.md,
+# the same card): K5 at KITTI D=128 x 16 instances, fast, event time.
+EARLIER_MS.update({"K5": 0.1826, "K5 bf16": 0.1944, "P3": 0.1100})
 # Centred descriptors on adversarial (tie-heavy, flat-window) pairs.
 ADV_HW, ADV_D, ADV_SEEDS = (97, 141), 24, (0, 1, 5)
 STREAM_PAIRS, STREAM_TAIL = 69, 5       # two batches of BATCH and a tail
@@ -260,8 +279,10 @@ def bound(work, peak=PEAK_F32):
 
 
 def probe_sass(so):
-    """{kernel: {FMUL, FADD, FFMA: count}} of the probe kernels in the
-    built library's SASS, or None where the toolkit has no cuobjdump."""
+    """{kernel: {FMUL, FADD, FFMA, LDS: count}} of the probe kernels in the
+    built library's SASS (LDS: shared-memory loads; instructions under the
+    never-true predicate @!PT, which ptxas pads cp.async loops with, are
+    not counted), or None where the toolkit has no cuobjdump."""
     import re
     import shutil
 
@@ -277,8 +298,9 @@ def probe_sass(so):
             cur = next((k for k, tag in PROBE_SASS.items() if tag in fn),
                        None)
             if cur is not None:
-                counts[cur] = dict.fromkeys(("FMUL", "FADD", "FFMA"), 0)
-        elif cur is not None:
+                counts[cur] = dict.fromkeys(("FMUL", "FADD", "FFMA", "LDS"),
+                                            0)
+        elif cur is not None and "@!PT" not in line:  # never executed
             for op in counts[cur]:
                 if re.search(rf"\b{op}\b", line):
                     counts[cur][op] += 1
@@ -300,13 +322,17 @@ def ptxas(log, pattern, key):
             continue
         if cur is None:
             continue
+        # A kernel's section may hold the properties of the out-of-line
+        # functions it calls too: keep its registers, the largest spills.
+        regs, st, ld = out.get(cur, (None, 0, 0))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
-            out[cur] = (None, int(m.group(1)), int(m.group(2)))
+            out[cur] = (regs, max(st, int(m.group(1))),
+                        max(ld, int(m.group(2))))
         m = re.search(r"Used (\d+) registers", line)
-        if m and cur in out:
-            out[cur] = (int(m.group(1)),) + out[cur][1:]
+        if m:
+            out[cur] = (int(m.group(1)), st, ld)
     return out
 
 
@@ -353,7 +379,8 @@ def main():
     from deepmatching_stereo_matching_tpu_torch.data import synthetic
     from deepmatching_stereo_matching_tpu_torch.profile_steps import (
         SMALL_TILES, STRATEGIES as STRATEGY_RUNS, costvol_cases,
-        costvol_inputs, costvol_launch, rows_cases, rows_inputs, rows_launch)
+        costvol_inputs, costvol_launch, device_ms, k5_launch, k5_volume,
+        rows_cases, rows_inputs, rows_launch)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -411,19 +438,29 @@ def main():
         v[1] == 0 and v[2] == 0 for v in costvol_ptxas.values()),
         f"costvol_kernel instantiations missing or spilling: {costvol_ptxas}")
     # costrows_kernel<p, volume type>, pyramid_kernel<bf16>,
-    # aggregate_level_kernel<map type>.
+    # aggregate_kernel<bf16, 16-byte form, fast>.
     rows_ptxas = ptxas(_build.build_log(),
                        r"(costrows_kernelILi\d+E(?:f|13__nv_bfloat16)E"
                        r"|pyramid_kernelILb[01]E"
-                       r"|aggregate_level_kernelI(?:f|13__nv_bfloat16)E)",
+                       r"|aggregate_kernelILb[01]ELb[01]ELb[01]E)",
                        lambda m: m.group(1).replace("13__nv_bfloat16", "bf16"))
     for fn, (regs, spill_st, spill_ld) in sorted(rows_ptxas.items()):
         print(f"{fn}: {regs} registers, spill stores {spill_st} B, spill "
               f"loads {spill_ld} B")
-    require(len(rows_ptxas) == 8 and all(
+    require(len(rows_ptxas) == 14 and all(
         v[1] == 0 and v[2] == 0 for v in rows_ptxas.values()),
-        f"costrows_kernel / pyramid_kernel / aggregate_level_kernel missing "
-        f"or spilling: {rows_ptxas}")
+        f"costrows_kernel / pyramid_kernel / aggregate_kernel missing or "
+        f"spilling: {rows_ptxas}")
+    # The probes: a spill would add local loads to the measured mix.
+    probe_ptxas = ptxas(_build.build_log(),
+                        r"(stream_kernelILi\d+E|shift_kernel)",
+                        lambda m: m.group(1))
+    for fn, (regs, spill_st, spill_ld) in sorted(probe_ptxas.items()):
+        print(f"{fn}: {regs} registers, spill stores {spill_st} B, spill "
+              f"loads {spill_ld} B")
+    require(len(probe_ptxas) == 3 and all(
+        v[1] == 0 and v[2] == 0 for v in probe_ptxas.values()),
+        f"probe kernels missing or spilling: {probe_ptxas}")
     print(flush=True)
 
     def to_dev(imgs, cfg, h, w):
@@ -434,6 +471,10 @@ def main():
         return torch.stack([lp, rp.flip(-1)]), torch.stack([rp, lp.flip(-1)])
 
     rows = {}
+
+    def k5_launches():
+        return (pyramid_cuda.aggregate_dmajor.launches
+                + pyramid_cuda.aggregate_dmajor.bf16_launches)
 
     def record(key, err, kernel_fn, plain_fn, work, reps=10, plain_reps=3):
         """`work` = (bytes moved, operations) of one kernel call."""
@@ -941,9 +982,12 @@ def main():
             del sample, cuda_pow   # a view of the volume: it would outlive it
         for key, vol_ in (("K5", kvol), ("K5 bf16", kvol16)):
             for fast in (True, False):
+                was = k5_launches()
                 top, args = pyramid_cuda.aggregate_dmajor(
                     vol_, kgeom.levels, kcfg.lam, fast)
                 sync()
+                require(k5_launches() - was == 1,
+                        f"{key}: {k5_launches() - was} launches for one call")
                 top_p, args_p = pyramid_cuda.aggregate_dmajor_torch(
                     vol_, kgeom.levels, kcfg.lam, fast)
                 args_eq = all(torch.equal(a, b) for a, b in zip(args, args_p))
@@ -963,6 +1007,29 @@ def main():
                                vol_, kgeom.levels, kcfg.lam, True),
                            (nbytes(vol_, top, *args),
                             pyramid_flops(vol_.numel(), kgeom.levels)))
+                    rows[key]["device_ms"] = device_ms(
+                        torch, lambda vol_=vol_: pyramid_cuda.aggregate_dmajor(
+                            vol_, kgeom.levels, kcfg.lam, True), "aggregate")
+                    require(rows[key]["device_ms"] > 0,
+                            f"{key}: no device time in the profiler")
+        # K5's block: shared memory against its mirror and blocks per SM,
+        # in each dtype and mode (the 16-byte form these volumes take).
+        for key, dt in (("K5", torch.float32), ("K5 bf16", bf16)):
+            smem_agrees(f"{key} L={kgeom.levels}",
+                        _build.library().dm_aggregate_smem(
+                            kgeom.levels, int(dt == bf16)),
+                        pyramid_cuda.aggregate_smem_bytes(kgeom.levels, dt))
+            occ5 = {mode: pyramid_cuda.aggregate_blocks_per_sm(
+                        kgeom.levels, dt == bf16, mode == "fast")
+                    for mode in ("fast", "exact")}
+            print(f"{key} KITTI D={max_d}: blocks per SM (occupancy API) "
+                  f"{occ5}; {pyramid_cuda.aggregate_blocks(2 * batch, 96, 384)}"
+                  f" blocks of {pyramid_cuda.aggregate_threads()} threads in "
+                  f"one launch")
+            require(min(occ5.values()) >= 2,
+                    f"{key}: {occ5} blocks per SM, fewer than 2")
+            if max_d == 128:
+                rows[key]["blocks_per_sm"] = occ5["fast"]
         del kvol, kvol16, top, top_p, args, args_p
 
     # K4 on a grid of ragged 8x32-patch tiles, with a masked plane.
@@ -1015,6 +1082,41 @@ def main():
                 f"{err}")
         require(same16, f"{cname}: K4 bf16 is not K4's volume rounded")
         del inputs_, got_, got16
+
+    # ... and K5 at every other K5 shape of rows_cases (L 1-6, ragged tile
+    # counts, D0 = 2^L and D0 not a multiple of 32, the narrow form at W0 =
+    # 2 mod 4 (L = 1), 4 mod 8 (L = 2, bf16) and off 16-byte alignment,
+    # dslab's bench volume): top and offsets bitwise plain in both modes
+    # and dtypes, on real-valued and tie-heavy volumes, one launch a call
+    # (two at L = 6).
+    for seed, (cname, kind, shape) in enumerate(rows_cases()):
+        if kind != "K5" or cname.startswith("K5 kitti"):
+            continue
+        flat_ = rows_inputs(torch, kind, shape, seed)
+        forms = set()
+        for dtype in ("float32", "bfloat16"):
+            for fast in (True, False):
+                for x_ in flat_:
+                    vol_ = k5_volume(shape, x_, dtype)
+                    forms.add(pyramid_cuda.aggregate_vec(
+                        shape[3], vol_.dtype, vol_.data_ptr()))
+                    was = k5_launches()
+                    out_ = k5_launch(shape, vol_, fast)
+                    sync()
+                    n_l = k5_launches() - was
+                    same = all(torch.equal(a, b) for a, b in zip(
+                        out_, k5_launch(shape, vol_, fast, plain=True)))
+                    require(same, f"{cname} {dtype} "
+                            f"{'fast' if fast else 'exact'} disagrees with "
+                            f"its plain version")
+                    require(n_l == pyramid_cuda.aggregate_launches(shape[4]),
+                            f"{cname}: {n_l} launches for one call")
+        print(f"{cname} {shape[:5]} offset {shape[5]}: top and offsets "
+              f"bitwise plain in both modes and dtypes, on real and tie-heavy "
+              f"volumes; {pyramid_cuda.aggregate_launches(shape[4])} "
+              f"launch(es) a call; forms "
+              f"{sorted('16-byte' if f else 'narrow' for f in forms)}")
+        del flat_, vol_, out_
 
     # 3c. K6, the row-layout slab cost volume: KITTI D=256, whole range and
     # 64-bin slabs, against its plain version and K2.
@@ -1110,9 +1212,12 @@ def main():
           f"{EARLIER_MS['K4']} ms), "
           f"plain {rows['K4']['plain']:.4f} ms per 16-instance KITTI D=128 "
           f"call {card}")
-    print(f"  K5: kernel {rows['K5']['ms']:.4f} ms, plain "
-          f"{rows['K5']['plain']:.4f} ms per 16-instance KITTI D=128 call "
-          f"(fast, 5 levels) {card}")
+    for k in ("K5", "K5 bf16"):
+        print(f"  {k}: kernel {rows[k]['ms']:.4f} ms event, "
+              f"{rows[k]['device_ms']:.4f} ms device (earlier: "
+              f"{EARLIER_MS[k]} ms event, five launches), plain "
+              f"{rows[k]['plain']:.4f} ms per 16-instance KITTI D=128 call "
+              f"(fast, 5 levels, one launch) {card}")
     for k, what in (("K1", "64-instance bench"),
                     ("K1b", "64-instance grad_hist bench"),
                     ("K2", "64-instance bench"),
@@ -1155,18 +1260,25 @@ def main():
 
     def run_path(label, expected, fn):
         """fn() with every count set to 0 just before and read just after;
-        the path must launch exactly the `expected` kernels."""
+        the path must launch exactly the `expected` kernels, and K5 once
+        per aggregate_dmajor call (every path here has L <= 5)."""
         for f, attr in counters.values():
             setattr(f, attr, 0)
+        pyramid_cuda.aggregate_dmajor.calls = 0
         out = fn()
         sync()
         counts = {k: getattr(f, attr) for k, (f, attr) in counters.items()}
         path_launches[label] = counts
         launched = {k for k, v in counts.items() if v > 0}
-        print(f"launch counts [{label}]: {counts}")
+        calls = pyramid_cuda.aggregate_dmajor.calls
+        print(f"launch counts [{label}]: {counts}"
+              + (f"; aggregate_dmajor calls {calls}" if calls else ""))
         require(launched == set(expected),
                 f"path [{label}] launched {sorted(launched)}, expected "
                 f"{sorted(expected)}")
+        require(counts["K5"] + counts["K5 bf16"] == calls,
+                f"path [{label}]: {counts['K5'] + counts['K5 bf16']} K5 "
+                f"launches for {calls} aggregate_dmajor calls")
         return out
 
     # 3d. P1-P3 through the probe's entry point, then each against its
@@ -1181,6 +1293,22 @@ def main():
             require(c is not None and c["FFMA"] == 0 and c["FMUL"] >= 256
                     and c["FMUL"] % 256 == 0,
                     f"{key}: products merged or contracted in SASS: {c}")
+    if sass is not None:
+        # P3's mix per repetition (its body may be compiled more than once):
+        # 256 FMUL and the 31 + 88 shared loads of its operands and windows.
+        reps_ = sass["P3"]["FMUL"] // 256
+        lds = sass["P3"]["LDS"] / reps_
+        print(f"P3 per repetition in SASS: {sass['P3']['FMUL'] // reps_} FMUL,"
+              f" {sass['P3']['FADD'] / reps_:g} FADD, "
+              f"{sass['P3']['FFMA']} FFMA, {lds:g} LDS")
+        require(lds == probe_cuda.SHIFT_ALIGNED_READS
+                + probe_cuda.SHIFT_WINDOW_READS,
+                f"P3 reads {lds} shared words a repetition, not 119")
+    p3_occ, p3_grid = probe_cuda.shift_occupancy()
+    print(f"P3: {p3_occ} blocks per SM (occupancy API), {p3_grid} persistent "
+          f"blocks over {probe_cuda.SHIFT_ROWS} x "
+          f"{2 * probe_cuda.GRID // probe_cuda.PROBES['shift'][3]} items; "
+          f"{probe_ptxas['shift_kernel'][0]} registers, no spills")
     with tempfile.TemporaryDirectory() as tmp:
         probe_out = os.path.join(tmp, "probe.jsonl")
         probe_rc = run_path("probe", PROBE_NAMES,
@@ -1220,6 +1348,29 @@ def main():
                          plain=start.elapsed_time(end),
                          work=(probe_cuda.bytes_read(probe) + nbytes(got),
                                probe_cuda.flops(probe)))
+    for key, fn in (("P1", "stream_kernelILi384E"),
+                    ("P2", "stream_kernelILi96E"), ("P3", "shift_kernel")):
+        rows[key]["registers"] = probe_ptxas[fn][0]
+    # P3's issue-rate ceiling: its warp-instructions (FP32 and shared loads
+    # of every repetition) at one per scheduler, four per SM, per clock of
+    # the card's top SM clock.  A ceiling of the mix, not a bound.
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    per_rep = (probe_cuda.SHIFT_FMUL + probe_cuda.SHIFT_FADD
+               + probe_cuda.SHIFT_ALIGNED_READS + probe_cuda.SHIFT_WINDOW_READS
+               if sass is None else (sass["P3"]["FMUL"] + sass["P3"]["FADD"]
+                                     + sass["P3"]["LDS"]) / reps_)
+    warp_reps = (2 * probe_cuda.GRID * probe_cuda.SHIFT_ROWS * probe_cuda.W0
+                 // 32)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ceiling = warp_reps * per_rep / (sms * 4 * clock_mhz * 1e6) * 1e3
+    rows["P3"].update(blocks_per_sm=p3_occ, issue_ceiling_ms=ceiling)
+    print(f"P3: {rows['P3']['ms']:.4f} ms (earlier: {EARLIER_MS['P3']} ms); "
+          f"issue-rate ceiling {ceiling:.4f} ms ({per_rep:g} warp-instructions"
+          f" a repetition, {sms} SMs x 4 at {clock_mhz:g} MHz), "
+          f"{ceiling / rows['P3']['ms']:.3f} of it {card}")
     print(flush=True)
 
     # 4. Main path through the public API, against the oracle.
@@ -1893,8 +2044,8 @@ def main():
             "K3 bf16": rows_ptxas.get("pyramid_kernelILb1E"),
             "K4": rows_ptxas.get("costrows_kernelILi4EfE"),
             "K4 bf16": rows_ptxas.get("costrows_kernelILi4Ebf16E"),
-            "K5": rows_ptxas.get("aggregate_level_kernelIfE"),
-            "K5 bf16": rows_ptxas.get("aggregate_level_kernelIbf16E")}
+            "K5": rows_ptxas.get("aggregate_kernelILb0ELb1ELb1E"),
+            "K5 bf16": rows_ptxas.get("aggregate_kernelILb1ELb1ELb1E")}
     for k, v in regs.items():
         if v is not None:
             rows[k]["registers"] = v[0]
@@ -1919,7 +2070,8 @@ def main():
             "bytes": rows[k]["work"][0], "operations": rows[k]["work"][1],
             **{key: rows[k][key] for key in ("flips", "blocks_per_sm",
                                              "library_extra_bytes",
-                                             "registers")
+                                             "registers", "issue_ceiling_ms",
+                                             "device_ms")
                if key in rows[k]}})
         print(f"  {k}: kernel {rows[k]['ms']:.4f} ms, bound {bound_ms:.4f} "
               f"ms ({bound_by}), {rows[k]['ms'] / bound_ms:.1f}x its bound; "

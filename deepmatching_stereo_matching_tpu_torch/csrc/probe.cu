@@ -36,10 +36,27 @@
 //     output, as the TPU grid's steps did, so each input row is read once
 //     per block copy from L2 (the wrapper's `l2_bytes`).
 //
+// P3's schedule (the mix per repetition above unchanged: 256 FMUL, 255
+// FADD, 119 volatile shared loads, one volatile store).  A repetition
+// keeps ~119 operands live (31 aligned, 88 windows reused 88 and 176
+// products later), so registers allow at most four blocks of 128 threads
+// per SM, and a block that staged its row synchronously before its
+// repetitions left its warps idle through every staging.  So P3 runs
+// persistent blocks, four per SM, each walking the (row, copy) items of
+// the grid the TPU probe had: while one item's `inner` repetitions read
+// one 20 KB row buffer, the next item's row arrives in the other by
+// 16-byte cp.async, without registers.  No block walks more than
+// ceil(items / resident blocks) items (512 blocks of six at the full
+// repetitions on 132 SMs).  A cap of 128 registers (four blocks by
+// __launch_bounds__) spilled; at the bound of three, ptxas takes 117 and
+// four blocks fit all the same.
+//
 // Shapes are the TPU probes': P1 (32, 384, 128) -> (384, 128); P2 the
 // same input, rows [:96] -> (96, 128); P3 (32, 192, 160) -> (192, 128).
 
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -109,29 +126,86 @@ stream_kernel(const float* __restrict__ a, float* __restrict__ out,
   }
 }
 
-// P3: one block per row of a (32, 192, 160) input; thread c computes
-// column c of the (192, 128) output.
-__global__ void __launch_bounds__(kW0)
-shift_kernel(const float* __restrict__ a, float* __restrict__ out,
-             int inner) {
-  __shared__ float win[kSrc * kWShift];
-  const int row = blockIdx.x, c = threadIdx.x;
-  stage_row(a, win, kRowsShift, kWShift, row);
-  const volatile float* v = win;
-  volatile float* dst = out + row * kW0 + c;
-#pragma unroll 1
-  for (int r = 0; r < inner; ++r) {
-    float x[kSrc], w[kWindows];
-#pragma unroll
-    for (int j = 0; j < 31; ++j) x[j] = v[j * kWShift + c];  // offset 0
-    *dst = planes(
-        [&](int k) { return x[pair_j1(k)]; },   // trips' j1 is pairs' j1
-        [&](int k) {
-          if (k < kWindows)
-            w[k] = v[trip_j2(k) * kWShift + c + trip_o(k)];
-          return w[k % kWindows];
-        });
+// P3: persistent blocks; item i of `items` is row i % 192 of a (32, 192,
+// 160) input, `inner` repetitions of it; thread c computes column c of
+// the (192, 128) output.
+constexpr int kShiftMinBlocks = 3;                  // see the note above
+constexpr int kShiftRow = kSrc * kWShift;           // floats of one row
+constexpr int kShiftSmem = 2 * kShiftRow * 4;       // two row buffers
+
+// Row `row` of the 32 planes into `win` by 16-byte cp.async, committed as
+// one group.
+__device__ __forceinline__ void stage_row_async(const float* __restrict__ a,
+                                                float* win, int row) {
+  constexpr int kChunks = kWShift / 4;
+  for (int i = threadIdx.x; i < kSrc * kChunks; i += blockDim.x) {
+    const int j = i / kChunks, q = i - j * kChunks;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(win + j * kWShift +
+                                                        4 * q)),
+                 "l"(a + ((size_t)j * kRowsShift + row) * kWShift + 4 * q));
   }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__global__ void __launch_bounds__(kW0, kShiftMinBlocks)
+shift_kernel(const float* __restrict__ a, float* __restrict__ out,
+             int inner, int items) {
+  extern __shared__ float4 shift_smem[];
+  float* rows = reinterpret_cast<float*>(shift_smem);
+  const int c = threadIdx.x;
+  int item = blockIdx.x;
+  stage_row_async(a, rows, item % kRowsShift);
+#pragma unroll 1
+  for (int it = 0; item < items; ++it, item += gridDim.x) {
+    const int next = item + gridDim.x;
+    if (next < items) {
+      stage_row_async(a, rows + ((it + 1) & 1) * kShiftRow, next % kRowsShift);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::);  // an empty group
+    }
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this item's
+    __syncthreads();
+    const volatile float* v = rows + (it & 1) * kShiftRow;
+    volatile float* dst = out + (item % kRowsShift) * kW0 + c;
+#pragma unroll 1
+    for (int r = 0; r < inner; ++r) {
+      float x[kSrc], w[kWindows];
+#pragma unroll
+      for (int j = 0; j < 31; ++j) x[j] = v[j * kWShift + c];  // offset 0
+      *dst = planes(
+          [&](int k) { return x[pair_j1(k)]; },   // trips' j1 is pairs' j1
+          [&](int k) {
+            if (k < kWindows)
+              w[k] = v[trip_j2(k) * kWShift + c + trip_o(k)];
+            return w[k % kWindows];
+          });
+    }
+    __syncthreads();  // every thread is done with this buffer
+  }
+}
+
+dm::SmemAllowance& shift_allowance() {
+  static dm::SmemAllowance a((const void*)shift_kernel);
+  return a;
+}
+
+// Blocks of one P3 launch over `items` items: the card's resident blocks,
+// trimmed to those that the fewest rounds of items need; negative: a CUDA
+// error.
+int shift_grid(int items) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -(int)err;
+  const int per_sm = dm::blocks_per_sm(shift_allowance(),
+                                       (const void*)shift_kernel, kW0,
+                                       kShiftSmem);
+  if (per_sm <= 0) return per_sm < 0 ? per_sm : -(int)cudaErrorInvalidValue;
+  const int slots = sms * per_sm;
+  const int each = (items + slots - 1) / slots;
+  return (items + each - 1) / each;
 }
 
 template <int ROWS>
@@ -158,7 +232,22 @@ extern "C" int dm_probe_small(const float* a, float* out, int inner,
 
 extern "C" int dm_probe_shift(const float* a, float* out, int inner,
                               int copies, void* stream) {
-  const dim3 grid(kRowsShift, copies);
-  shift_kernel<<<grid, kW0, 0, (cudaStream_t)stream>>>(a, out, inner);
+  const int items = kRowsShift * copies;
+  if (items <= 0) return (int)cudaSuccess;
+  const int grid = shift_grid(items);
+  if (grid < 0) return -grid;
+  shift_kernel<<<grid, kW0, kShiftSmem, (cudaStream_t)stream>>>(a, out, inner,
+                                                                items);
   return (int)cudaGetLastError();
+}
+
+// P3's blocks per SM (the occupancy calculator) and the blocks of a launch
+// of `copies` copies; negative: a CUDA error.
+extern "C" int dm_probe_shift_blocks_per_sm() {
+  return dm::blocks_per_sm(shift_allowance(), (const void*)shift_kernel, kW0,
+                           kShiftSmem);
+}
+
+extern "C" int dm_probe_shift_grid(int copies) {
+  return shift_grid(kRowsShift * copies);
 }

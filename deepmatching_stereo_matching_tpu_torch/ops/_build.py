@@ -69,12 +69,18 @@ _SIGNATURES = {
                        _I, _P],
     # left, right, out, n, hp, wp, p, d0, max_d, bf16, stream
     "dm_cost_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # cur, next, arg, n, d, h, w, pow_pooled, pow_merged, lam, bf16, stream
-    "dm_aggregate_level": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # levels, bf16 (+ fast)
+    "dm_aggregate_smem": [_I, _I],
+    "dm_aggregate_blocks_per_sm": [_I, _I, _I],
+    # vol, top, arg, n, d0, h0, w0, levels, fast, pow_first, lam, bf16, stream
+    "dm_aggregate": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # a, out, inner, copies, stream (P1, P2, P3)
     "dm_probe_stream": [_P, _P, _I, _I, _P],
     "dm_probe_small": [_P, _P, _I, _I, _P],
     "dm_probe_shift": [_P, _P, _I, _I, _P],
+    # (none); copies
+    "dm_probe_shift_blocks_per_sm": [],
+    "dm_probe_shift_grid": [_I],
 }
 
 _lock = threading.Lock()

@@ -6,7 +6,9 @@ P1 replaces `tools/vpu_ceiling.py:59 kernel`, P2 `:120 small_kernel`, P3
 four products of the input's planes, in the schedule below, and the TPU
 grid repeated that work GRID, 8 * GRID and 2 * GRID times.  What bounds
 the kernels on the card and how the repetitions are kept from merging:
-see the note at the top of csrc/probe.cu.
+see the note at the top of csrc/probe.cu.  P3 runs persistent blocks over
+the (row, copy) items of the TPU probe's grid (`shift_grid`), staging the
+next item's row while it computes the current one.
 """
 
 from __future__ import annotations
@@ -59,6 +61,35 @@ def l2_bytes(name: str) -> int:
     """Input bytes the kernel reads in all: once per block copy."""
     _, _, grid, inner = PROBES[name]
     return (grid // inner) * bytes_read(name)
+
+
+# P3's mix per repetition and output element (csrc/probe.cu:shift_kernel):
+# shared-memory reads of the aligned operands and of the shifted windows,
+# and float32 multiplies and adds (no FMA).  The first plane starts the
+# total, so there is one add fewer than FLOPS_PER_PLANE counts.
+SHIFT_ALIGNED_READS, SHIFT_WINDOW_READS = 31, 88
+SHIFT_FMUL, SHIFT_FADD = 4 * NPLANES, 4 * NPLANES - 1
+
+
+def shift_grid(copies: int, slots: int) -> int:
+    """Blocks of one P3 launch of `copies` copies of its 192 rows on a
+    card holding `slots` blocks at once: those that ceil(items / slots)
+    rounds of items need (csrc/probe.cu:shift_grid)."""
+    items = SHIFT_ROWS * copies
+    each = -(-items // slots)
+    return -(-items // each)
+
+
+def shift_occupancy(copies: int = 2 * GRID // PROBES["shift"][3]):
+    """(blocks per SM, blocks of a launch of `copies` copies) of P3 on the
+    current card (CUDA's occupancy calculator).  Needs the card."""
+    lib = _build.library()
+    per_sm, grid = lib.dm_probe_shift_blocks_per_sm(), \
+        lib.dm_probe_shift_grid(copies)
+    for n in (per_sm, grid):
+        if n < 0:
+            _build.check(-n, "shift probe occupancy")
+    return per_sm, grid
 
 
 def make_input(name: str, device="cpu") -> torch.Tensor:

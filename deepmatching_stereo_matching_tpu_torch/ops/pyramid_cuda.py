@@ -6,9 +6,11 @@ K3 replaces `deepmatching_stereo_matching_tpu/ops/pyramid_pallas.py:_kernel`
 csrc/pyramid.cuh, which the fused kernel (ops/fused_cuda.py) includes too.
 K5 replaces `pyramid_pallas.py:_slab_kernel` (via `aggregate_slabs`): the
 same aggregation on volumes whose quadtree tile does not fit one block's
-shared memory (the large-D route), one launch per level through device
-memory.  What bounds each on the card: see the notes at the top of the
-.cu files.
+shared memory (the large-D route), every level in one launch (up to five;
+`AGG_MAX_LEVELS`): a block walks D over one 32 x 32 tile, levels 0 and 1
+in its stream warps' registers, levels >= 2 in shared memory in a level
+warp a chunk behind, and writes only the offsets and the top map.  What
+bounds each on the card: see the notes at the top of the .cu files.
 
 The plain versions share one definition of the pool, the merge
 (`aggregate_dmajor_torch`) and the descent (`descend`, `backtrack_top`).
@@ -203,47 +205,148 @@ pyramid_backtrack.launches = 0        # K3, float32 volume
 pyramid_backtrack.bf16_launches = 0   # K3, bfloat16 volume
 
 
+# K5's block (csrc/aggregate.cu): levels per launch, the level-0 tile
+# side, the planes of a chunk of its D walk, the plane pairs of its
+# cp.async ring.
+AGG_MAX_LEVELS, AGG_TILE, AGG_CHUNK, AGG_RING = 5, 32, 32, 4
+
+
+def aggregate_threads() -> int:
+    """Threads of one K5 block: the stream warps, a thread owning 2 rows x
+    4 columns (one 16-byte word of float32, 8-byte of bf16) of the 32 x 32
+    tile, and the level warp (levels 2..L-1)."""
+    return (AGG_TILE // 2) * (AGG_TILE // 4) + 32
+
+
+def aggregate_layout(levels: int) -> Tuple[List[int], dict, dict, int]:
+    """(map2, maps, halos, floats) of one K5 block's level maps in shared
+    memory, after its ring (csrc/aggregate.cu:agg_map_off, agg_halo_off),
+    as float offsets: the two buffers of the level-2 chunk map, (32 >> 2)
+    planes of (32 >> 2)^2 cells each (chunk c in buffer c % 2), the chunk
+    map of each level l in 3..L-1, the lo halo plane of each level in
+    2..L-1, and the floats in all.  L is capped at AGG_MAX_LEVELS, a
+    launch's levels; levels 0 and 1 live in registers, and below L = 3
+    there are none of these."""
+    lv = min(levels, AGG_MAX_LEVELS)
+    if lv <= 2:
+        return [], {}, {}, 0
+
+    def floats(lvl, planes=True):
+        return ((AGG_CHUNK >> lvl) if planes else 1) * (AGG_TILE >> lvl) ** 2
+    map2 = [0, floats(2)]
+    maps, halos, o = {}, {}, 2 * floats(2)
+    for lvl in range(3, lv):
+        maps[lvl] = o
+        o += floats(lvl)
+    for lvl in range(2, lv):
+        halos[lvl] = o
+        o += floats(lvl, planes=False)
+    return map2, maps, halos, o
+
+
+def aggregate_ring_bytes(dtype: torch.dtype) -> int:
+    """K5's cp.async ring: AGG_RING plane pairs of the stream warps' rows,
+    2 planes x 2 rows x 4 columns a stream thread (64 bytes float32, 32
+    bf16)."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    return AGG_RING * 2 * 2 * 4 * elem * (aggregate_threads() - 32)
+
+
+def aggregate_smem_bytes(levels: int, dtype: torch.dtype) -> int:
+    """Shared memory of one K5 block: the ring and the level maps, a
+    mirror of `dm_aggregate_smem`, which chip_smoke.py holds it to.  It
+    does not grow with D0."""
+    return aggregate_ring_bytes(dtype) + 4 * aggregate_layout(levels)[3]
+
+
+def aggregate_blocks(n: int, h0: int, w0: int) -> int:
+    """Blocks of one K5 launch: one per instance and 32 x 32 tile."""
+    return n * -(-h0 // AGG_TILE) * -(-w0 // AGG_TILE)
+
+
+def aggregate_launches(levels: int) -> int:
+    """K5 launches of one `aggregate_dmajor` call: one per five levels."""
+    return -(-levels // AGG_MAX_LEVELS)
+
+
+def aggregate_blocks_per_sm(levels: int, bf16: bool = False,
+                            fast: bool = True) -> int:
+    """Blocks of K5's 16-byte form (float32 or bfloat16; fast or exact)
+    one SM of the current card holds at `levels` (CUDA's occupancy
+    calculator, through `dm_aggregate_blocks_per_sm`).  Needs the card."""
+    n = _build.library().dm_aggregate_blocks_per_sm(
+        min(levels, AGG_MAX_LEVELS), int(bf16), int(fast))
+    if n < 0:
+        _build.check(-n, "aggregation kernel occupancy")
+    return n
+
+
+def aggregate_vec(w0: int, dtype: torch.dtype, ptr: int) -> bool:
+    """True where K5 takes its 16-byte form: W0 a multiple of the columns
+    one 16-byte load holds (4 float32, 8 bf16) and a 16-byte aligned base
+    (csrc/aggregate.cu:vec_form); else the narrow form."""
+    return w0 % (16 // torch.empty((), dtype=dtype).element_size()) == 0 \
+        and ptr % 16 == 0
+
+
+def arg_offsets(n: int, d0: int, h0: int, w0: int, levels: int
+                ) -> Tuple[List[int], int]:
+    """Byte offsets of each level's offsets in K5's one int8 buffer, and
+    its size: level l's (n, D0>>(l+1), H0>>l, W0>>l) bytes, rounded up to
+    16 (csrc/aggregate.cu:agg_arg_offset)."""
+    offs, o = [], 0
+    for lvl in range(levels):
+        offs.append(o)
+        o += (n * (d0 >> (lvl + 1)) * (h0 >> lvl) * (w0 >> lvl) + 15) & ~15
+    return offs, o
+
+
 def aggregate_dmajor(cost_dm: torch.Tensor, levels: int, lam: float,
                      fast: bool = False
                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """(..., D0, H0, W0) f32 or bf16 D-major volume -> (top, args) as
-    `aggregate_dmajor_torch`, through K5: one launch per level, every
-    level's map and offsets in device memory, the maps in the volume's
-    dtype.  Any D0 and shape aligned to 2**levels; no shared-memory
-    limit."""
+    `aggregate_dmajor_torch`, through K5: one launch for every level (one
+    per five levels above five), only the offsets and the top map in
+    device memory, the top map in the volume's dtype.  Any D0 and shape
+    aligned to 2**levels; no shared-memory limit on D."""
     *lead, d0, h0, w0 = cost_dm.shape
     _check_aligned(d0, h0, w0, levels)
     if not run_kernel(cost_dm):
         return aggregate_dmajor_torch(cost_dm, levels, lam, fast)
     _check_dtype(cost_dm, "aggregation", (torch.float32, torch.bfloat16))
+    aggregate_dmajor.calls += 1
     bf16 = cost_dm.dtype == torch.bfloat16
     lam = pool.map_lam(lam, cost_dm.dtype)
     n = math.prod(lead)
     cur = cost_dm.contiguous()
-    if cur.data_ptr() % 16:         # the kernel reads child pairs at once
-        cur = cur.clone()
     dev = cur.device
+    offs, size = arg_offsets(n, d0, h0, w0, levels)
+    buf = torch.empty(size, dtype=torch.int8, device=dev)
+    args = [buf[o:o + n * (d0 >> (lvl + 1)) * (h0 >> lvl) * (w0 >> lvl)]
+            .view(*lead, d0 >> (lvl + 1), h0 >> lvl, w0 >> lvl)
+            for lvl, o in enumerate(offs)]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    args = []
-    for lvl in range(levels):
-        d, h, w = d0 >> lvl, h0 >> lvl, w0 >> lvl
-        nxt = torch.empty((*lead, d // 2, h // 2, w // 2),
+    first = 0
+    while first < levels:    # one pass for every level up to five
+        lv = min(levels - first, AGG_MAX_LEVELS)
+        d, h, w = d0 >> first, h0 >> first, w0 >> first
+        out = torch.empty((*lead, d >> lv, h >> lv, w >> lv),
                           dtype=cost_dm.dtype, device=dev)
-        arg = torch.empty((*lead, d // 2, h, w), dtype=torch.int8,
-                          device=dev)
-        if n:
-            rc = _build.library().dm_aggregate_level(
-                cur.data_ptr(), nxt.data_ptr(), arg.data_ptr(), n, d, h, w,
-                int(fast and lvl > 0), int(not fast), lam, int(bf16), stream)
+        if cur.numel():
+            rc = _build.library().dm_aggregate(
+                cur.data_ptr(), out.data_ptr(), buf.data_ptr() + offs[first],
+                n, d, h, w, lv, int(fast), int(fast and first > 0), lam,
+                int(bf16), stream)
             _build.check(rc, "aggregation kernel launch")
             if bf16:
                 aggregate_dmajor.bf16_launches += 1
             else:
                 aggregate_dmajor.launches += 1
-        args.append(arg)
-        cur = nxt
+        cur = out
+        first += lv
     return cur, args
 
 
-aggregate_dmajor.launches = 0        # K5, float32 maps
-aggregate_dmajor.bf16_launches = 0   # K5, bfloat16 maps
+aggregate_dmajor.launches = 0        # K5, float32 volume
+aggregate_dmajor.bf16_launches = 0   # K5, bfloat16 volume
+aggregate_dmajor.calls = 0           # calls on the card, one launch each at L <= 5

@@ -12,6 +12,8 @@
         --rows --hashes FILE [--root CHECKOUT]
     python deepmatching_stereo_matching_tpu_torch/profile_steps.py \
         --sass-diff CHECKOUT
+    python deepmatching_stereo_matching_tpu_torch/profile_steps.py \
+        --step-times [--cells ...] [--routes ...] [--dtype ...] [--root DIR]
 
 Cells (synthetic pairs made from seeds, `lr_mode="flip"`): bench
 (450x375, D=64, 32 pairs, bench.py's recipe), grad_hist (the same with
@@ -69,6 +71,17 @@ does.  K3's bfloat16 instance runs every K3 case again on the volume
 rounded to bf16 (new keys "... bf16") and is timed at the bench.  The first run also keeps the small cases' inputs and outputs
 beside FILE (FILE.npz), so that a later run prints how far a differing
 case is off.
+
+--rows also hashes K5's (top, offsets) at every K5 case of `rows_cases`
+(both modes, both dtypes, real-valued and tie-heavy volumes) and times K5
+at KITTI D=128 x 16 and D=256 x 8 in each dtype (fast mode): event time
+as --k1, and device time from torch.profiler.  Run on the parent first,
+then the change, to show K5's outputs the parent's at every shape.
+
+--step-times times the --cells steps in each --dtype and route as
+chip_smoke.py does (7 samples of one call: median, range; peak device
+memory), from the package under --root: parent, change, change, parent
+in one call compares two trees' steps on one card.
 
 --sass-diff CHECKOUT builds this checkout's library and CHECKOUT's and
 compares the SASS of every instance of every kernel, matched by template
@@ -207,6 +220,45 @@ def profile_cells(cells, routes, steps, strategies=(), dtypes=("float32",)):
             for ms, count, key in host[:8]:
                 print(f"   host   {ms:9.4f} ms x{count:<3d} {key[:80]}")
             sys.stdout.flush()
+
+
+def time_steps(cells, routes, dtypes):
+    """--step-times: each cell's batched `match_padded_core` step per dtype
+    and route, as chip_smoke.py times them: 7 samples of one call (CUDA
+    events) after a warm-up, their median and range, and the step's peak
+    device memory, from the port package under --root."""
+    import torch
+
+    from deepmatching_stereo_matching_tpu_torch.models import pipeline
+    from deepmatching_stereo_matching_tpu_torch.ops import _build
+
+    def one(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    for cell, dtype in ((c, d) for c in cells for d in dtypes):
+        cfg, geom, lp, rp = _padded_pairs(cell, dtype)
+        for route in routes:
+            def step(route=route):
+                return pipeline.match_padded_core(lp, rp, cfg, geom, route)
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            ms = [one(step) for _ in range(7)]
+            print(f"step {cell} [{route}] {dtype} {_build.SRC_DIR}: median "
+                  f"{float(np.median(ms)):.4f} ms [{min(ms):.4f}.."
+                  f"{max(ms):.4f}] over 7; peak {peak / 2**20:.1f} MiB",
+                  flush=True)
+        del lp, rp
 
 
 def time_k1():
@@ -427,7 +479,13 @@ def rows_cases():
     the runtime-p instance (p 3, 5, 6, 7) and at D0 not a multiple of 4.  K3:
     shape = (n, d0, h0, w0, levels): the bench (64 instances, on real-valued
     costs and on quarter steps with many ties), the centred adversarial
-    pairs' geometry (L = 2, D0 = 24), D0 = 128 at L = 4, and L = 1, 2, 5."""
+    pairs' geometry (L = 2, D0 = 24), D0 = 128 at L = 4, and L = 1, 2, 5.
+    K5: shape = (n, d0, h0, w0, levels, offset): KITTI D=128 x 16 and
+    D=256 x 8, dslab's bench volume (32 x (64, 96, 128), L = 4), L 1-6,
+    tile counts that do not divide the grid, D0 = 2^L and D0 not a
+    multiple of 32, W0 = 2 mod 4 at L = 1 and 4 mod 8 at L = 2 (the narrow
+    form), a base `offset` elements off 16-byte alignment, and two launches
+    at L = 6; each case runs in both modes and both dtypes."""
     k4 = [("bench", (64, 96, 128, 4, 64, 64))]
     k4 += [(small_name(h0, w0, m, lv, p),
             (4, h0, w0, p, -(-m // 2 ** lv) * 2 ** lv, m))
@@ -444,16 +502,37 @@ def rows_cases():
           ("adversarial L=2", (6, 24, 28, 36, 2)),
           ("D0=128 L=4", (8, 128, 32, 48, 4)), ("L=2", (8, 32, 12, 20, 2)),
           ("L=5", (4, 32, 32, 64, 5)), ("L=1 D0=6", (4, 6, 8, 10, 1))]
+    k5 = [("kitti D=128", (16, 128, 96, 384, 5, 0)),
+          ("kitti D=256", (8, 256, 96, 384, 5, 0)),
+          ("dslab bench", (32, 64, 96, 128, 4, 0)),
+          ("L=1 W0=10", (3, 6, 6, 10, 1, 0)),
+          ("L=1 D0=66", (2, 66, 4, 70, 1, 0)),
+          ("L=2 W0=36", (2, 36, 12, 36, 2, 0)),
+          ("L=3 ragged D0=40", (2, 40, 40, 24, 3, 0)),
+          ("L=3 D0=8", (2, 8, 8, 48, 3, 0)),
+          ("L=4 ragged D0=48", (2, 48, 48, 80, 4, 0)),
+          ("L=4 D0=16", (2, 16, 16, 16, 4, 0)),
+          ("L=5 D0=32", (2, 32, 64, 32, 5, 0)),
+          ("L=5 ragged", (2, 96, 64, 96, 5, 0)),
+          ("L=5 off alignment", (2, 64, 32, 64, 5, 1)),
+          ("L=6", (1, 64, 64, 128, 6, 0))]
     return ([(f"K4 {n}", "K4", s) for n, s in k4]
-            + [(f"K3 {n}", "K3", s) for n, s in k3])
+            + [(f"K3 {n}", "K3", s) for n, s in k3]
+            + [(f"K5 {n}", "K5", s) for n, s in k5])
 
 
 def rows_inputs(torch, kind, shape, seed, device="cuda"):
     """Inputs of one case, made on the device from a seed: K4 a pair of
     (n, p*h0, p*w0) planes of uniform pixels; K3 an (n, d0, h0, w0) volume,
     uniform in [0, 1), or in quarter steps 0..1.25 where the case is named
-    'ties'."""
+    'ties'; K5 both, flat, with room for its offset view (`k5_volume`)."""
     gen = torch.Generator(device=device).manual_seed(seed)
+    if kind == "K5":      # flat, 8 spare elements for the offset view
+        n, d0, h0, w0, _, _ = shape
+        size = n * d0 * h0 * w0 + 8
+        return (torch.rand(size, generator=gen, device=device),
+                torch.randint(0, 6, (size,), generator=gen, device=device)
+                .float() / 4)
     if kind == "K4":
         n, h0, w0, p, *_ = shape
         return tuple(torch.rand((n, p * h0, p * w0), generator=gen,
@@ -463,10 +542,32 @@ def rows_inputs(torch, kind, shape, seed, device="cuda"):
             .float() / 4)
 
 
+def k5_volume(shape, flat, dtype="float32"):
+    """A K5 case's (n, d0, h0, w0) volume in `dtype`: a view `offset`
+    elements into the flat input (off 16-byte alignment where offset is
+    not a multiple of the 16-byte word)."""
+    import torch
+
+    n, d0, h0, w0, _, offset = shape
+    flat = flat.to(getattr(torch, dtype))
+    return flat[offset:offset + n * d0 * h0 * w0].view(n, d0, h0, w0)
+
+
+def k5_launch(shape, volume, fast, plain=False):
+    """K5's (top, *offsets) on `volume` through aggregate_dmajor (or its
+    plain version)."""
+    from deepmatching_stereo_matching_tpu_torch.ops import pyramid_cuda
+
+    fn = (pyramid_cuda.aggregate_dmajor_torch if plain
+          else pyramid_cuda.aggregate_dmajor)
+    top, args = fn(volume, shape[4], 1.4, fast)
+    return (top, *args)
+
+
 def rows_launch(kind, shape, inputs, name="", plain=False, dtype="float32"):
     """K4's volume (in `dtype`) or K3's (disparity, score) on the case's
     volume rounded to `dtype`, through the kernel's wrapper (or its plain
-    version)."""
+    version).  K5 cases go through `k5_volume` and `k5_launch`."""
     from deepmatching_stereo_matching_tpu_torch.config import Config, Geometry
     import torch
 
@@ -529,12 +630,12 @@ def time_rows(hashes: Path):
         return h.hexdigest()
 
     so = _build.build(force=True)
-    shown = False       # ptxas lines of costrows_kernel and pyramid_kernel
+    shown = False       # ptxas lines of costrows, pyramid, aggregate
     for line in _build.build_log().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            shown = bool(re.search(r"costrows_kernel|pyramid_kernel",
-                                   m.group(1)))
+            shown = bool(re.search(
+                r"costrows_kernel|pyramid_kernel|aggregate_", m.group(1)))
         if shown:
             print("  " + line.strip())
     got = {}
@@ -548,9 +649,13 @@ def time_rows(hashes: Path):
     timed = ("K4 kitti D=128", "K4 kitti D=256", "K3 bench", "K3 bench bf16")
     levels_of = {f"K4 {small_name(*t)}": t[3] for t in SMALL_TILES}
     cases = [(seed, name, kind, shape, "float32")
-             for seed, (name, kind, shape) in enumerate(rows_cases())]
+             for seed, (name, kind, shape) in enumerate(rows_cases())
+             if kind != "K5"]
     cases += [(seed, f"{name} bf16", kind, shape, "bfloat16")
               for seed, name, kind, shape, _ in cases if kind == "K3"]
+    for seed, (name, kind, shape) in enumerate(rows_cases()):
+        if kind == "K5":
+            k5_rows(torch, got, digest, seed, name, shape)
     for seed, name, kind, shape, dtype in cases:
         inputs = rows_inputs(torch, kind, shape, seed)
         out = rows_launch(kind, shape, inputs, name, dtype=dtype)
@@ -596,6 +701,69 @@ def time_rows(hashes: Path):
     return 1 if differ else 0
 
 
+def k5_rows(torch, got, digest, seed, name, shape):
+    """--rows for one K5 case: a hash of (top, every level's offsets) in
+    each mode and dtype, on real-valued and on tie-heavy volumes; at the
+    KITTI shapes the event and device times of a call in each dtype, fast
+    mode (the fused route's)."""
+    from deepmatching_stereo_matching_tpu_torch.ops import _build, pyramid_cuda
+
+    flat = rows_inputs(torch, "K5", shape, seed)
+    for dtype in ("float32", "bfloat16"):
+        tag = "" if dtype == "float32" else " bf16"
+        for fast in (True, False):
+            mode = "fast" if fast else "exact"
+            for real, x in zip(("", " ties"), flat):
+                out = k5_launch(shape, k5_volume(shape, x, dtype), fast)
+                torch.cuda.synchronize()
+                got[f"{name}{real} {mode}{tag}"] = digest(*(
+                    t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+                    for t in out))   # numpy has no bf16: hash the bits
+                del out
+        if name.startswith("K5 kitti"):
+            vol = k5_volume(shape, flat[0], dtype)
+
+            def call(vol=vol):
+                return pyramid_cuda.aggregate_dmajor(vol, shape[4], 1.4, True)
+            ms = _median_launch_ms(torch, call)
+            dev = device_ms(torch, call, "aggregate")
+            print(f"{name}{tag} fast {shape[:5]} {_build.SRC_DIR}: ms per call, "
+                  f"5 x 20 launches: " + " ".join(f"{x:.4f}" for x in ms)
+                  + f"; median {float(np.median(ms)):.4f}; device "
+                  f"{dev:.4f} ms per call (profiler)", flush=True)
+            if name == "K5 kitti D=128":
+                # Where the time goes: the same volume aggregated to depth
+                # 1 and 2 (level 0, then level 1 too, no level warp), and
+                # one read of the volume by torch (a max over D).
+                for lv in (1, 2):
+                    ms_l = _median_launch_ms(
+                        torch, lambda lv=lv, vol=vol:
+                        pyramid_cuda.aggregate_dmajor(vol, lv, 1.4, True))
+                    print(f"  {name}{tag} to depth {lv}: median "
+                          f"{float(np.median(ms_l)):.4f} ms", flush=True)
+                ms_r = _median_launch_ms(torch, lambda vol=vol:
+                                         vol.amax(dim=1))
+                print(f"  {name}{tag} read yardstick (torch amax over D): "
+                      f"median {float(np.median(ms_r)):.4f} ms", flush=True)
+            del vol
+    del flat
+
+
+def device_ms(torch, fn, kernel, calls=20):
+    """Device time per call of fn() in the kernels whose name holds
+    `kernel` (torch.profiler's CUDA rows), over `calls` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if kernel in e.key) / calls / 1e3
+
+
 # Kernel instances matched across checkouts for --sass-diff: a pattern on
 # the mangled name -> the instance's template arguments.  An instance whose
 # checkout did not template its kernel yet (pyramid_kernel, float32
@@ -605,7 +773,8 @@ SASS_KERNELS = {
     "costvol_kernel": r"costvol_kernelILb([01])ELb([01])E(f|13__nv_bfloat16|)E",
     "costrows_kernel": r"costrows_kernelILi(\d+)E(f|13__nv_bfloat16)E",
     "pyramid_kernel": r"pyramid_kernel(?:ILb([01])E)?",
-    "aggregate_level_kernel": r"aggregate_level_kernelI(f|13__nv_bfloat16)E",
+    "aggregate_kernel": r"aggregate_kernelILb([01])ELb([01])ELb([01])E",
+    "stream_kernel": r"stream_kernelILi(\d+)E",
 }
 
 
@@ -707,6 +876,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", action="store_true",
                     help="time K4/K3 and hash their outputs on every "
                          "chip_smoke shape")
+    ap.add_argument("--step-times", action="store_true",
+                    help="time the --cells steps per --dtype and --routes "
+                         "(7 samples, median, range, peak memory)")
     ap.add_argument("--sass-diff", type=Path, metavar="ROOT",
                     help="compare every kernel instance's SASS with the "
                          "build of the checkout at ROOT")
@@ -733,6 +905,11 @@ def main(argv=None) -> int:
         return 2
     if args.k1:
         time_k1()
+        return 0
+    if args.step_times:
+        time_steps(args.cells.split(","),
+                   [r for r in args.routes.split(",") if r],
+                   [d for d in args.dtype.split(",") if d])
         return 0
     if args.sass_diff:
         return sass_diff(args.sass_diff.resolve())
