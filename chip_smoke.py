@@ -44,6 +44,9 @@ Phases, each printing its own lines (any failure exits nonzero):
        K2 (bench and C=128) and K6 (KITTI D=256), a library yardstick the
        port never calls: the correlation alone as one torch.matmul on an
        as_strided window view, timed, with the memory it copies;
+     - K1 at the KITTI grid (1242x375 at D=64: L=4, 96x384 patches), the
+       eval tool's first KITTI pair in both directions, within the bench
+       K1's gates (decisions flipped <= 0.5%, scores within 2e-5);
      - KITTI shapes (1242x375 -> padded 384x1536, L=5, 96x384 patch grid):
        image->volume (K4) at D=128, 8 pairs x 2 directions, atol 2e-5;
        level aggregation (K5) on that volume and at D=256 (4 pairs x 2),
@@ -51,7 +54,8 @@ Phases, each printing its own lines (any failure exits nonzero):
        call; K5's shared memory per block as the library computes it equal
        to `pyramid_cuda.aggregate_smem_bytes`, and at least 2 blocks per SM
        at both KITTI shapes in each dtype and mode; its event and device
-       (profiler) time at D=128 beside its time before the redesign;
+       (profiler) time at D=128 beside its time before the redesign, and
+       its exact mode's event time;
      - K4 at least 2 blocks per SM at both KITTI shapes; on a grid of
        ragged 8x32-patch tiles (28x76 patches, D0=100, max_d=99), on
        ragged grids at the runtime-p instance (p 3, 5, 6, 7) and at D0 = 14
@@ -134,6 +138,20 @@ Phases, each printing its own lines (any failure exits nonzero):
      non-finite input on a NaN plane); the CLI (`--demo -o DIR`) in a
      subprocess: exit 0, five files, impl 'fused'; again with --dtype
      bfloat16, on 'fused' and on --impl exact;
+  4e. the dataset evaluation tool (`tools.eval_dataset.main(argv)`, in
+     this process) over synthetic pairs written to disk: the KITTI layout
+     at 1242x375, 1241x376, 1224x370 and 1226x370 (16-bit PNG ground
+     truth) at D=64 'fused' (K1 on the 96x384 grid), D=128 'fused' (K4,
+     K5) and 'exact' (K2, K5), D=256 'fused' with --save-disparity; the
+     Middlebury layout (two 450x375 scenes, ground truth x 4 in an 8-bit
+     PGM, --gt-scale 0.25) at D=64 'fused' (K1) and 'exact' (K2, K3).
+     Each run is a path of its own and must launch exactly its kernels,
+     once per pair; exit 0, a summary of every pair with ground truth,
+     device cuda:0; 'exact' 0 decision and validity disagreement with the
+     oracle, 'fused' at most 0.5%; each pair's kept bad rate within 0.005
+     of the oracle's; the saved PFMs bitwise match_stereo's disparity.
+     Then the tool in its own process (its first pair holds the CUDA
+     context and the library load), and exit 2 on an empty directory;
   5. timing with CUDA events (any sample <= 0 fails): the batched
      `match_padded_core` step per route for the bench (32 pairs), grad_hist
      (32 pairs) and KITTI (D=128 x 8 pairs, D=256 x 4 pairs), the bench,
@@ -168,6 +186,8 @@ with its bound: the larger of its bytes, each input read once and each
 output written once, over 3.35 TB/s and its operations over 67 TFLOP/s,
 33.5 for the probes P1-P3, which forbid FMA;
 K2 also at C=128 and at KITTI D=256, rows of their own over K2's count;
+K1 at the KITTI grid over K1's count on the eval tool's D=64 path; K5's
+exact mode over the wrapper's `exact_launches`;
 K1, K1b, K2 (C=16 and C=128), K3, K4 and K5 bf16 rows of their own, each
 with its own launch count;
 library_ms the yardstick where there is one; K5's rows with device_ms,
@@ -221,6 +241,21 @@ PROBE_SASS = {"P1": "stream_kernelILi384", "P2": "stream_kernelILi96",
               "P3": "shift_kernel"}
 PROBE_NAMES = {"P1": "stream", "P2": "small", "P3": "shift"}
 KEYS = ("disparity", "disparity_raw", "valid", "score", "disparity_right")
+# Phase 4e, the dataset evaluation tool on `profile_steps.eval_pairs`:
+# each run (layout, D, route, --oracle-check N, more flags) and the
+# kernels it launches, once per pair.
+EVAL_RUNS = (("kitti", 64, "fused", 4, ()),
+             ("kitti", 128, "fused", 4, ()),
+             ("kitti", 128, "exact", 4, ()),
+             ("kitti", 256, "fused", 1, ("--save-disparity",)),
+             ("middlebury", 64, "fused", 2, ("--gt-scale", "0.25")),
+             ("middlebury", 64, "exact", 2, ("--gt-scale", "0.25")))
+EVAL_KERNELS = {("kitti", 64, "fused"): {"K1"},
+                ("kitti", 128, "fused"): {"K4", "K5"},
+                ("kitti", 128, "exact"): {"K2", "K5"},
+                ("kitti", 256, "fused"): {"K4", "K5"},
+                ("middlebury", 64, "fused"): {"K1"},
+                ("middlebury", 64, "exact"): {"K2", "K3"}}
 PKG = "deepmatching_stereo_matching_tpu_torch"
 JAX_PKG = "deepmatching_stereo_matching_tpu"
 
@@ -353,6 +388,179 @@ def cuda_ms(torch, fn, reps, warmup=1):
     return ms
 
 
+def write_eval_datasets(root):
+    """Phase 4e's fixtures under `root` (`profile_steps.eval_pairs`): the
+    KITTI layout, ground truth as 16-bit PNGs in disp_occ_0/, and the
+    Middlebury layout, ground truth as disparity x 4 in an 8-bit disp2.pgm.
+    Returns {layout: (directory, [(name, image size)])}."""
+    from deepmatching_stereo_matching_tpu_torch.io import writers
+    from deepmatching_stereo_matching_tpu_torch.profile_steps import (
+        eval_pairs)
+
+    out = {"kitti": (os.path.join(root, "kitti"), []),
+           "middlebury": (os.path.join(root, "middlebury"), [])}
+    for sub in ("image_2", "image_3", "disp_occ_0"):
+        os.makedirs(os.path.join(root, "kitti", sub))
+    for layout, name, left, right, gt in eval_pairs():
+        top, written = out[layout]
+        written.append((name, left.shape))
+        if layout == "kitti":
+            for sub, img in (("image_2", left), ("image_3", right)):
+                writers._to_png(os.path.join(top, sub, f"{name}.png"), img)
+            writers.write_disparity_png16(
+                os.path.join(top, "disp_occ_0", f"{name}.png"),
+                np.where(gt >= 0, gt, np.nan).astype(np.float32))
+            continue
+        require(int(gt.max()) * 4 <= 255, f"Middlebury {name}: disparity "
+                f"{gt.max()} x 4 does not fit an 8-bit PGM")
+        scene = os.path.join(top, name)
+        os.makedirs(scene)
+        writers._to_png(os.path.join(scene, "im2.png"), left)
+        writers._to_png(os.path.join(scene, "im6.png"), right)
+        disp4 = np.where(gt >= 0, gt * 4, 0).astype(np.uint8)  # 0: unknown
+        h, w = gt.shape
+        with open(os.path.join(scene, "disp2.pgm"), "wb") as f:
+            f.write(f"P5\n{w} {h}\n255\n".encode() + disp4.tobytes())
+    return out
+
+
+def eval_phase(run_path, path_launches, card):
+    """4e: `tools.eval_dataset.main(argv)` in this process over the KITTI
+    and Middlebury fixtures, each run a path of its own; then a fresh
+    process's first pairs, and an empty directory."""
+    import contextlib
+    import io
+
+    from deepmatching_stereo_matching_tpu_torch import api
+    from deepmatching_stereo_matching_tpu_torch.config import Config
+    from deepmatching_stereo_matching_tpu_torch.io import images, writers
+    from deepmatching_stereo_matching_tpu_torch.oracle import reference as oracle
+    from deepmatching_stereo_matching_tpu_torch.tools import eval_dataset
+    from deepmatching_stereo_matching_tpu_torch.utils import metrics
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_eval_datasets(tmp)
+        oracle_bad = {}    # (layout, name, D) -> the oracle's kept bad rate
+
+        def pair_files(layout, name):
+            """(left, right, ground truth, its scale) of a written pair."""
+            root = data[layout][0]
+            if layout == "kitti":
+                return (*(os.path.join(root, sub, f"{name}.png") for sub in
+                          ("image_2", "image_3", "disp_occ_0")), 1.0)
+            return (*(os.path.join(root, name, f) for f in
+                      ("im2.png", "im6.png", "disp2.pgm")), 0.25)
+
+        def oracle_kept_bad(layout, name, d):
+            if (layout, name, d) not in oracle_bad:
+                lp, rp, gtp, scale = pair_files(layout, name)
+                want = oracle.match_stereo(*images.load_pair(lp, rp),
+                                           Config(max_disparity=d))
+                oracle_bad[layout, name, d] = metrics.bad_pixel_rate(
+                    want.disparity, eval_dataset._read_gt(gtp, scale),
+                    count_invalid=False)
+            return oracle_bad[layout, name, d]
+
+        saved = os.path.join(tmp, "saved")
+        for layout, d, route, checked, extra in EVAL_RUNS:
+            root, written = data[layout]
+            n = len(written)
+            out = os.path.join(tmp, f"{layout}_{d}_{route}.json")
+            argv = [root, "-D", str(d), "--impl", route, "--oracle-check",
+                    str(checked), "--out", out, *extra]
+            if "--save-disparity" in extra:
+                argv.append(saved)
+            label = f"eval {layout} D={d} {route}"
+            stdout = io.StringIO()
+
+            def run(argv=argv, stdout=stdout):
+                with contextlib.redirect_stdout(stdout):
+                    return eval_dataset.main(argv)
+
+            expected = EVAL_KERNELS[layout, d, route]
+            rc = run_path(label, expected, run)
+            require(rc == 0, f"[{label}] exit {rc}")
+            counts = path_launches[label]
+            require(all(counts[k] == n for k in expected),
+                    f"[{label}] {counts}: expected {n} launches of each of "
+                    f"{sorted(expected)}, one per pair")
+            summary = json.loads(stdout.getvalue().strip().splitlines()[-1])
+            with open(out) as f:
+                report = json.load(f)
+            rows = report["pairs"]
+            print(f"[{label}] summary {json.dumps(summary)} {card}")
+            print(f"[{label}] per-pair seconds (host wall, in this "
+                  f"process: the CUDA context and the kernels were made in "
+                  f"phases 1-3): {[r['seconds'] for r in rows]} {card}")
+            require(summary == report["summary"]
+                    and summary["pairs"] == summary["with_gt"] == n,
+                    f"[{label}] summary {summary}, {n} pairs written")
+            require(report["config"]["device"] == "cuda:0"
+                    and report["config"]["impl"] == route,
+                    f"[{label}] ran {report['config']}")
+            for (name, hw), row in zip(written, rows):
+                require(row["pair"] == name and row["shape"] == list(hw),
+                        f"[{label}] row {row['pair']} {row['shape']}")
+                bad_o = oracle_kept_bad(layout, name, d)
+                print(f"  [{label}] {name} {hw[1]}x{hw[0]}: "
+                      f"{json.dumps(row)}; oracle kept bad {bad_o:.4f}")
+                require(abs(row["bad_pixel_rate_kept"] - bad_o)
+                        <= FUSED_DECISION_TOL,
+                        f"[{label}] {name}: kept bad "
+                        f"{row['bad_pixel_rate_kept']} against the oracle's "
+                        f"{bad_o:.4f}")
+            for row in rows[:checked]:
+                raw, val = (row["oracle_decision_disagreement"],
+                            row["oracle_valid_disagreement"])
+                require(raw == val == 0.0 if route == "exact" else
+                        max(raw, val) <= FUSED_DECISION_TOL,
+                        f"[{label}] {row['pair']}: decision disagreement "
+                        f"{raw}, valid {val} against the oracle")
+            if "--save-disparity" not in extra:
+                continue
+            require(sorted(os.listdir(saved)) == sorted(
+                f"{name}.{ext}" for name, _ in written
+                for ext in ("pfm", "png")),
+                f"[{label}] --save-disparity wrote {os.listdir(saved)}")
+            for name, _ in written:
+                lp, rp, _, _ = pair_files(layout, name)
+                want = api.match_stereo(*images.load_pair(lp, rp),
+                                        Config(max_disparity=d), impl=route,
+                                        device="cuda").disparity
+                got = writers.read_pfm(os.path.join(saved, f"{name}.pfm"))
+                require(got.dtype == want.dtype and np.array_equal(
+                    np.isnan(got), np.isnan(want)) and np.array_equal(
+                    got, want, equal_nan=True),
+                    f"[{label}] {name}.pfm differs from match_stereo's "
+                    f"disparity")
+            print(f"[{label}] --save-disparity: {len(written)} PFMs bitwise "
+                  f"match_stereo's disparity, NaN where NaN")
+
+        # A fresh process: its first pair holds the CUDA context and the
+        # load of the library built in phase 2.
+        kitti = data["kitti"][0]
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.tools.eval_dataset", kitti,
+             "--max-pairs", "2"], cwd=REPO, capture_output=True, text=True,
+            timeout=600)
+        require(proc.returncode == 0, f"eval in its own process: exit "
+                f"{proc.returncode}\n{proc.stderr[-2000:]}")
+        secs = [json.loads(line)["seconds"]
+                for line in proc.stderr.splitlines() if line.startswith("{")]
+        require(len(secs) == 2, f"eval in its own process: rows {secs}")
+        print(f"[eval kitti D=64 fused, own process] first pair {secs[0]} s "
+              f"(CUDA context, library load, first call), second {secs[1]} "
+              f"s (host wall) {card}")
+        empty = os.path.join(tmp, "empty")
+        os.makedirs(empty)
+        with contextlib.redirect_stdout(io.StringIO()) as none:
+            rc = eval_dataset.main([empty])
+        require(rc == 2 and not none.getvalue(),
+                f"an empty directory gave exit {rc}")
+        print("eval on an empty directory: exit 2, no summary")
+    print(flush=True)
+
+
 def main():
     import torch
 
@@ -379,8 +587,8 @@ def main():
     from deepmatching_stereo_matching_tpu_torch.data import synthetic
     from deepmatching_stereo_matching_tpu_torch.profile_steps import (
         SMALL_TILES, STRATEGIES as STRATEGY_RUNS, costvol_cases,
-        costvol_inputs, costvol_launch, device_ms, k5_launch, k5_volume,
-        rows_cases, rows_inputs, rows_launch)
+        costvol_inputs, costvol_launch, device_ms, eval_pairs, k5_launch,
+        k5_volume, rows_cases, rows_inputs, rows_launch)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -903,7 +1111,21 @@ def main():
             del src_, tgt_
     print()
 
-    # 3b. K4 and K5 at the KITTI shapes, full width.
+    # 3b. K1 at the KITTI grid (the eval tool's -D 64 route, phase 4e):
+    # both directions of the tool's first KITTI pair, as the tool pads it.
+    _, _, el, er, _ = next(p_ for p_ in eval_pairs() if p_[0] == "kitti")
+    ecfg = Config(max_disparity=64)
+    egeom = ecfg.geometry(*el.shape)
+    require((egeom.levels, egeom.grid_h, egeom.grid_w, egeom.disparities)
+            == (4, 96, 384, 64) and fused_cuda.supported(ecfg, egeom),
+            f"KITTI D=64 must take K1 on the 96x384 grid: {egeom}")
+    fused_smem_agrees("K1 KITTI D=64", ecfg, egeom)
+    el, er = both_directions(*(to_dev([x], ecfg, *x.shape)[0]
+                               for x in (el, er)))
+    fused_vs_plain("K1 KITTI", el, er, ecfg, egeom)
+    del el, er
+
+    # ... then K4 and K5 at the KITTI shapes, full width.
     kitti = {}
     for max_d, batch in KITTI.items():
         kcfg = Config(max_disparity=max_d)
@@ -1012,6 +1234,15 @@ def main():
                             vol_, kgeom.levels, kcfg.lam, True), "aggregate")
                     require(rows[key]["device_ms"] > 0,
                             f"{key}: no device time in the profiler")
+                if max_d == 128 and not fast and key == "K5":
+                    # The exact mode (KITTI `exact`, dslab): a row of its own.
+                    record("K5 exact", err5,
+                           lambda: pyramid_cuda.aggregate_dmajor(
+                               kvol, kgeom.levels, kcfg.lam, False),
+                           lambda: pyramid_cuda.aggregate_dmajor_torch(
+                               kvol, kgeom.levels, kcfg.lam, False),
+                           (nbytes(kvol, top, *args),
+                            pyramid_flops(kvol.numel(), kgeom.levels)))
         # K5's block: shared memory against its mirror and blocks per SM,
         # in each dtype and mode (the 16-byte form these volumes take).
         for key, dt in (("K5", torch.float32), ("K5 bf16", bf16)):
@@ -1030,6 +1261,8 @@ def main():
                     f"{key}: {occ5} blocks per SM, fewer than 2")
             if max_d == 128:
                 rows[key]["blocks_per_sm"] = occ5["fast"]
+                if key == "K5":
+                    rows["K5 exact"]["blocks_per_sm"] = occ5["exact"]
         del kvol, kvol16, top, top_p, args, args_p
 
     # K4 on a grid of ragged 8x32-patch tiles, with a masked plane.
@@ -1212,6 +1445,13 @@ def main():
           f"{EARLIER_MS['K4']} ms), "
           f"plain {rows['K4']['plain']:.4f} ms per 16-instance KITTI D=128 "
           f"call {card}")
+    print(f"  K1 KITTI: kernel {rows['K1 KITTI']['ms']:.4f} ms, plain "
+          f"{rows['K1 KITTI']['plain']:.4f} ms per 2-instance KITTI D=64 "
+          f"call (one eval pair, both directions) {card}")
+    print(f"  K5 exact: kernel {rows['K5 exact']['ms']:.4f} ms beside K5 "
+          f"fast's {rows['K5']['ms']:.4f} ms, plain "
+          f"{rows['K5 exact']['plain']:.4f} ms per 16-instance KITTI D=128 "
+          f"call {card}")
     for k in ("K5", "K5 bf16"):
         print(f"  {k}: kernel {rows[k]['ms']:.4f} ms event, "
               f"{rows[k]['device_ms']:.4f} ms device (earlier: "
@@ -1258,18 +1498,29 @@ def main():
                 "P3": (probe_cuda.shift, "launches")}
     path_launches = {}
 
+    def reset_counts():
+        for f, attr in counters.values():
+            setattr(f, attr, 0)
+        pyramid_cuda.aggregate_dmajor.calls = 0
+        pyramid_cuda.aggregate_dmajor.exact_launches = 0
+
+    def read_counts():
+        """Every count since reset_counts(), and as 'K5 exact' K5's float32
+        exact-mode launches: a share of K5's, a row of their own."""
+        counts = {k: getattr(f, attr) for k, (f, attr) in counters.items()}
+        counts["K5 exact"] = pyramid_cuda.aggregate_dmajor.exact_launches
+        return counts
+
     def run_path(label, expected, fn):
         """fn() with every count set to 0 just before and read just after;
         the path must launch exactly the `expected` kernels, and K5 once
         per aggregate_dmajor call (every path here has L <= 5)."""
-        for f, attr in counters.values():
-            setattr(f, attr, 0)
-        pyramid_cuda.aggregate_dmajor.calls = 0
+        reset_counts()
         out = fn()
         sync()
-        counts = {k: getattr(f, attr) for k, (f, attr) in counters.items()}
+        counts = read_counts()
         path_launches[label] = counts
-        launched = {k for k, v in counts.items() if v > 0}
+        launched = {k for k in counters if counts[k] > 0}
         calls = pyramid_cuda.aggregate_dmajor.calls
         print(f"launch counts [{label}]: {counts}"
               + (f"; aggregate_dmajor calls {calls}" if calls else ""))
@@ -1647,6 +1898,10 @@ def main():
                 f"{meta.get('engine')} in {meta['config']['dtype']}")
     print(flush=True)
 
+    # 4e. The dataset evaluation tool over KITTI- and Middlebury-layout
+    # pairs on disk, at their real image sizes.
+    eval_phase(run_path, path_launches, card)
+
     # 5. Timing of the batched steps, each with its peak device memory; the
     # bf16 steps beside the float32 ones.
     steps = [("bench", cfg, geom, lp, rp), ("grad_hist", gh, geom, lp, rp)]
@@ -1847,14 +2102,12 @@ def main():
                     sl, sr = (sharded.pad_batch([x[i] for x in spairs], scfg,
                                                 H, W, mesh, strategy, ml)
                               for i in (0, 1))
-                    for fn, attr in counters.values():
-                        setattr(fn, attr, 0)
+                    reset_counts()
                     got = sharded.match_batch_sharded(sl, sr, scfg, H, W,
                                                       mesh, strategy, route,
                                                       ml)
                     sync()
-                    counts = {k: getattr(fn, attr)
-                              for k, (fn, attr) in counters.items()}
+                    counts = read_counts()
                     path_launches[f"{label} {mode}"] = counts
                     glob = sharded.strategy_geometry(scfg, H, W, mesh,
                                                      strategy, ml)
@@ -1900,7 +2153,7 @@ def main():
                                   f"{raw_neq:.3e} valid_neq={val_neq:.3e}")
                             require(raw_neq == 0.0 and val_neq == 0.0,
                                     f"{label} {mode} off the oracle")
-                    launched = {k for k, v in counts.items() if v > 0}
+                    launched = {k for k in counters if counts[k] > 0}
                     expected = strategy_kernels(strategy, ml, mode)
                     require(launched == expected,
                             f"{label} {mode} launched {sorted(launched)}, "
@@ -1909,13 +2162,11 @@ def main():
                     # its own float32 run, or to the unsharded bf16
                     # pipeline.
                     scfg16 = dataclasses.replace(scfg, dtype="bfloat16")
-                    for fn, attr in counters.values():
-                        setattr(fn, attr, 0)
+                    reset_counts()
                     got16 = sharded.match_batch_sharded(
                         sl, sr, scfg16, H, W, mesh, strategy, route, ml)
                     sync()
-                    counts16 = {k: getattr(fn, attr)
-                                for k, (fn, attr) in counters.items()}
+                    counts16 = read_counts()
                     path_launches[f"{label} bf16 {mode}"] = counts16
                     if in_f32(strategy, ml):
                         ref16, what = g, "its own float32 run"
@@ -1932,7 +2183,7 @@ def main():
                     same16 = all(np.array_equal(g16[k], ref16[k],
                                                 equal_nan=k == "disparity")
                                  for k in KEYS)
-                    launched16 = {k for k, v in counts16.items() if v > 0}
+                    launched16 = {k for k in counters if counts16[k] > 0}
                     expected16 = strategy_kernels(strategy, ml, mode,
                                                   "bfloat16")
                     print(f"strategy [{label}, {route}, {mode}] bf16: "
@@ -1986,7 +2237,9 @@ def main():
     # K2 at grad_hist width and at the KITTI geometry are rows of their
     # own over K2's count: its launches on the paths of that kind.
     shape_rows = {"K2 C=128": ("K2", "grad_hist"), "K2 KITTI": ("K2", "kitti"),
-                  "K2 C=128 bf16": ("K2 bf16", "grad_hist")}
+                  "K2 C=128 bf16": ("K2 bf16", "grad_hist"),
+                  "K1 KITTI": ("K1", "eval kitti D=64"),
+                  "K5 exact": ("K5 exact", "")}
     for key, (kernel, prefix) in shape_rows.items():
         launches[key] = sum(c[kernel] for p, c in path_launches.items()
                             if p.startswith(prefix))
@@ -1994,6 +2247,8 @@ def main():
     sources = {
         "K1": ("K1 fused image->disparity (patch)", "csrc/fused.cu",
                "ops/fused_pallas.py:572"),
+        "K1 KITTI": ("K1 fused image->disparity (patch), KITTI grid D=64",
+                     "csrc/fused.cu", "ops/fused_pallas.py:572"),
         "K1b": ("K1b fused image->disparity (magbin, grad_hist)",
                 "csrc/fused.cu", "ops/fused_pallas.py:572"),
         "K2": ("K2 D-major cost volume", "csrc/costvol.cu",
@@ -2008,6 +2263,8 @@ def main():
                "ops/fused_pallas.py:808"),
         "K5": ("K5 level aggregation", "csrc/aggregate.cu",
                "ops/pyramid_pallas.py:346"),
+        "K5 exact": ("K5 level aggregation, exact mode", "csrc/aggregate.cu",
+                     "ops/pyramid_pallas.py:346"),
         "K1 bf16": ("K1 fused image->disparity (patch, bfloat16)",
                     "csrc/fused.cu", "ops/fused_pallas.py:572"),
         "K4 bf16": ("K4 image->D-major cost volume (bfloat16)",
@@ -2033,6 +2290,7 @@ def main():
                "tools/vpu_ceiling.py:165"),
     }
     regs = {"K1": fused_ptxas.get((4, "patch", "f32")),
+            "K1 KITTI": fused_ptxas.get((4, "patch", "f32")),
             "K1 bf16": fused_ptxas.get((4, "patch", "bf16")),
             "K1b": fused_ptxas.get((4, "magbin", "f32")),
             "K1b bf16": fused_ptxas.get((4, "magbin", "bf16")),
@@ -2045,6 +2303,7 @@ def main():
             "K4": rows_ptxas.get("costrows_kernelILi4EfE"),
             "K4 bf16": rows_ptxas.get("costrows_kernelILi4Ebf16E"),
             "K5": rows_ptxas.get("aggregate_kernelILb0ELb1ELb1E"),
+            "K5 exact": rows_ptxas.get("aggregate_kernelILb0ELb1ELb0E"),
             "K5 bf16": rows_ptxas.get("aggregate_kernelILb1ELb1ELb1E")}
     for k, v in regs.items():
         if v is not None:

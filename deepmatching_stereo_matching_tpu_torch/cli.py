@@ -9,7 +9,10 @@ same metrics JSON keys, except:
   * `--debug-checks` checks the pipeline's invariants on the device
     (utils/checks.py) on the chosen route;
   * `--dtype bfloat16` runs on every route, with the JAX package's
-    semantics (models/pipeline.py); there is no `--dot-precision`;
+    semantics (models/pipeline.py);
+  * `--dot-precision` is accepted and recorded in the config, and changes
+    nothing: it picks the TPU kernel's selection-matmul scheme, which the
+    CUDA kernels do not have;
   * `engine` in the metrics names the torch device ("cuda:0", "cpu"), or
     "oracle".
 `--oracle` runs the port's copy of the NumPy oracle.  Outputs go through
@@ -78,6 +81,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", choices=("float32", "bfloat16"),
                    default="float32",
                    help="cost-volume/pyramid compute dtype")
+    p.add_argument("--dot-precision",
+                   choices=("split2", "split3", "highest"),
+                   default="split2",
+                   help="accepted for the JAX CLI's command lines and "
+                        "ignored: the CUDA kernels have no selection "
+                        "matmuls")
     return p
 
 
@@ -97,6 +106,7 @@ def config_from_args(args) -> "Config":
         median_filter=args.median,
         fill_invalid=args.fill,
         dtype=args.dtype,
+        fused_dot_precision=args.dot_precision,
     )
 
 

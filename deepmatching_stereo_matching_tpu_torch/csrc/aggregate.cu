@@ -60,10 +60,11 @@
 // Numerics (bitwise the parent's per-level kernel and
 // ops/pyramid_cuda.py:aggregate_dmajor_torch): fmaxf(fmaxf(lo, even),
 // odd), ties lo, then even, then odd; the merge ((q00 + q01) + (q10 +
-// q11)) * 0.25 with q indexed (row, col); powf, never __powf; fast (a
-// template flag, so each instance inlines only its powers): the power on
-// the pooled values at every level above 0 (pow_first: at this launch's
-// level 0 too, out of line), none at the top; exact: after every merge.
+// q11)) * 0.25 with q indexed (row, col); never __powf; fast (a template
+// flag, so each instance inlines only its powers): powf on the pooled
+// values at every level above 0 (pow_first: at this launch's level 0 too,
+// out of line), none at the top; exact: after every merge, correctly
+// rounded on float32 maps (pyramid.cuh:pow_rn).
 // The bfloat16 instance rounds every op's result to bf16 (pyramid.cuh's
 // round_bf16), its maps floats holding bf16 values, with lam as the
 // wrapper passes it (1.4 rounded to bf16).
@@ -203,11 +204,14 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// x^lam, rounded to bf16 in the BF16 instance.
-template <bool BF16>
+// x^lam, rounded to bf16 in the BF16 instance; EXACT (the exact mode's
+// power after a merge) correctly rounded on float32 maps.
+template <bool BF16, bool EXACT = false>
 __device__ __forceinline__ float rect(float x, float lam) {
   if constexpr (BF16) {
     return dm::round_bf16(powf(x, lam));
+  } else if constexpr (EXACT) {
+    return dm::pow_rn(x, lam);
   } else {
     return powf(x, lam);
   }
@@ -346,7 +350,7 @@ __device__ void upper_levels(float* sm, typename Elem<BF16>::T* top,
         if (p >= P) break;
         float m = quad_mean<BF16>(pooled[0][2 * p], pooled[0][2 * p + 1],
                                   pooled[1][2 * p], pooled[1][2 * p + 1]);
-        if (!FAST) m = rect<BF16>(m, lam);
+        if (!FAST) m = rect<BF16, true>(m, lam);
         if (last) {
           const int ht = h0 >> levels, wt = w0 >> levels;
           store_top(top +
@@ -550,7 +554,7 @@ aggregate_kernel(const typename Elem<BF16>::T* __restrict__ vol,
       for (int c = 0; c < kV / 2; ++c) {
         m1[c] = quad_mean<BF16>(pooled[0][2 * c], pooled[0][2 * c + 1],
                                 pooled[1][2 * c], pooled[1][2 * c + 1]);
-        if (!FAST) m1[c] = rect<BF16>(m1[c], lam);
+        if (!FAST) m1[c] = rect<BF16, true>(m1[c], lam);
       }
       if (levels == 1) {  // level 1 is the top
         T* o = top + ((size_t)b * kn + k) * (plane >> 2) +
@@ -597,7 +601,7 @@ aggregate_kernel(const typename Elem<BF16>::T* __restrict__ vol,
       const float other = __shfl_xor_sync(kFull, mine, kCols);
       float m2 = quarter<BF16>(
           add<BF16>(even_row ? mine : other, even_row ? other : mine));
-      if (!FAST) m2 = rect<BF16>(m2, lam);
+      if (!FAST) m2 = rect<BF16, true>(m2, lam);
       if (even_row && pairs_in > 0) {
         if (levels == 2) {  // level 2 is the top
           store_top(top + ((size_t)b * (d0 >> 2) + (k >> 1)) * (plane >> 4) +

@@ -3,8 +3,9 @@
 // Replaces deepmatching_stereo_matching_tpu/ops/pyramid_pallas.py:_kernel
 // (pyramid_body(fast=False) via _pyramid_backtrack / pyramid_backtrack).
 // In: (n, D0, H0, W0) f32.  Out: (n, H0, W0) int32 disparity bins and
-// f32 level-0 scores.  Exact mode: powf after every merge, so decisions
-// equal the oracle's up to powf's own rounding.
+// f32 level-0 scores.  Exact mode: the correctly rounded power after
+// every merge (pyramid.cuh:pow_rn; powf in the bfloat16 instance, whose
+// result rounds to bf16).
 //
 // One block of 256 threads per (instance, 2^L x 2^L-patch tile), on K1's
 // level-0 structure (fused.cu:level0) with loads of the volume in place of
@@ -17,8 +18,9 @@
 //      ones are pooled.  Each (2k-1, 2k, 2k+1) is pooled in registers (pad
 //      -1 below bin 0, ties lo/even/odd), its offset packed at 2 bits, and
 //      the quad's 4-child mean formed by two __shfl_xor_sync in
-//      ((q00 + q01) + (q10 + q11)) * 0.25 order, then x^lam by powf: the
-//      level-1 map, the only level-0 result in shared memory.
+//      ((q00 + q01) + (q10 + q11)) * 0.25 order, then x^lam by pow_rn
+//      (float32; each of the quad's four lanes powers one of a step's four
+//      planes): the level-1 map, the only level-0 result in shared memory.
 //   2. Levels >= 1 and the top-down walk: pyramid.cuh from level 1.
 //   3. The score: one load of cost[k] per cell, a copy, so bitwise.
 // Shared memory holds levels 1..L and the offsets only: 12,576 B at the
@@ -120,6 +122,7 @@ __device__ void level0(const Cost<BF16>* __restrict__ src, size_t plane,
     uint32_t pack = 0u;
     for (int d = 0; d < d0; d += kStep) {
       load_planes(col, plane, d + kStep, d0, nxt);
+      float mq[kStep / 2];  // float32: this step's quad sums, one a plane
 #pragma unroll
       for (int h = 0; h < kStep / 2; ++h) {
         const int k = (d >> 1) + h;
@@ -140,11 +143,20 @@ __device__ void level0(const Cost<BF16>* __restrict__ src, size_t plane,
             lv1[k * hs * hs + q] = dm::round_bf16(
                 powf(dm::round_bf16(__fmul_rn(m, 0.25f)), lam));
         } else {
-          float m = pooled + __shfl_xor_sync(kFull, pooled, 1);
-          m = m + __shfl_xor_sync(kFull, m, 2);
-          if (active && sub == 0) lv1[k * hs * hs + q] = powf(m * 0.25f, lam);
+          const float m = pooled + __shfl_xor_sync(kFull, pooled, 1);
+          mq[h] = m + __shfl_xor_sync(kFull, m, 2);  // alike in all 4 lanes
         }
         prevc = od;
+      }
+      if constexpr (!BF16) {
+        // The quad's four lanes take one plane's power each.
+        static_assert(kStep / 2 == 4, "one plane a lane of the quad");
+        const int k = (d >> 1) + sub;
+        const float m = sub == 0 ? mq[0]
+                        : sub == 1 ? mq[1]
+                        : sub == 2 ? mq[2] : mq[3];
+        if (active && k < kn)
+          lv1[k * hs * hs + q] = dm::pow_rn(m * 0.25f, lam);
       }
 #pragma unroll
       for (int r = 0; r < kStep; ++r) cur[r] = nxt[r];

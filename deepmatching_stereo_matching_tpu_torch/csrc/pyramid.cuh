@@ -11,10 +11,10 @@
 //   * 3-wide disparity max-pool + x2 subsample, pad -1.0 below bin 0,
 //     ties lo, then even, then odd; the offset in {-1, 0, 1} is recorded;
 //   * 4-child mean in ((q00 + q01) + (q10 + q11)) * 0.25 order;
-//   * x^lam with powf (never __powf or an exp2/log2 form): after every
-//     merge in exact mode; in fast mode deferred to the pooled map of
-//     the next level and skipped at the top (max commutes with the
-//     monotone power);
+//   * x^lam never by __powf or an exp2/log2 form: in exact mode
+//     after every merge, correctly rounded (pow_rn: float32 maps); in
+//     fast mode by powf, deferred to the pooled map of the next level and
+//     skipped at the top (max commutes with the monotone power);
 //   * first-max argmax at the top, then k = 2k + offset per level, and
 //     score = cost0[k] (K3 reads it from the volume, K1 recomputes it
 //     from its staged pixels).
@@ -38,6 +38,17 @@ constexpr int kThreads = 256;
 // x rounded to the nearest bfloat16 (ties to even), held as a float.
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// x^lam correctly rounded: the power in double, rounded once to float
+// (correct unless the exact power lies within double's error of a
+// rounding boundary).  The exact mode's power on float32 maps.  powf errs
+// by up to 2 ULP, and at a pool near-tie that flipped decisions away from
+// the oracle's (np.power) on a KITTI-size pair (1226x370, D=128: 15
+// patches) where this power keeps them.  The plain versions compute it
+// alike (ops/pool.py:rectify).
+__device__ __forceinline__ float pow_rn(float x, float lam) {
+  return __double2float_rn(pow((double)x, (double)lam));
 }
 
 // ((q0 + q1) + (q2 + q3)) * 0.25 with every result rounded to bfloat16.
@@ -101,7 +112,7 @@ __device__ const float* pyramid_up(const float* cur, float* out, int8_t* arg,
         out[k * oplane + rem] = FAST ? m : round_bf16(powf(m, lam));
       } else {
         const float m = ((q[0] + q[1]) + (q[2] + q[3])) * 0.25f;
-        out[k * oplane + rem] = FAST ? m : powf(m, lam);
+        out[k * oplane + rem] = FAST ? m : pow_rn(m, lam);
       }
     }
     __syncthreads();

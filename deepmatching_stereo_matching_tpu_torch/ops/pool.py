@@ -5,8 +5,13 @@ max-pool + x2 subsample with recorded argmax offsets, and the quadtree
 4-child merge + power rectification, in the D-minor (..., H, W, D) and
 D-major (..., D, H, W) layouts.  Same -1.0 pool pad, same lo/even/odd tie
 order and same ((q00 + q01) + (q10 + q11)) * 0.25 summation order, so the
-pools are bitwise equal to the oracle's; x**lam goes through `torch.pow`,
-which rounds like `np.power` only to ~2 ULP.
+pools are bitwise equal to the oracle's.  x**lam after a merge (the exact
+mode) is correctly rounded: the power in float64, rounded once, as K3 and
+K5 compute it (`pow_rn`, csrc/pyramid.cuh); float32 `torch.pow` (powf
+on the card, up to 2 ULP off) flipped a pool near-tie off the oracle's
+decisions where the correctly rounded power keeps them.  The fast mode's
+deferred power stays float32 `torch.pow`, as K1 and K5's fast mode use
+powf.
 
 On bfloat16 maps every op rounds its result to bfloat16 (torch eager, as
 XLA does on the JAX side), and the power follows `rectify` with the
@@ -16,6 +21,7 @@ exponent of `map_lam`.
 from __future__ import annotations
 
 import functools
+import struct
 from typing import Optional, Tuple
 
 import torch
@@ -32,12 +38,18 @@ def map_lam(lam: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(lam, dtype=dtype))
 
 
-def rectify(x: torch.Tensor, lam: float) -> torch.Tensor:
+def rectify(x: torch.Tensor, lam: float, exact: bool = False
+            ) -> torch.Tensor:
     """x**lam with the exponent exactly as given.  On bfloat16 maps, the
     power of the exact float32 widening rounded once to bfloat16:
     `torch.pow` on a bfloat16 tensor would round a scalar exponent to
-    bfloat16 by itself, which K1's fast rectification must not."""
+    bfloat16 by itself, which K1's fast rectification must not.  `exact`
+    (the power after a merge) on float32 maps: x**float32(lam) in
+    float64, rounded once to float32."""
     if x.dtype == torch.float32:
+        if exact:   # lam as the kernels' float parameter holds it
+            lam32 = struct.unpack("f", struct.pack("f", lam))[0]
+            return torch.pow(x.double(), lam32).float()
         return torch.pow(x, lam)
     return torch.pow(x.float(), lam).to(x.dtype)
 
@@ -96,9 +108,9 @@ def quad_mean(sub: torch.Tensor, h_dim: int) -> torch.Tensor:
 def aggregate_children(sub: torch.Tensor, lam: float) -> torch.Tensor:
     """(..., H, W, K) -> (..., H/2, W/2, K): 4-child mean, then x**lam
     (lam rounded to the maps' dtype, as in JAX)."""
-    return rectify(quad_mean(sub, -3), map_lam(lam, sub.dtype))
+    return rectify(quad_mean(sub, -3), map_lam(lam, sub.dtype), exact=True)
 
 
 def aggregate_children_dmajor(sub: torch.Tensor, lam: float) -> torch.Tensor:
     """`aggregate_children` on the D-major (..., K, H, W) layout."""
-    return rectify(quad_mean(sub, -2), map_lam(lam, sub.dtype))
+    return rectify(quad_mean(sub, -2), map_lam(lam, sub.dtype), exact=True)

@@ -115,7 +115,7 @@ def aggregate_dmajor_torch(cost: torch.Tensor, levels: int, lam: float,
         if fast and lvl > 0:
             pooled = pool.rectify(pooled, lam)
         merged = pool.quad_mean(pooled, -2)
-        cur = merged if fast else pool.rectify(merged, lam)
+        cur = merged if fast else pool.rectify(merged, lam, exact=True)
     return cur, args
 
 
@@ -342,6 +342,8 @@ def aggregate_dmajor(cost_dm: torch.Tensor, levels: int, lam: float,
                 aggregate_dmajor.bf16_launches += 1
             else:
                 aggregate_dmajor.launches += 1
+                if not fast:
+                    aggregate_dmajor.exact_launches += 1
         cur = out
         first += lv
     return cur, args
@@ -349,4 +351,5 @@ def aggregate_dmajor(cost_dm: torch.Tensor, levels: int, lam: float,
 
 aggregate_dmajor.launches = 0        # K5, float32 volume
 aggregate_dmajor.bf16_launches = 0   # K5, bfloat16 volume
+aggregate_dmajor.exact_launches = 0  # of `launches`: float32, exact mode
 aggregate_dmajor.calls = 0           # calls on the card, one launch each at L <= 5

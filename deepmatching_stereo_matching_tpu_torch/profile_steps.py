@@ -13,7 +13,8 @@
     python deepmatching_stereo_matching_tpu_torch/profile_steps.py \
         --sass-diff CHECKOUT
     python deepmatching_stereo_matching_tpu_torch/profile_steps.py \
-        --step-times [--cells ...] [--routes ...] [--dtype ...] [--root DIR]
+        --step-times [--cells ...] [--routes ...] [--dtype ...] \
+        [--strategies ...] [--root DIR]
 
 Cells (synthetic pairs made from seeds, `lr_mode="flip"`): bench
 (450x375, D=64, 32 pairs, bench.py's recipe), grad_hist (the same with
@@ -74,14 +75,15 @@ case is off.
 
 --rows also hashes K5's (top, offsets) at every K5 case of `rows_cases`
 (both modes, both dtypes, real-valued and tie-heavy volumes) and times K5
-at KITTI D=128 x 16 and D=256 x 8 in each dtype (fast mode): event time
-as --k1, and device time from torch.profiler.  Run on the parent first,
+at KITTI D=128 x 16 and D=256 x 8 in each dtype and mode: event time as
+--k1, and device time from torch.profiler.  Run on the parent first,
 then the change, to show K5's outputs the parent's at every shape.
 
---step-times times the --cells steps in each --dtype and route as
-chip_smoke.py does (7 samples of one call: median, range; peak device
-memory), from the package under --root: parent, change, change, parent
-in one call compares two trees' steps on one card.
+--step-times times the --cells steps in each --dtype and route, and with
+--strategies each named strategy's float32 step, as chip_smoke.py does
+(7 samples of one call: median, range; peak device memory), from the
+package under --root: parent, change, change, parent in one call
+compares two trees' steps on one card.
 
 --sass-diff CHECKOUT builds this checkout's library and CHECKOUT's and
 compares the SASS of every instance of every kernel, matched by template
@@ -222,11 +224,12 @@ def profile_cells(cells, routes, steps, strategies=(), dtypes=("float32",)):
             sys.stdout.flush()
 
 
-def time_steps(cells, routes, dtypes):
+def time_steps(cells, routes, dtypes, strategies=()):
     """--step-times: each cell's batched `match_padded_core` step per dtype
-    and route, as chip_smoke.py times them: 7 samples of one call (CUDA
-    events) after a warm-up, their median and range, and the step's peak
-    device memory, from the port package under --root."""
+    and route, and in float32 each of `strategies`' `match_batch_sharded`
+    step on the one-rank world, as chip_smoke.py times them: 7 samples of
+    one call (CUDA events) after a warm-up, their median and range, and
+    the step's peak device memory, from the port package under --root."""
     import torch
 
     from deepmatching_stereo_matching_tpu_torch.models import pipeline
@@ -243,9 +246,11 @@ def time_steps(cells, routes, dtypes):
 
     for cell, dtype in ((c, d) for c in cells for d in dtypes):
         cfg, geom, lp, rp = _padded_pairs(cell, dtype)
-        for route in routes:
-            def step(route=route):
-                return pipeline.match_padded_core(lp, rp, cfg, geom, route)
+        todo = [(f"[{route}]", lambda route=route: pipeline.match_padded_core(
+            lp, rp, cfg, geom, route)) for route in routes]
+        if dtype == "float32":
+            todo += list(_strategy_steps(cfg, geom, lp, rp, strategies))
+        for label, step in todo:
             for _ in range(3):
                 step()
             torch.cuda.synchronize()
@@ -254,7 +259,7 @@ def time_steps(cells, routes, dtypes):
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated()
             ms = [one(step) for _ in range(7)]
-            print(f"step {cell} [{route}] {dtype} {_build.SRC_DIR}: median "
+            print(f"step {cell} {label} {dtype} {_build.SRC_DIR}: median "
                   f"{float(np.median(ms)):.4f} ms [{min(ms):.4f}.."
                   f"{max(ms):.4f}] over 7; peak {peak / 2**20:.1f} MiB",
                   flush=True)
@@ -704,8 +709,8 @@ def time_rows(hashes: Path):
 def k5_rows(torch, got, digest, seed, name, shape):
     """--rows for one K5 case: a hash of (top, every level's offsets) in
     each mode and dtype, on real-valued and on tie-heavy volumes; at the
-    KITTI shapes the event and device times of a call in each dtype, fast
-    mode (the fused route's)."""
+    KITTI shapes the event and device times of a call in each dtype and
+    mode (fast: the fused route's; exact: the exact route's)."""
     from deepmatching_stereo_matching_tpu_torch.ops import _build, pyramid_cuda
 
     flat = rows_inputs(torch, "K5", shape, seed)
@@ -722,15 +727,17 @@ def k5_rows(torch, got, digest, seed, name, shape):
                 del out
         if name.startswith("K5 kitti"):
             vol = k5_volume(shape, flat[0], dtype)
-
-            def call(vol=vol):
-                return pyramid_cuda.aggregate_dmajor(vol, shape[4], 1.4, True)
-            ms = _median_launch_ms(torch, call)
-            dev = device_ms(torch, call, "aggregate")
-            print(f"{name}{tag} fast {shape[:5]} {_build.SRC_DIR}: ms per call, "
-                  f"5 x 20 launches: " + " ".join(f"{x:.4f}" for x in ms)
-                  + f"; median {float(np.median(ms)):.4f}; device "
-                  f"{dev:.4f} ms per call (profiler)", flush=True)
+            for fast in (True, False):
+                def call(vol=vol, fast=fast):
+                    return pyramid_cuda.aggregate_dmajor(vol, shape[4], 1.4,
+                                                         fast)
+                ms = _median_launch_ms(torch, call)
+                dev = device_ms(torch, call, "aggregate")
+                print(f"{name}{tag} {'fast' if fast else 'exact'} "
+                      f"{shape[:5]} {_build.SRC_DIR}: ms per call, 5 x 20 "
+                      f"launches: " + " ".join(f"{x:.4f}" for x in ms)
+                      + f"; median {float(np.median(ms)):.4f}; device "
+                      f"{dev:.4f} ms per call (profiler)", flush=True)
             if name == "K5 kitti D=128":
                 # Where the time goes: the same volume aggregated to depth
                 # 1 and 2 (level 0, then level 1 too, no level warp), and
@@ -839,6 +846,38 @@ def sass_diff(other: Path) -> int:
     return 1 if differ else 0
 
 
+# chip_smoke.py's dataset-evaluation pairs (phase 4e): KITTI image sizes
+# (padded 384x1536, a 96x384 patch grid), fields below 128, seeds 7-10;
+# Middlebury-size scenes (450x375), fields below 64, seeds 100-101.
+EVAL_KITTI_HW = ((375, 1242), (376, 1241), (370, 1224), (370, 1226))
+EVAL_MB_HW, EVAL_MB_SEEDS, EVAL_KITTI_SEED = (375, 450), (100, 101), 7
+
+
+def eval_pairs():
+    """[(layout, name, left, right, gt)] of chip_smoke's
+    phase 4e: 8-bit images as they are written to disk and read back; gt
+    in pixels, -1 where the pair has none."""
+    from deepmatching_stereo_matching_tpu_torch.data import synthetic
+
+    def u8(a):
+        return np.clip(a * 255.0, 0, 255).astype(np.uint8)
+
+    out = []
+    for layout, sizes, seeds, max_d in (
+            ("kitti", EVAL_KITTI_HW,
+             range(EVAL_KITTI_SEED, EVAL_KITTI_SEED + len(EVAL_KITTI_HW)),
+             128),
+            ("middlebury", [EVAL_MB_HW] * len(EVAL_MB_SEEDS), EVAL_MB_SEEDS,
+             64)):
+        for i, ((h, w), seed) in enumerate(zip(sizes, seeds)):
+            field = synthetic.block_disparity_field(
+                h, w, max_d, np.random.default_rng(seed), block=48)
+            left, right, gt = synthetic.make_pair(h, w, field, seed=seed)
+            name = f"{i:06d}_10" if layout == "kitti" else f"scene{seed}"
+            out.append((layout, name, u8(left), u8(right), gt))
+    return out
+
+
 def _median_launch_ms(torch, fn):
     """Five samples of the mean time of 20 calls, CUDA events."""
     for _ in range(3):
@@ -866,7 +905,8 @@ def main(argv=None) -> int:
                     help="Config.dtype of the profiled steps: float32, "
                          "bfloat16, or both comma-separated")
     ap.add_argument("--strategies", default="",
-                    help=f"sharded strategies to profile too, of "
+                    help=f"sharded strategies to profile (or with "
+                         f"--step-times time) too, of "
                          f"{','.join(STRATEGIES)}")
     ap.add_argument("--k1", action="store_true",
                     help="time K1 and K1b alone at the bench shapes")
@@ -906,11 +946,6 @@ def main(argv=None) -> int:
     if args.k1:
         time_k1()
         return 0
-    if args.step_times:
-        time_steps(args.cells.split(","),
-                   [r for r in args.routes.split(",") if r],
-                   [d for d in args.dtype.split(",") if d])
-        return 0
     if args.sass_diff:
         return sass_diff(args.sass_diff.resolve())
     if args.costvol or args.rows:
@@ -922,8 +957,14 @@ def main(argv=None) -> int:
     routes = [r for r in args.routes.split(",") if r]
     strategies = [s for s in args.strategies.split(",") if s]
     dtypes = [d for d in args.dtype.split(",") if d]
+
+    def run():
+        if args.step_times:
+            time_steps(cells, routes, dtypes, strategies)
+        else:
+            profile_cells(cells, routes, args.steps, strategies, dtypes)
     if not strategies:
-        profile_cells(cells, routes, args.steps, dtypes=dtypes)
+        run()
         return 0
     import tempfile
 
@@ -935,7 +976,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as rdzv:
         launch.init("nccl", 0, 1, str(Path(rdzv) / "rendezvous"))
         try:
-            profile_cells(cells, routes, args.steps, strategies, dtypes)
+            run()
         finally:
             dist.destroy_process_group()
     return 0

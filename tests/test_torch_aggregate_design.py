@@ -23,7 +23,8 @@ partners, the item map, the flat shared-memory layout
 its masks at ragged edges, running the level warp as far behind as its
 barriers let it, and rebuild `aggregate_dmajor_torch` bitwise from it in
 fast and exact mode, float32 and bfloat16 (every op rounded, lam rounded;
-the power, in both, numpy's: `numpy_rectify`), at L 1-7, over ragged
+the power, in both, numpy's: `numpy_rectify`; exact mode's power after a
+merge on float32 maps correctly rounded), at L 1-7, over ragged
 tile counts, D0 = 2^L and D0 not a multiple of the chunk; every output
 is written exactly once and every store is aligned to its width.  They
 hold the block's shared memory and threads to two blocks per SM at the
@@ -65,19 +66,32 @@ class Ops:
     def pow(self, x):
         return self.r(np.power(np.asarray(x, np.float32), self.lam))
 
+    def merge_pow(self, x):
+        """The exact mode's power after a merge: correctly rounded on
+        float32 maps (pyramid.cuh:pow_rn), `pow` on bfloat16 maps."""
+        if self.r is rne:
+            return self.pow(x)
+        return np.power(np.asarray(x, np.float64),
+                        np.float64(self.lam)).astype(np.float32)
+
     def quad(self, q00, q01, q10, q11):
         r = self.r
         return r(r(r(q00 + q01) + r(q10 + q11)) * np.float32(0.25))
 
 
-def numpy_rectify(x, lam):
+def numpy_rectify(x, lam, exact=False):
     """`pool.rectify` with numpy's float32 power.  torch's CPU pow takes
     one code path for the body of a tensor and another for its last
     elements, which differ in the last bit on about a quarter of values,
     so its result depends on an element's position in the tensor; numpy's
     is a function of the value alone, so an emulation that visits the
     elements in another order can match it.  On the card both the kernel
-    and the plain version use powf."""
+    and the plain version use powf, and in `exact` mode on float32 maps
+    both the power in float64 rounded once (as here)."""
+    if exact and x.dtype == torch.float32:
+        return torch.from_numpy(np.power(
+            x.double().numpy(), np.float64(np.float32(lam))).astype(
+                np.float32))
     y = torch.from_numpy(np.power(x.float().numpy(), np.float32(lam)))
     return y.to(x.dtype)
 
@@ -220,7 +234,7 @@ def emulate_launch(vol, levels, ops, fast, pow_first, vec, top, buf, base):
                     m1 = ops.quad(p[:, 0, 0::2], p[:, 0, 1::2], p[:, 1, 0::2],
                                   p[:, 1, 1::2])
                     if not fast:
-                        m1 = ops.pow(m1)
+                        m1 = ops.merge_pow(m1)
                     ok = half[None, :] < pairs[:, None]
                     if levels == 1:
                         ti = np.broadcast_to((y >> 1)[:, None], ok.shape)
@@ -255,7 +269,7 @@ def emulate_launch(vol, levels, ops, fast, pow_first, vec, top, buf, base):
                     second = np.where(even_row[:, None], other, mine)
                     m2 = ops.r(ops.r(first + second) * np.float32(0.25))
                     if not fast:
-                        m2 = ops.pow(m2)
+                        m2 = ops.merge_pow(m2)
                     quarter_c = np.arange(v // 4)
                     ok2 = even_row[:, None] & (2 * quarter_c[None, :]
                                                < pairs[:, None])
@@ -302,7 +316,7 @@ def emulate_launch(vol, levels, ops, fast, pow_first, vec, top, buf, base):
                     m = ops.quad(pooled[:, 0, 0::2], pooled[:, 0, 1::2],
                                  pooled[:, 1, 0::2], pooled[:, 1, 1::2])
                     if not fast:
-                        m = ops.pow(m)
+                        m = ops.merge_pow(m)
                     col = p * j[:, None] + np.arange(p)
                     if lvl + 1 == levels:
                         tk = np.broadcast_to(((c0 >> levels) + k)[:, None],

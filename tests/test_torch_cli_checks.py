@@ -226,3 +226,41 @@ def test_centred_decisions_equal_the_oracle(route):
     np.testing.assert_array_equal(got.valid, want.valid)
     np.testing.assert_array_equal(got.disparity_right, want.disparity_right)
     np.testing.assert_allclose(got.score, want.score, rtol=1e-5, atol=1e-6)
+
+
+def test_cli_accepts_every_jax_flag():
+    """Every option string of the JAX CLI parses in the port's, with the
+    same default and choices; `--impl` differs by design (the port's
+    routes, default 'fused'), and `--dot-precision` reaches the config
+    and is ignored by the kernels."""
+    def options(parser):
+        return {s: a for a in parser._actions for s in a.option_strings}
+
+    port, jax_ = options(cli.build_parser()), options(jcli.build_parser())
+    assert set(jax_) <= set(port)
+    differ = {s for s in jax_
+              if (jax_[s].choices, jax_[s].default, jax_[s].nargs)
+              != (port[s].choices, port[s].default, port[s].nargs)}
+    assert differ == {"--impl"}
+    assert tuple(port["--impl"].choices) == ("fused", "exact", "torch")
+    assert tuple(jax_["--impl"].choices) == ("fused", "pallas", "jnp")
+    for value in ("split2", "split3", "highest"):
+        args = cli.build_parser().parse_args(["--demo", "--dot-precision",
+                                              value])
+        assert cli.config_from_args(args).fused_dot_precision == value
+        want = carry_over(jcli.config_from_args(jcli.build_parser()
+                                                .parse_args(["--demo",
+                                                             "--dot-precision",
+                                                             value])))
+        assert repr(cli.config_from_args(args)) == repr(want)  # NaN field
+
+
+def test_cli_dot_precision_changes_nothing(capsys):
+    args = ("--demo", "--demo-size", "48", "64", "-D", "8", "--cpu")
+    base = run_port_cli(capsys, *args)
+    meta = run_port_cli(capsys, *args, "--dot-precision", "highest")
+    assert meta["config"]["fused_dot_precision"] == "highest"
+    assert {k: v for k, v in meta.items() if k not in ("config", "seconds",
+                                                       "mpx_per_s")} \
+        == {k: v for k, v in base.items() if k not in ("config", "seconds",
+                                                       "mpx_per_s")}

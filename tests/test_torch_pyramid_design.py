@@ -12,8 +12,9 @@ before, and the score is the volume at the chosen bin.
 `supported` still routes.  These tests hold the routing to the earlier
 rule, the layout to two blocks per SM at every routed shape, the lane map
 to the quads the shuffles assume, and rebuild `pyramid_body(fast=False)`
-bitwise from a numpy emulation of the streamed level 0 (the pow through
-`torch.pow`, as the plain version takes it).  Nothing here needs a card.
+bitwise from a numpy emulation of the streamed level 0 (the power
+correctly rounded: the power in float64, rounded once, as K3's pow_rn
+and the plain version take it).  Nothing here needs a card.
 """
 
 import numpy as np
@@ -99,7 +100,8 @@ def test_lanes_hold_whole_quads(levels):
 
 
 def _pow(x):
-    return torch.pow(torch.from_numpy(x), LAM).numpy()
+    return np.power(x.astype(np.float64),
+                    np.float64(np.float32(LAM))).astype(np.float32)
 
 
 def _quad_sum(m):
