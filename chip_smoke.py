@@ -180,7 +180,20 @@ Phases, each printing its own lines (any failure exits nonzero):
      fails once (1 retry, same outputs); again in bfloat16 over 37 pairs
      (K1 bf16, bitwise the unsharded bf16 pipeline); and through
      `parallel.pairs_from_paths` over the pairs written as PGM (the native
-     loader must build; planes bitwise equal to the in-memory path's).
+     loader must build; planes bitwise equal to the in-memory path's);
+  7. the port's bench (`bench.py`) and KITTI bench (`tools/bench_large.py`)
+     rows in this process, each a path of its own that must launch exactly
+     its kernels and hold its gates: `step_mpxs` (K1), `parity_gate` on
+     'exact' (K2, K3: 4 bench pairs bitwise the oracle on disparity_raw,
+     valid, disparity and disparity_right, scores rtol 1e-5) and 'fused'
+     (K1: within 0.005), `bf16_mpxs` (K1 bf16), `grad_hist_mpxs` (K1b),
+     `adversarial_row` (K2, K3: 240x360, D=64, seeds 0-1, decisions and
+     validity <= 0.01 off the oracle, occlusion rejection >= 0.6, kept bad
+     <= 0.15), and each `bench_large` row (K4, K5; K4 bf16, K5 bf16 in
+     bfloat16: float32 parity <= 0.005, bf16 kept bad - the oracle's <=
+     0.05); then `python -m ...bench` in its own process (its sharded smoke
+     on a world of one NCCL rank): exit 0 and one stdout line naming the
+     card.
 Then the total wall time, one JSON line with the kernels' numbers (each
 with its bound: the larger of its bytes, each input read once and each
 output written once, over 3.35 TB/s and its operations over 67 TFLOP/s,
@@ -559,6 +572,106 @@ def eval_phase(run_path, path_launches, card):
                 f"an empty directory gave exit {rc}")
         print("eval on an empty directory: exit 2, no summary")
     print(flush=True)
+
+
+def bench_phase(run_path, dev, card, card_line):
+    """7: the port's bench rows (`bench.py`, `tools/bench_large.py`) in this
+    process, each a path of its own with its gates; then the bench in its
+    own process (its sharded smoke makes and destroys a world of one rank
+    there).  Returns what the kernels line records of it."""
+    from deepmatching_stereo_matching_tpu_torch import bench
+    from deepmatching_stereo_matching_tpu_torch.config import Config
+    from deepmatching_stereo_matching_tpu_torch.oracle import reference as oracle
+    from deepmatching_stereo_matching_tpu_torch.tools import bench_large
+
+    t_phase = time.perf_counter()
+    pairs = bench.make_pairs(bench.BATCH)
+    t0 = time.perf_counter()
+    want = [oracle.match_stereo(left, right, bench.bench_config())
+            for left, right, _ in pairs[:bench.PARITY_PAIRS]]
+    print(f"bench: the oracle on {len(want)} parity pairs took "
+          f"{time.perf_counter() - t0:.1f} s on {bench.oracle_host()}")
+    rows = {}
+
+    def row(label, expected, fn):
+        got, fails = run_path(label, expected, fn)
+        require(not fails, f"[{label}] gate failures: {fails}")
+        rows[label] = got
+        return got
+
+    step = row("bench step", {"K1"}, lambda: bench.step_mpxs(pairs, dev))
+    for route, kernels in (("exact", {"K2", "K3"}), ("fused", {"K1"})):
+        row(f"bench parity {route}", kernels, lambda route=route:
+            bench.parity_gate(pairs, want, dev, routes=(route,)))
+    f32 = bench.match_batch(pairs, bench.bench_config(), dev)
+    row("bench bf16", {"K1 bf16"},
+        lambda: bench.bf16_mpxs(pairs, want, dev, f32=f32))
+    row("bench grad_hist", {"K1b"}, lambda: bench.grad_hist_mpxs(pairs, dev))
+    adv = row("bench adversarial", {"K2", "K3"},
+              lambda: bench.adversarial_row(dev))
+    for label in ("bench step", "bench bf16", "bench grad_hist"):
+        r = rows[label]
+        print(f"[{label}] {r['batch']} pairs {r['width']}x{r['height']} "
+              f"{r['dtype']} {r['descriptor']}: median "
+              f"{r['timing']['median'] * 1e3:.4f} ms [{r['timing']['min'] * 1e3:.4f}"
+              f"..{r['timing']['max'] * 1e3:.4f}] ({r['timing']['repeats']} x "
+              f"{r['timing']['reps']} steps) = {r['mpx_per_s']:.1f} Mpx/s "
+              f"[{r['range_mpx_per_s'][0]:.1f}..{r['range_mpx_per_s'][1]:.1f}]; "
+              f"mean kept bad {r['mean_kept_bad']:.4f} {card}")
+    print(f"[bench bf16] kept bad - the oracle's "
+          f"{rows['bench bf16']['kept_bad_minus_oracle']}, decisions equal "
+          f"to float32 on pixels valid in both "
+          f"{rows['bench bf16']['f32_agreement']:.5f}")
+    print(f"[bench adversarial] {adv['width']}x{adv['height']} D="
+          f"{adv['max_disparity']}: {adv['seeds']}, occ_rejection "
+          f"{adv['occ_rejection']:.4f}, kept non-occluded bad "
+          f"{adv['kept_nonocc_bad']:.4f} (oracle on {adv['oracle_host']})")
+
+    oracle_at = {}
+    for max_d, batch, dtype in bench_large.ROWS:
+        if max_d not in oracle_at:
+            gl, gr, _ = bench_large.kitti_pair(bench_large.PARITY_SEED, max_d)
+            oracle_at[max_d] = oracle.match_stereo(
+                gl, gr, Config(max_disparity=max_d))
+        b = " bf16" if dtype == "bfloat16" else ""
+        label = f"bench_large D={max_d} {dtype}"
+        r = row(label, {f"K4{b}", f"K5{b}"},
+                lambda max_d=max_d, batch=batch, dtype=dtype: bench_large.
+                bench_row(max_d, batch, dtype, dev, want=oracle_at[max_d]))
+        tm = r["timing"]
+        print(f"[{label}] {batch} pairs {r['width']}x{r['height']}, "
+              f"{r['impl']}: median {tm['median'] * 1e3:.4f} ms "
+              f"[{tm['min'] * 1e3:.4f}..{tm['max'] * 1e3:.4f}] = "
+              f"{r['mpx_per_s']:.1f} Mpx/s; parity raw_neq "
+              f"{r['parity_raw_neq']:.2e}, val_neq {r['parity_val_neq']:.2e},"
+              f" kept bad {r['kept_bad_rate']:.4f} (oracle "
+              f"{r['oracle_kept_bad']:.4f}); first call {r['compile_s']:.3f}"
+              f" s {card}")
+    in_process = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"{PKG}.bench"], cwd=REPO,
+                          capture_output=True, text=True, timeout=900)
+    own = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if not line.startswith("{"):
+            print(f"  [bench, own process] {line}")
+    require(proc.returncode == 0, f"the bench in its own process: exit "
+            f"{proc.returncode}\n{proc.stderr[-3000:]}")
+    out = proc.stdout.strip().splitlines()
+    require(len(out) == 1, f"the bench printed {len(out)} stdout lines")
+    line = json.loads(out[0])
+    require(line["metric"] == "full_pipeline_throughput_per_chip"
+            and line["unit"] == "Mpx/s" and line["device"] == card_line
+            and line["value"] > 0 and len(line["range"]) == 2,
+            f"the bench's line: {line}")
+    print(f"bench (own process, {own:.1f} s): {out[0]}")
+    print(f"phase 7 wall: {in_process:.1f} s in this process, {own:.1f} s "
+          f"the bench's own process {card}", flush=True)
+    return {"bench_line": line, "bench_wall_s": in_process + own,
+            "bench_rows_ms": {
+                label: [r["timing"][k] * 1e3 for k in ("median", "min", "max")]
+                for label, r in rows.items() if "timing" in r}}
 
 
 def main():
@@ -2229,6 +2342,9 @@ def main():
             stream_mpx = stream_phase(meshes["2d"])
         finally:
             dist.destroy_process_group()
+
+    # 7. The port's bench and its KITTI bench: each row a path of its own.
+    bench_summary = bench_phase(run_path, dev, card, card_line)
     jax_mods = sorted(m for m in sys.modules if m == "jax"
                       or m.startswith("jax.") or m == JAX_PKG
                       or m.startswith(JAX_PKG + "."))
@@ -2340,6 +2456,7 @@ def main():
                       "step_range_ms": step_range, "step_peak_bytes": step_peak,
                       "strategy_ms": strategy_ms,
                       "stream_mpx_per_s": stream_mpx, "peak_bytes": peak,
+                      **bench_summary,
                       "card": card_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
