@@ -193,24 +193,35 @@ Phases, each printing its own lines (any failure exits nonzero):
      bfloat16: float32 parity <= 0.005, bf16 kept bad - the oracle's <=
      0.05); then `python -m ...bench` in its own process (its sharded smoke
      on a world of one NCCL rank): exit 0 and one stdout line naming the
-     card.
+     card;
+  8. the roofline rows in this process (`tools.roofline.run`, whose hook
+     makes each timed row a path of its own): `full_step_fused` and
+     `fused_kernel` launch exactly K1, `descriptors_xla` nothing,
+     `costvol_kernel` exactly K2, `pyramid_kernel` exactly K3,
+     `calibrated` exactly P1; each row's ms, bound and share logged to
+     stderr, every share in (0, 1.05]; then the tool in
+     its own process (`--out` a temporary file: exit 0, one stdout line,
+     the headline naming the card) and `tools.dcn_budget --roofline` on
+     that file (exit 0, the table and the card).
 Then the total wall time, one JSON line with the kernels' numbers (each
-with its bound: the larger of its bytes, each input read once and each
-output written once, over 3.35 TB/s and its operations over 67 TFLOP/s,
-33.5 for the probes P1-P3, which forbid FMA;
+with its bound from the port's work model, `work.py`: the larger
+of its bytes, each input read once and each output written once, over
+3.35 TB/s and its operations over 67 TFLOP/s, 33.5 for the probes P1-P3,
+which forbid FMA;
 K2 also at C=128 and at KITTI D=256, rows of their own over K2's count;
 K1 at the KITTI grid over K1's count on the eval tool's D=64 path; K5's
 exact mode over the wrapper's `exact_launches`;
 K1, K1b, K2 (C=16 and C=128), K3, K4 and K5 bf16 rows of their own, each
 with its own launch count;
 library_ms the yardstick where there is one; K5's rows with device_ms,
-P3's with issue_ceiling_ms),
+P3's with issue_ceiling_ms; `roofline`: phase 8's headline and rows),
 and as the last line {"ok": true, "device": {...}}.  Needs one CUDA
 device; imports nothing of JAX or the JAX package.
 """
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -249,7 +260,6 @@ EARLIER_MS.update({"K5": 0.1826, "K5 bf16": 0.1944, "P3": 0.1100})
 # Centred descriptors on adversarial (tie-heavy, flat-window) pairs.
 ADV_HW, ADV_D, ADV_SEEDS = (97, 141), 24, (0, 1, 5)
 STREAM_PAIRS, STREAM_TAIL = 69, 5       # two batches of BATCH and a tail
-HBM_BYTES_PER_S, PEAK_F32 = 3.35e12, 67e12   # H100 SXM data sheet
 PROBE_SASS = {"P1": "stream_kernelILi384", "P2": "stream_kernelILi96",
               "P3": "shift_kernel"}
 PROBE_NAMES = {"P1": "stream", "P2": "small", "P3": "shift"}
@@ -302,28 +312,6 @@ def make_kitti_pair(seed, max_d):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def cost_flops(volume_elems, terms):
-    """A correlation's multiply-adds: 2 per descriptor term per bin (the
-    norms, the relu and the division are left out: a lower bound)."""
-    return 2 * terms * volume_elems
-
-
-def pyramid_flops(volume_elems, levels):
-    """Per element of each level above 0: the 3-pool (2 max), the 4-child
-    mean (3 add, 1 mul) and the pow (1)."""
-    return sum(7 * volume_elems // 8 ** lvl for lvl in range(1, levels + 1))
-
-
-def bound(work, peak=PEAK_F32):
-    """(ms, 'bytes' | 'operations'): the least time the card could take,
-    the larger of bytes over its memory rate and operations over `peak`
-    (the float32 peak, which counts an FMA as two operations)."""
-    bytes_, flops = work
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
 
 
 def probe_sass(so):
@@ -674,6 +662,78 @@ def bench_phase(run_path, dev, card, card_line):
                 for label, r in rows.items() if "timing" in r}}
 
 
+def roofline_phase(run_path, dev, card, card_line):
+    """8: the roofline rows (`tools.roofline.run`) in this process, each
+    timed row and the calibration a path of its own with the launch counts
+    zeroed just before it, every share of the bound in (0, MERGED_WORK];
+    then the tool in its own process (`--out` a file in a temporary
+    directory) and the cross-host budget (`tools.dcn_budget --roofline`) on
+    that file.  Returns the headline."""
+    from deepmatching_stereo_matching_tpu_torch.tools import roofline
+
+    expected = {"full_step_fused": {"K1"}, "fused_kernel": {"K1"},
+                "descriptors_xla": set(), "costvol_kernel": {"K2"},
+                "pyramid_kernel": {"K3"}, "calibrated": {"P1"}}
+    t_phase = time.perf_counter()
+    out = roofline.run(dev, card_line, **roofline.bench_size(),
+                       wrap=lambda name, fn: run_path(f"roofline {name}",
+                                                      expected[name], fn))
+    rows = out["rows"]
+    cal = rows["fused_kernel"].get("calibrated")
+    require(cal is not None, "roofline: no calibration on the card")
+    modelled = {k: r for k, r in (*rows.items(), ("calibrated", cal))
+                if "sol_seconds" in r}
+    require(sorted(modelled) == sorted(
+        ("full_step_fused", "fused_kernel", "costvol_kernel",
+         "pyramid_kernel", "twokernel_path_sum", "calibrated")),
+        f"roofline: modelled rows {sorted(modelled)}")
+    shares = {k: r["sol_fraction"] for k, r in modelled.items()}
+    require(not roofline.shares_over(out)
+            and all((v or 0) > 0 for v in shares.values()),
+            f"roofline: shares outside (0, {roofline.MERGED_WORK}]: {shares}")
+    in_process = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "roofline.json")
+        procs = {}
+        for tool, argv in (("roofline", ["--out", path]),
+                           ("dcn_budget", ["--roofline", path])):
+            proc = subprocess.run(
+                [sys.executable, "-m", f"{PKG}.tools.{tool}", *argv],
+                cwd=REPO, capture_output=True, text=True, timeout=600)
+            for line in proc.stderr.splitlines():
+                print(f"  [{tool}, own process] {line}")
+            require(proc.returncode == 0, f"tools.{tool} in its own process: "
+                    f"exit {proc.returncode}\n{proc.stderr[-3000:]}")
+            procs[tool] = proc.stdout
+        with open(path) as f:
+            written = json.load(f)
+        require(os.listdir(tmp) == ["roofline.json"],
+                f"the tools wrote {os.listdir(tmp)}")
+    lines = procs["roofline"].strip().splitlines()
+    require(len(lines) == 1, f"roofline printed {len(lines)} stdout lines")
+    headline = json.loads(lines[0])
+    require(headline["chip"] == card_line == written["chip"]
+            and headline["fused_sol_fraction"] is not None
+            and sorted(written["rows"]) == sorted(rows),
+            f"roofline's headline {headline} on {written['chip']!r}")
+    for line in procs["dcn_budget"].splitlines():
+        print(f"  [dcn_budget] {line}")
+    require(card_line in procs["dcn_budget"], "dcn_budget does not name "
+            "the card its compute was measured on")
+    print(f"roofline headline (own process): {json.dumps(headline)}")
+    print(f"phase 8 wall: {in_process:.1f} s in this process, "
+          f"{time.perf_counter() - t0:.1f} s the tools' own processes {card}",
+          flush=True)
+    return {**headline,
+            "in_process": {k: {f: r[f] for f in ("seconds", "sol_seconds",
+                                                  "sol_fraction",
+                                                  "bounding_resource")
+                               if f in r}
+                           for k, r in (*rows.items(), ("calibrated", cal))}}
+
+
 def main():
     import torch
 
@@ -696,6 +756,7 @@ def main():
         pyramid_cuda)
     from deepmatching_stereo_matching_tpu_torch.parallel import (
         launch, mesh as mesh_lib, runner, sharded, wtiled)
+    from deepmatching_stereo_matching_tpu_torch import work
     from deepmatching_stereo_matching_tpu_torch.tools import vpu_probe
     from deepmatching_stereo_matching_tpu_torch.data import synthetic
     from deepmatching_stereo_matching_tpu_torch.profile_steps import (
@@ -797,11 +858,11 @@ def main():
         return (pyramid_cuda.aggregate_dmajor.launches
                 + pyramid_cuda.aggregate_dmajor.bf16_launches)
 
-    def record(key, err, kernel_fn, plain_fn, work, reps=10, plain_reps=3):
-        """`work` = (bytes moved, operations) of one kernel call."""
+    def record(key, err, kernel_fn, plain_fn, model, reps=10, plain_reps=3):
+        """`model`: one kernel call's `work.Work` (the port's work model)."""
         rows[key] = dict(err=err, ms=cuda_ms(torch, kernel_fn, reps),
                          plain=cuda_ms(torch, plain_fn, plain_reps),
-                         work=work)
+                         work=model)
 
     def corr_yardstick(key, src, tgt, d0, p):
         """The library yardstick of a cost-volume row, which the port
@@ -852,10 +913,8 @@ def main():
             (lm, lb), (rm, rb) = map(descriptors.grad_hist_magbin,
                                      (lefts, rights))
             planes = (lm, rm, cfg, geom, lb, rb)
-            inputs = (lm, rm, lb, rb)
         else:
             planes = (lefts, rights, cfg, geom)
-            inputs = (lefts, rights)
         d, s = fused_cuda.match_planes(*planes)
         sync()
         dp, sp = fused_cuda.match_planes_torch(*planes)
@@ -870,11 +929,9 @@ def main():
         require(flips <= FUSED_DECISION_TOL
                 and scores_agree(cfg, s, sp, same),
                 f"{key} disagrees with its plain version")
-        volume = d.numel() * geom.disparities
         record(key, serr, lambda: fused_cuda.match_planes(*planes),
                lambda: fused_cuda.match_planes_torch(*planes),
-               (nbytes(*inputs, d, s),
-                cost_flops(volume, cfg.patch_size ** 2)))
+               work.k1(cfg, geom, math.prod(d.shape[:-2])))
         rows[key]["flips"] = flips
         return d, s
 
@@ -966,7 +1023,7 @@ def main():
     record("K2", err2,
            lambda: costvol_cuda.cost_volume_dmajor(ds, dt, *args2),
            lambda: costvol_cuda.cost_volume_dmajor_torch(ds, dt, *args2),
-           (nbytes(ds, dt, vol), cost_flops(vol.numel(), ds.shape[-1])))
+           work.k2(cfg, geom, 2 * BATCH))
     corr_yardstick("K2", ds, dt, geom.disparities, cfg.patch_size)
 
     d3, s3 = pyramid_cuda.pyramid_backtrack(vol, geom.levels, cfg.lam)
@@ -981,7 +1038,7 @@ def main():
     record("K3", serr3,
            lambda: pyramid_cuda.pyramid_backtrack(vol, geom.levels, cfg.lam),
            lambda: pyramid_cuda.pyramid_body(vol, geom.levels, cfg.lam),
-           (nbytes(vol, d3, s3), pyramid_flops(vol.numel(), geom.levels)))
+           work.k3(cfg, geom, 2 * BATCH))
     # K2's and K3's bf16 instances on the bench's descriptors rounded, as
     # the descriptor routes round them.
     ds16, dt16 = ds.to(bf16), dt.to(bf16)
@@ -989,8 +1046,7 @@ def main():
     record("K2 bf16", err2b,
            lambda: costvol_cuda.cost_volume_dmajor(ds16, dt16, *args2),
            lambda: costvol_cuda.cost_volume_dmajor_torch(ds16, dt16, *args2),
-           (nbytes(ds16, dt16, vol16),
-            cost_flops(vol16.numel(), ds16.shape[-1])))
+           work.k2(cfg, geom, 2 * BATCH, "bfloat16"))
     corr_yardstick("K2 bf16", ds16, dt16, geom.disparities, cfg.patch_size)
     try:
         costvol_cuda.cost_volume_rows(ds16, dt16, *args2)
@@ -1004,8 +1060,7 @@ def main():
     record("K3 bf16", 0.0,
            lambda: pyramid_cuda.pyramid_backtrack(vol16, geom.levels, cfg.lam),
            lambda: pyramid_cuda.pyramid_body(vol16, geom.levels, cfg.lam),
-           (nbytes(vol16, d3b, s3b), pyramid_flops(vol16.numel(),
-                                                   geom.levels)))
+           work.k3(cfg, geom, 2 * BATCH, "bfloat16"))
     rows["K3 bf16"]["blocks_per_sm"] = pyramid_cuda.blocks_per_sm(
         geom.disparities, geom.levels, bf16=True)
     print(f"K3 bf16 bench blocks per SM (occupancy API): "
@@ -1170,8 +1225,7 @@ def main():
     record("K2 C=128", errg,
            lambda: costvol_cuda.cost_volume_dmajor(dsg, dtg, *args2),
            lambda: costvol_cuda.cost_volume_dmajor_torch(dsg, dtg, *args2),
-           (nbytes(dsg, dtg, volg), cost_flops(volg.numel(), dsg.shape[-1])),
-           plain_reps=1)
+           work.k2(gh, geom, 2 * BATCH), plain_reps=1)
     corr_yardstick("K2 C=128", dsg, dtg, geom.disparities, cfg.patch_size)
     rows["K2 C=128"]["blocks_per_sm"] = occ_gh["K2"]
     dsg16, dtg16 = dsg.to(bf16), dtg.to(bf16)
@@ -1181,8 +1235,7 @@ def main():
            lambda: costvol_cuda.cost_volume_dmajor(dsg16, dtg16, *args2),
            lambda: costvol_cuda.cost_volume_dmajor_torch(dsg16, dtg16,
                                                          *args2),
-           (nbytes(dsg16, dtg16, volg16),
-            cost_flops(volg16.numel(), dsg16.shape[-1])), plain_reps=1)
+           work.k2(gh, geom, 2 * BATCH, "bfloat16"), plain_reps=1)
     rows["K2 C=128 bf16"]["blocks_per_sm"] = occ_gh["K2 bf16"]
     corr_yardstick("K2 C=128 bf16", dsg16, dtg16, geom.disparities,
                    cfg.patch_size)
@@ -1279,9 +1332,7 @@ def main():
             record("K4", err4,
                    lambda: fused_cuda.cost_volume_rows(kl, kr, kcfg, kgeom),
                    lambda: fused_cuda.cost_volume_torch(kl, kr, kcfg, kgeom),
-                   (nbytes(kl, kr, kvol),
-                    cost_flops(kvol.numel(), kcfg.patch_size ** 2)),
-                   plain_reps=1)
+                   work.k4(kcfg, kgeom, 2 * batch), plain_reps=1)
         # K4's bfloat16 instance: the same costs, each rounded as stored.
         kcfg16 = dataclasses.replace(kcfg, dtype="bfloat16")
         kvol16 = fused_cuda.cost_volume_rows(kl, kr, kcfg16, kgeom)
@@ -1299,9 +1350,7 @@ def main():
                    lambda: fused_cuda.cost_volume_rows(kl, kr, kcfg16, kgeom),
                    lambda: fused_cuda.cost_volume_torch(
                        kl, kr, kcfg, kgeom).to(torch.bfloat16),
-                   (nbytes(kl, kr, kvol16),
-                    cost_flops(kvol16.numel(), kcfg.patch_size ** 2)),
-                   plain_reps=1)
+                   work.k4(kcfg16, kgeom, 2 * batch), plain_reps=1)
             # The port never calls torch.pow on a bf16 tensor (pool.rectify
             # takes the exponent as given); whether torch on the card rounds
             # a scalar exponent to bf16 there, as it does on the CPU, is
@@ -1340,8 +1389,9 @@ def main():
                            lambda vol_=vol_:
                            pyramid_cuda.aggregate_dmajor_torch(
                                vol_, kgeom.levels, kcfg.lam, True),
-                           (nbytes(vol_, top, *args),
-                            pyramid_flops(vol_.numel(), kgeom.levels)))
+                           work.k5(kcfg, kgeom, 2 * batch,
+                                       "bfloat16" if vol_.dtype == bf16
+                                       else "float32"))
                     rows[key]["device_ms"] = device_ms(
                         torch, lambda vol_=vol_: pyramid_cuda.aggregate_dmajor(
                             vol_, kgeom.levels, kcfg.lam, True), "aggregate")
@@ -1354,8 +1404,7 @@ def main():
                                kvol, kgeom.levels, kcfg.lam, False),
                            lambda: pyramid_cuda.aggregate_dmajor_torch(
                                kvol, kgeom.levels, kcfg.lam, False),
-                           (nbytes(kvol, top, *args),
-                            pyramid_flops(kvol.numel(), kgeom.levels)))
+                           work.k5(kcfg, kgeom, 2 * batch))
         # K5's block: shared memory against its mirror and blocks per SM,
         # in each dtype and mode (the 16-byte form these volumes take).
         for key, dt in (("K5", torch.float32), ("K5 bf16", bf16)):
@@ -1483,14 +1532,12 @@ def main():
                 f"{err}")
         return vol, err
 
-    err6, work6 = 0.0, None
+    err6 = 0.0
     for reverse in (False, True):
         way = "reverse" if reverse else "forward"
         whole, err = k6_vs_plain(f"D={d6} {way}", ds6, dt6, d6, args6,
                                  reverse=reverse)
         err6 = max(err6, err)
-        work6 = (nbytes(ds6, dt6, whole),
-                 cost_flops(whole.numel(), ds6.shape[-1]))
         slabs = []
         for k in range(d6 // SLAB):
             vol, err = k6_vs_plain(f"slab d_offset={k * SLAB} {way}", ds6,
@@ -1509,7 +1556,8 @@ def main():
     record("K6", err6,
            lambda: costvol_cuda.cost_volume_rows(ds6, dt6, d6, *args6),
            lambda: costvol.cost_volume_rows_torch(ds6, dt6, d6, *args6),
-           work6, plain_reps=1)
+           work.k6(kcfg6, kgeom6, math.prod(kl6.shape[:-2])),
+           plain_reps=1)
     rows["K6"]["blocks_per_sm"] = occ_kitti["K6"]
     corr_yardstick("K6", ds6, dt6, d6, kcfg6.patch_size)
     # K2 on the same KITTI D=256 descriptors: one kernel in both layouts.
@@ -1522,7 +1570,7 @@ def main():
            lambda: costvol_cuda.cost_volume_dmajor(ds6, dt6, d6, *args6),
            lambda: costvol_cuda.cost_volume_dmajor_torch(ds6, dt6, d6,
                                                          *args6),
-           (nbytes(ds6, dt6, k2k), cost_flops(k2k.numel(), ds6.shape[-1])),
+           work.k2(kcfg6, kgeom6, math.prod(kl6.shape[:-2])),
            plain_reps=1)
     rows["K2 KITTI"]["blocks_per_sm"] = occ_kitti["K2"]
     rows["K2 KITTI"]["library"] = rows["K6"]["library"]
@@ -1710,8 +1758,7 @@ def main():
         require(same, f"{key} disagrees with its plain version: {err}")
         rows[key] = dict(err=err, ms=r["seconds"]["median"] * 1e3,
                          plain=start.elapsed_time(end),
-                         work=(probe_cuda.bytes_read(probe) + nbytes(got),
-                               probe_cuda.flops(probe)))
+                         work=work.probe(probe))
     for key, fn in (("P1", "stream_kernelILi384E"),
                     ("P2", "stream_kernelILi96E"), ("P3", "shift_kernel")):
         rows[key]["registers"] = probe_ptxas[fn][0]
@@ -2345,6 +2392,8 @@ def main():
 
     # 7. The port's bench and its KITTI bench: each row a path of its own.
     bench_summary = bench_phase(run_path, dev, card, card_line)
+    # 8. The roofline and the cross-host budget.
+    roofline_summary = roofline_phase(run_path, dev, card, card_line)
     jax_mods = sorted(m for m in sys.modules if m == "jax"
                       or m.startswith("jax.") or m == JAX_PKG
                       or m.startswith(JAX_PKG + "."))
@@ -2426,10 +2475,10 @@ def main():
             rows[k]["registers"] = v[0]
     kernels = []
     for k, (label, src, rep) in sources.items():
-        # The probes forbid FMA (csrc/probe.cu): their mul and add
-        # operations peak at half the FMA-counted rate, 33.5 TFLOP/s.
-        bound_ms, bound_by = bound(rows[k]["work"], PEAK_F32 / 2
-                                   if k.startswith("P") else PEAK_F32)
+        # The model counts the probes, which forbid FMA (csrc/probe.cu),
+        # against 33.5 TFLOP/s, half the FMA-counted float32 peak.
+        bound_s, bound_by = work.bound(rows[k]["work"])
+        bound_ms = bound_s * 1e3
         kernels.append({
             "name": label, "route": "cuda", "source": f"{PKG}/{src}",
             "replaces": rep if k.startswith("P") else f"{JAX_PKG}/{rep}",
@@ -2442,7 +2491,8 @@ def main():
             "max_abs_err": rows[k]["err"], "ms": rows[k]["ms"],
             "plain_ms": rows[k]["plain"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": rows[k].get("library"),
-            "bytes": rows[k]["work"][0], "operations": rows[k]["work"][1],
+            "bytes": rows[k]["work"].total_bytes,
+            "operations": rows[k]["work"].total_ops,
             **{key: rows[k][key] for key in ("flips", "blocks_per_sm",
                                              "library_extra_bytes",
                                              "registers", "issue_ceiling_ms",
@@ -2456,7 +2506,7 @@ def main():
                       "step_range_ms": step_range, "step_peak_bytes": step_peak,
                       "strategy_ms": strategy_ms,
                       "stream_mpx_per_s": stream_mpx, "peak_bytes": peak,
-                      **bench_summary,
+                      **bench_summary, "roofline": roofline_summary,
                       "card": card_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

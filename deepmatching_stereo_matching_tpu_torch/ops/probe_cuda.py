@@ -42,25 +42,7 @@ PROBES = {
     "shift": ((NSRC, SHIFT_ROWS, SHIFT_W), (SHIFT_ROWS, W0), 2 * GRID, 8),
 }
 FLOPS_PER_PLANE = 8   # 4 mul + 3 add + the add into the total, as JAX counts
-
-
-def flops(name: str, repeats: int = None) -> int:
-    """Elementwise FLOPs of one call: repeats x planes x 8 x output size."""
-    _, (rows, cols), grid, _ = PROBES[name]
-    return (grid if repeats is None else repeats) * NPLANES * \
-        FLOPS_PER_PLANE * rows * cols
-
-
-def bytes_read(name: str) -> int:
-    """Input bytes the probe reads once (P2 reads rows [:96] only)."""
-    (n, _, w), (rows, _), _, _ = PROBES[name]
-    return n * rows * w * 4
-
-
-def l2_bytes(name: str) -> int:
-    """Input bytes the kernel reads in all: once per block copy."""
-    _, _, grid, inner = PROBES[name]
-    return (grid // inner) * bytes_read(name)
+# A probe's work (bytes and FLOPs) is counted by work.py:probe.
 
 
 # P3's mix per repetition and output element (csrc/probe.cu:shift_kernel):

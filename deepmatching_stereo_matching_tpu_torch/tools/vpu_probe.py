@@ -36,9 +36,10 @@ from typing import Optional
 
 import torch
 
-PEAK_F32 = 67e12        # H100 SXM, float32 outside the tensor cores, FMA = 2
-PEAK_NO_FMA = PEAK_F32 / 2
-MERGED_WORK = 1.05      # above this fraction of PEAK_F32, work was merged
+from ..ops import probe_cuda
+# The card's peaks and the merged-work gate: the port's one definition.
+from ..work import MERGED_WORK, PEAK_F32, PEAK_NO_FMA
+from ..work import probe as probe_work
 
 
 def card_line() -> str:
@@ -49,12 +50,17 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def l2_bytes(name: str) -> int:
+    """Input bytes the kernel reads in all: its rows once per block copy."""
+    _, _, grid, inner = probe_cuda.PROBES[name]
+    return (grid // inner) * probe_work(name).bytes["read"]
+
+
 def run_probe(name: str, device: torch.device, grid: int = 64,
               reps: int = 20, repeats: int = 5) -> dict:
     """Check one probe bitwise against its plain version and time it
     (`reps` calls per sample, `repeats` samples; repetitions scale with
     `grid`, the TPU probe's GRID)."""
-    from ..ops import probe_cuda
     from ..utils import timing
 
     _, _, full, inner = probe_cuda.PROBES[name]
@@ -70,7 +76,7 @@ def run_probe(name: str, device: torch.device, grid: int = 64,
                            f"{float((got - want).abs().max()):.3e})")
     stats = timing.steady_state(kernel, (a, total, inner), reps=reps,
                                 repeats=repeats, device=device)
-    flop = probe_cuda.flops(name, total)
+    flop = probe_work(name, total).total_ops
     rate = flop / stats["median"]
     on_card = device.type == "cuda"
     return {
@@ -82,8 +88,8 @@ def run_probe(name: str, device: torch.device, grid: int = 64,
         "elementwise_flops": flop, "achieved_flop_per_s": rate,
         "fraction_of_67_tflops": rate / PEAK_F32 if on_card else None,
         "fraction_of_33_5_tflops": rate / PEAK_NO_FMA if on_card else None,
-        "bytes_read": probe_cuda.bytes_read(name),
-        "l2_bytes": probe_cuda.l2_bytes(name) if on_card else None,
+        "bytes_read": probe_work(name).bytes["read"],
+        "l2_bytes": l2_bytes(name) if on_card else None,
         "arithmetic_s_at_33_5_tflops": flop / PEAK_NO_FMA,
     }
 

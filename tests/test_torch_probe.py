@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from deepmatching_stereo_matching_tpu_torch.ops import probe_cuda
+from deepmatching_stereo_matching_tpu_torch import work
 from deepmatching_stereo_matching_tpu_torch.tools import vpu_probe
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -74,18 +75,23 @@ def test_schedules_are_the_tpu_probes_and_unique():
 
 
 def test_probe_work_accounting():
+    """The probes' work as the port's one work model counts it
+    (`work.probe`), and the L2 traffic `vpu_probe` reports."""
     n = probe_cuda.NPLANES * 8
-    assert probe_cuda.flops("stream") == 64 * n * 384 * 128
-    assert probe_cuda.flops("small") == 512 * n * 96 * 128
-    assert probe_cuda.flops("shift") == 128 * n * 192 * 128
-    assert probe_cuda.flops("stream", 1) == n * 384 * 128
-    assert probe_cuda.bytes_read("stream") == 32 * 384 * 128 * 4
-    assert probe_cuda.bytes_read("small") == 32 * 96 * 128 * 4
-    assert probe_cuda.bytes_read("shift") == 32 * 192 * 160 * 4
+    ops = {name: work.probe(name).total_ops
+           for name in ("stream", "small", "shift")}
+    assert ops["stream"] == 64 * n * 384 * 128
+    assert ops["small"] == 512 * n * 96 * 128
+    assert ops["shift"] == 128 * n * 192 * 128
+    assert work.probe("stream", 1).total_ops == n * 384 * 128
+    read = {name: work.probe(name).bytes["read"] for name in ops}
+    assert read["stream"] == 32 * 384 * 128 * 4
+    assert read["small"] == 32 * 96 * 128 * 4
+    assert read["shift"] == 32 * 192 * 160 * 4
     for name, (_, _, grid, inner) in probe_cuda.PROBES.items():
         assert grid % inner == 0
-        assert probe_cuda.l2_bytes(name) == (grid // inner) * \
-            probe_cuda.bytes_read(name)
+        assert vpu_probe.l2_bytes(name) == (grid // inner) * read[name]
+        assert work.probe(name).peak == work.PEAK_F32 / 2
 
 
 def test_entry_point_refuses_without_a_card(monkeypatch, capsys):

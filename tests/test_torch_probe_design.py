@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 from deepmatching_stereo_matching_tpu_torch.ops import probe_cuda
+from deepmatching_stereo_matching_tpu_torch import work
 
 W0, NSRC = probe_cuda.W0, probe_cuda.NSRC
 ROWS, SHIFT_W = probe_cuda.SHIFT_ROWS, probe_cuda.SHIFT_W
@@ -125,8 +126,8 @@ def test_item_walk_covers_the_grid_evenly(slots, inner):
     assert max(counts) == each and min(counts) >= each - 1
     rows_of = np.arange(items) % ROWS
     assert (np.bincount(rows_of, minlength=ROWS) == copies).all()
-    assert copies * probe_cuda.bytes_read("shift") == (
-        repeats // inner) * probe_cuda.bytes_read("shift")
+    read = work.probe("shift").bytes["read"]
+    assert copies * read == (repeats // inner) * read
 
 
 def test_full_grid_on_the_h100():
