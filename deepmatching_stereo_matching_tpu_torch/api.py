@@ -19,6 +19,7 @@ from .oracle import reference as _oracle
 from .models import pipeline
 from .ops._dispatch import route as current_route
 from .utils import checks
+from .utils.logging import span
 
 
 @dataclasses.dataclass
@@ -63,22 +64,33 @@ def match_stereo(left, right, cfg: Config = Config(),
     in-range disparity bins, NaN iff invalid; utils/checks.py) on the
     same route, and raises `checks.InvariantError` if one fails.
     """
-    dev = resolve_device(device)
-    left, right = checks.validate_images(left, right)
-    h, w = left.shape[:2]
-    lp = torch.from_numpy(preprocess(left, cfg, h, w)).to(dev)
-    rp = torch.from_numpy(preprocess(right, cfg, h, w)).to(dev)
-    route = impl or current_route()
-    if debug_checks:
-        out = checks.checked_match_padded(lp, rp, cfg, h, w, route)
-    else:
-        out = pipeline.match_padded(lp, rp, cfg, h, w, route)
-    host = {k: v.cpu().numpy() for k, v in out.items()}
-    return MatchResult(
-        disparity=host["disparity"],
-        disparity_raw=host["disparity_raw"].astype(np.int32),
-        valid=host["valid"],
-        score=host["score"],
-        disparity_right=(host["disparity_right"].astype(np.int32)
-                         if cfg.lr_check else None),
-    )
+    with span("api.match_stereo"):
+        dev = resolve_device(device)
+        left, right = checks.validate_images(left, right)
+        h, w = left.shape[:2]
+        planes = []
+        for image in (left, right):
+            with span("api.preprocess"):
+                plane = preprocess(image, cfg, h, w)
+            with span("api.copy_in"):
+                planes.append(torch.from_numpy(plane).to(dev))
+        lp, rp = planes
+        route = impl or current_route()
+        with span("api.match"):
+            if debug_checks:
+                out = checks.checked_match_padded(lp, rp, cfg, h, w, route)
+            else:
+                out = pipeline.match_padded(lp, rp, cfg, h, w, route)
+        with span("api.wait"):
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+        with span("api.copy_out"):
+            host = {k: v.cpu().numpy() for k, v in out.items()}
+        return MatchResult(
+            disparity=host["disparity"],
+            disparity_raw=host["disparity_raw"].astype(np.int32),
+            valid=host["valid"],
+            score=host["score"],
+            disparity_right=(host["disparity_right"].astype(np.int32)
+                             if cfg.lr_check else None),
+        )

@@ -50,6 +50,7 @@ from ..ops import pool as pool_ops
 from ..ops import postfilter as postfilter_ops
 from ..ops._dispatch import check_route, map_dtype
 from ..ops.pyramid_cuda import descend as backtrack_from
+from ..utils.logging import span
 from . import descriptors
 
 _SENTINEL = torch.iinfo(torch.int32).min // 2
@@ -98,8 +99,10 @@ def match_dmajor(cost_dm: torch.Tensor, levels: int, lam: float,
     then a first-max argmax over the top map, the descent and the score
     gather from the level-0 volume run in torch (`match_dmajor_xla`).
     fast=True defers the power (the fused large-D route)."""
-    top, args = pyramid_cuda.aggregate_dmajor(cost_dm, levels, lam, fast)
-    return pyramid_cuda.backtrack_top(cost_dm, top, args)
+    with span("pipeline.aggregate"):
+        top, args = pyramid_cuda.aggregate_dmajor(cost_dm, levels, lam, fast)
+    with span("pipeline.walk"):
+        return pyramid_cuda.backtrack_top(cost_dm, top, args)
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +149,8 @@ def one_direction(left: torch.Tensor, right: torch.Tensor, cfg: Config,
         if fused_cuda.supported(cfg, geom):
             return fused_cuda.match_rows(left, right, cfg, geom)
         if fused_cuda.cost_supported(cfg, geom):
-            cost_dm = fused_cuda.cost_volume_rows(left, right, cfg, geom)
+            with span("pipeline.cost"):
+                cost_dm = fused_cuda.cost_volume_rows(left, right, cfg, geom)
             return match_dmajor(cost_dm, geom.levels, cfg.lam, fast=True)
     desc_src = descriptors.left_descriptors(left, cfg)
     desc_tgt = descriptors.right_sliding_descriptors(right, cfg)
@@ -230,14 +234,21 @@ def lr_directions(left: torch.Tensor, right: torch.Tensor, cfg: Config,
     """
     if cfg.lr_check and cfg.lr_mode == "flip":
         flip = flip or (lambda x: x.flip(-1))
-        disp, score = match(torch.stack([left, flip(right)]),
-                            torch.stack([right, flip(left)]), False)
+        with span("pipeline.flip"):
+            srcs = torch.stack([left, flip(right)])
+            tgts = torch.stack([right, flip(left)])
+        with span("pipeline.match"):
+            disp, score = match(srcs, tgts, False)
         # densify(x).flip(-1) == densify(x.flip(-1)) on patch-aligned widths.
-        return disp[0], score[0], flip(disp[1])
-    disp_fwd, score = match(left, right, False)
+        with span("pipeline.flip"):
+            disp_r = flip(disp[1])
+        return disp[0], score[0], disp_r
+    with span("pipeline.match"):
+        disp_fwd, score = match(left, right, False)
     if not cfg.lr_check:
         return disp_fwd, score, None
-    disp_rev, _ = match(right, left, True)
+    with span("pipeline.match"):
+        disp_rev, _ = match(right, left, True)
     return disp_fwd, score, disp_rev
 
 
@@ -288,12 +299,18 @@ def match_padded_core(left_p: torch.Tensor, right_p: torch.Tensor,
     else:
         def match(srcs, tgts, reverse):
             return one_direction(srcs, tgts, cfg, geom, route)
-    disp_fwd, score, disp_r_patch = lr_directions(left_p, right_p, cfg, match)
-    lr_valid = None
-    if disp_r_patch is not None:
-        lr_valid = lr_consistency_patch(disp_fwd, disp_r_patch, cfg.tau,
-                                        geom.disparities, cfg.patch_size)
-    return pixel_outputs(disp_fwd, score, cfg, disp_r_patch, lr_valid)
+    with span("pipeline.step"):
+        disp_fwd, score, disp_r_patch = lr_directions(left_p, right_p, cfg,
+                                                      match)
+        lr_valid = None
+        if disp_r_patch is not None:
+            with span("pipeline.lr_check"):
+                lr_valid = lr_consistency_patch(
+                    disp_fwd, disp_r_patch, cfg.tau, geom.disparities,
+                    cfg.patch_size)
+        with span("pipeline.outputs"):
+            return pixel_outputs(disp_fwd, score, cfg, disp_r_patch,
+                                 lr_valid)
 
 
 def crop(outputs: Dict[str, torch.Tensor], height: int, width: int

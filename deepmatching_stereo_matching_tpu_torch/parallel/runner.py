@@ -29,7 +29,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..config import Config
 from ..models import pipeline
-from ..utils.logging import JsonlLogger
+from ..utils.logging import JsonlLogger, span
 from . import mesh as mesh_lib
 from . import sharded
 
@@ -187,39 +187,46 @@ def run_stream(pairs: Iterable[Tuple[np.ndarray, np.ndarray]],
         nonlocal done, retries, pairs_done
         if index < start_batch:
             return
-        lefts = sharded.pad_batch([p[0] for p in batch], cfg, height,
-                                  width, mesh, strategy, merge_level)
-        rights = sharded.pad_batch([p[1] for p in batch], cfg, height,
-                                   width, mesh, strategy, merge_level)
-        attempt = 0
-        while True:
-            try:
-                t0 = time.perf_counter()
-                lp = torch.from_numpy(lefts).to(device)
-                rp = torch.from_numpy(rights).to(device)
-                out = match(lp, rp)
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                if on_result is not None:
-                    out = {k: v.cpu().numpy() for k, v in out.items()}
-                dt = time.perf_counter() - t0
-                break
-            except Exception as e:  # lost rank / transient failure
-                attempt += 1
-                retries += 1
-                log.log("batch_retry", batch=index, attempt=attempt,
-                        error=repr(e)[:200])
-                if attempt > max_retries:
-                    log.log("stream_failed", batch=index,
-                            completed_batches=done)
-                    raise
-        done += 1
-        pairs_done += real
-        log.log("batch_done", batch=index, pairs=real,
-                seconds=round(dt, 4),
-                mpx_per_s=round(real * height * width * 1e-6 / dt, 3))
-        if on_result is not None:
-            on_result(index, {k: v[:real] for k, v in out.items()})
+        with span("stream.batch"):
+            with span("stream.pad"):
+                lefts = sharded.pad_batch([p[0] for p in batch], cfg, height,
+                                          width, mesh, strategy, merge_level)
+                rights = sharded.pad_batch([p[1] for p in batch], cfg, height,
+                                           width, mesh, strategy, merge_level)
+            attempt = 0
+            while True:
+                try:
+                    t0 = time.perf_counter()
+                    with span("stream.copy_in"):
+                        lp = torch.from_numpy(lefts).to(device)
+                        rp = torch.from_numpy(rights).to(device)
+                    with span("stream.match"):
+                        out = match(lp, rp)
+                    with span("stream.wait"):
+                        if device.type == "cuda":
+                            torch.cuda.synchronize(device)
+                    if on_result is not None:
+                        with span("stream.copy_out"):
+                            out = {k: v.cpu().numpy() for k, v in out.items()}
+                    dt = time.perf_counter() - t0
+                    break
+                except Exception as e:  # lost rank / transient failure
+                    attempt += 1
+                    retries += 1
+                    log.log("batch_retry", batch=index, attempt=attempt,
+                            error=repr(e)[:200])
+                    if attempt > max_retries:
+                        log.log("stream_failed", batch=index,
+                                completed_batches=done)
+                        raise
+            done += 1
+            pairs_done += real
+            log.log("batch_done", batch=index, pairs=real,
+                    seconds=round(dt, 4),
+                    mpx_per_s=round(real * height * width * 1e-6 / dt, 3))
+            if on_result is not None:
+                with span("stream.on_result"):
+                    on_result(index, {k: v[:real] for k, v in out.items()})
 
     for pair in pairs:
         batch.append(pair)

@@ -15,6 +15,8 @@
     python deepmatching_stereo_matching_tpu_torch/profile_steps.py \
         --step-times [--cells ...] [--routes ...] [--dtype ...] \
         [--strategies ...] [--root DIR]
+    python -m deepmatching_stereo_matching_tpu_torch.profile_steps \
+        --stages [--cells bench,kitti256] [--steps 5]
 
 Cells (synthetic pairs made from seeds, `lr_mode="flip"`): bench
 (450x375, D=64, 32 pairs, bench.py's recipe), grad_hist (the same with
@@ -30,14 +32,23 @@ wtiled1 is wtiled with merge_level 1).  Of the profiled steps it
 prints, per step:
   span: device time from a CUDA event recorded before the first step to
       one recorded after the last;
-  kernels: the sum of the profiler's device rows (an aten:: row repeats
-      its kernels' time and is skipped);
+  kernels: the sum of the profiler's device rows (an aten:: row, or the
+      row of one of the program's `dm.` spans, repeats its kernels' time
+      and is skipped);
   idle: 1 - kernels / span, as it falls: a negative share means the two
       clocks disagree, and is printed, not clamped;
   enqueue: host time to issue the steps;
-then the top device rows and the top host ops by self CPU time.  The
-profiler adds host time to every op, so where the host is the bound the
-profiled span is longer than the unprofiled one, which is printed beside
+then the top device rows, the top host ops by self CPU time, and the
+program's stages (`stage_rows`).  The profiler adds host time to every
+op, so where the host is the bound the profiled span is longer than the
+unprofiled one, which is printed beside it.
+
+--stages profiles, for each --cells cell on the 'fused' route, --steps
+batches of `parallel.run_stream` ('tiled' on a world of one rank over
+NCCL, a batch of the cell's pairs as 8-bit colour images, outputs copied
+back) and --steps calls of `api.match_stereo` (one colour pair each), and
+prints the stage rows of each: per batch or pair, every `dm.` span's
+calls, host ms, and the device ms and device operations launched inside
 it.
 
 --k1 times K1 and K1b alone at the bench shapes (CUDA events, 5 x 20
@@ -206,7 +217,8 @@ def profile_cells(cells, routes, steps, strategies=(), dtypes=("float32",)):
             dev = sorted(((e.self_device_time_total / steps / 1e3,
                            e.count // steps, e.key) for e in rows
                           if e.self_device_time_total > 0
-                          and not e.key.startswith("aten::")), reverse=True)
+                          and not e.key.startswith(("aten::", "dm."))),
+                         reverse=True)
             host = sorted(((e.self_cpu_time_total / steps / 1e3,
                             e.count // steps, e.key) for e in rows
                            if e.self_cpu_time_total > 0), reverse=True)
@@ -221,6 +233,85 @@ def profile_cells(cells, routes, steps, strategies=(), dtypes=("float32",)):
                       f"x{count:<3d} {key[:80]}")
             for ms, count, key in host[:8]:
                 print(f"   host   {ms:9.4f} ms x{count:<3d} {key[:80]}")
+            _print_stages(prof, steps)
+            sys.stdout.flush()
+
+
+def stage_rows(events, units):
+    """(name, calls, host ms, device ms, device operations) per unit of
+    work for each of the program's spans (`utils/logging.span`, named
+    `dm.`) among the profiler's `events`, in order of first appearance.
+    A span counts the device work launched inside it, its children's
+    included: the profiler charges each device operation to the op that
+    launched it (`FunctionEvent.device_time_total`)."""
+    from deepmatching_stereo_matching_tpu_torch.utils.logging import PREFIX
+
+    def launched(e):
+        return len(e.kernels) + sum(launched(c) for c in e.cpu_children)
+
+    rows = {}
+    for e in events:
+        if e.name.startswith(PREFIX):
+            row = rows.setdefault(e.name, [0, 0.0, 0.0, 0])
+            row[0] += 1
+            row[1] += e.cpu_time_total / 1e3
+            row[2] += e.device_time_total / 1e3
+            row[3] += launched(e)
+    return [(name, calls / units, host / units, dev / units, ops / units)
+            for name, (calls, host, dev, ops) in rows.items()]
+
+
+def _print_stages(prof, units):
+    for name, calls, host, dev, ops in stage_rows(prof.events(), units):
+        print(f"   stage  host {host:9.4f} ms  device {dev:9.4f} ms "
+              f"x{ops:<6.1f} launches  x{calls:<4.1f} {name}")
+
+
+def profile_stages(cells, steps):
+    """--stages: the stream's and the API's stage rows (see the module's
+    docstring), on the one-rank world `main` opens."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepmatching_stereo_matching_tpu_torch import api
+    from deepmatching_stereo_matching_tpu_torch.config import Config
+    from deepmatching_stereo_matching_tpu_torch.data import synthetic
+    from deepmatching_stereo_matching_tpu_torch.parallel import (
+        mesh as mesh_lib, runner)
+
+    mesh = mesh_lib.make_mesh(1, 1)
+    dev = torch.device("cuda", 0)
+    for cell in cells:
+        h, w, max_d, desc, n, block, seed0 = CELLS[cell]
+        cfg = Config(max_disparity=max_d, descriptor=desc)
+        pairs = []
+        for s in range(seed0, seed0 + n):
+            field = synthetic.block_disparity_field(
+                h, w, max_d, np.random.default_rng(s), block=block)
+            left, right, _ = synthetic.make_pair(h, w, field, seed=s)
+            pairs.append(tuple(
+                np.repeat(np.rint(x * 255).astype(np.uint8)[..., None], 3, -1)
+                for x in (left, right)))
+
+        def stream(batches):
+            runner.run_stream(pairs * batches, cfg, h, w, mesh, "tiled", n,
+                              "fused", on_result=lambda i, o: None)
+
+        def pair(k):
+            api.match_stereo(*pairs[k % n], cfg, impl="fused", device=dev)
+
+        for label, units, work in (
+                (f"stream, batches of {n}", steps, lambda: stream(steps)),
+                ("api, one pair", steps,
+                 lambda: [pair(k) for k in range(steps)])):
+            work()                                   # warm-up
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                work()
+                torch.cuda.synchronize()
+            print(f"\n== {cell} {label}: per unit over {units}")
+            _print_stages(prof, units)
             sys.stdout.flush()
 
 
@@ -916,6 +1007,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", action="store_true",
                     help="time K4/K3 and hash their outputs on every "
                          "chip_smoke shape")
+    ap.add_argument("--stages", action="store_true",
+                    help="profile the stream's and the API's stages on the "
+                         "--cells")
     ap.add_argument("--step-times", action="store_true",
                     help="time the --cells steps per --dtype and --routes "
                          "(7 samples, median, range, peak memory)")
@@ -959,11 +1053,13 @@ def main(argv=None) -> int:
     dtypes = [d for d in args.dtype.split(",") if d]
 
     def run():
-        if args.step_times:
+        if args.stages:
+            profile_stages(cells, args.steps)
+        elif args.step_times:
             time_steps(cells, routes, dtypes, strategies)
         else:
             profile_cells(cells, routes, args.steps, strategies, dtypes)
-    if not strategies:
+    if not strategies and not args.stages:
         run()
         return 0
     import tempfile

@@ -1,14 +1,10 @@
-"""Quality and throughput metrics (SURVEY.md §6, C16).
+"""Quality metrics (SURVEY.md §6, C16).
 
-The baseline's metrics (BASELINE.json:2) are the bad-pixel rate at
-delta <= 1 px on ground-truth disparity, and cost-volume megapixels per
-second per chip.
+The baseline's quality metric (BASELINE.json:2) is the bad-pixel rate at
+delta <= 1 px on ground-truth disparity.
 """
 
 from __future__ import annotations
-
-import time
-from typing import Callable, Dict, Optional
 
 import numpy as np
 
@@ -52,28 +48,3 @@ def end_point_error(pred: np.ndarray, gt: np.ndarray,
         return float("inf")
     return float(np.mean(np.abs(pred - gt)[mask]))
 
-
-def measure_mpix_per_s(fn: Callable[[], object], pixels: int,
-                       warmup: int = 1, iters: int = 3,
-                       min_time_s: float = 0.0) -> Dict[str, float]:
-    """Throughput of `fn` in input megapixels per second.
-
-    `fn` must block until completion (synchronise inside).
-    `pixels` is H*W of ONE image of the pair, per the baseline's metric
-    definition (BASELINE.json:2 "cost-volume Mpx/s").
-    """
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn()
-        times.append(time.perf_counter() - t0)
-        if sum(times) > min_time_s and len(times) >= iters:
-            break
-    best = min(times)
-    return {
-        "mpix_per_s": pixels / best / 1e6,
-        "seconds": best,
-        "pixels": float(pixels),
-    }
