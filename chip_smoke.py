@@ -108,6 +108,12 @@ Phases, each printing its own lines (any failure exits nonzero):
      repetition; P3's blocks per SM and persistent grid, its registers,
      and its issue-rate ceiling (FP32 and shared-load warp-instructions
      at four per SM per clock of `nvidia-smi`'s clocks.max.sm);
+  3e. the prep kernel (PREP, csrc/prep.cu) at PREP_SHAPES (a stream
+     batch's side, a KITTI image, ragged RGBA into a padded width that is
+     not a multiple of 4, grayscale), lit and dark images mixed: bitwise
+     its plain version and the oracle's grayscale and pad, exactly two
+     launches a call; all 2^24 colours bitwise the oracle; its event time at the stream's side (inputs cycled
+     past the L2) beside its bytes bound, the plain version and NumPy;
   4. main path through `api.match_stereo` against the NumPy oracle: two
      bench pairs (patch: 'fused' within the bench's 0.5% decision gate,
      'exact' bitwise on decisions), one KITTI pair at D=128 (the
@@ -176,7 +182,10 @@ Phases, each printing its own lines (any failure exits nonzero):
      (`parallel.run_stream`, tiled, 'fused', batch 32) over 69 bench
      pairs (seeds 100-168: two batches and a tail of 5), every pair bitwise
      to the unsharded pipeline, 3 `batch_done` and one `tail_batch` log
-     events, its Mpx/s beside the step's; again with a match step that
+     events, its Mpx/s beside the step's, every batch padded on the host;
+     the same pairs as uint8 colour images: every batch padded on the card
+     (PREP, two launches a side), the outputs bitwise the unsharded
+     pipeline on the host's padding; again with a match step that
      fails once (1 retry, same outputs); again in bfloat16 over 37 pairs
      (K1 bf16, bitwise the unsharded bf16 pipeline); and through
      `parallel.pairs_from_paths` over the pairs written as PGM (the native
@@ -214,7 +223,8 @@ exact mode over the wrapper's `exact_launches`;
 K1, K1b, K2 (C=16 and C=128), K3, K4 and K5 bf16 rows of their own, each
 with its own launch count;
 library_ms the yardstick where there is one; K5's rows with device_ms,
-P3's with issue_ceiling_ms; `roofline`: phase 8's headline and rows),
+P3's with issue_ceiling_ms, PREP's with numpy_ms; `roofline`: phase 8's
+headline and rows),
 and as the last line {"ok": true, "device": {...}}.  Needs one CUDA
 device; imports nothing of JAX or the JAX package.
 """
@@ -260,6 +270,13 @@ EARLIER_MS.update({"K5": 0.1826, "K5 bf16": 0.1944, "P3": 0.1100})
 # Centred descriptors on adversarial (tie-heavy, flat-window) pairs.
 ADV_HW, ADV_D, ADV_SEEDS = (97, 141), 24, (0, 1, 5)
 STREAM_PAIRS, STREAM_TAIL = 69, 5       # two batches of BATCH and a tail
+# The prep kernel's shapes (csrc/prep.cu), (images, H, W, C, Hp, Wp); C 1
+# is (images, H, W): a side of a stream batch, one KITTI image, then small
+# ragged ones: RGBA into a padded width that is not a multiple of 4 (its
+# 4-byte stores) and grayscale.
+PREP_SHAPES = ((BATCH, H, W, 3, 384, 512), (1, KH, KW, 3, 384, 1536),
+               (3, 37, 53, 4, 48, 66), (2, 37, 53, 1, 40, 64))
+PREP_SETS = 4      # distinct input batches cycled while timed: 65 MB > L2
 PROBE_SASS = {"P1": "stream_kernelILi384", "P2": "stream_kernelILi96",
               "P3": "shift_kernel"}
 PROBE_NAMES = {"P1": "stream", "P2": "small", "P3": "shift"}
@@ -562,6 +579,124 @@ def eval_phase(run_path, path_launches, card):
     print(flush=True)
 
 
+def prep_batch(rng, n, h, w, c):
+    """uint8 images for the prep kernel: uniform bytes, image 1 dark
+    (channels 0 and 1: grayscale at most 1.0, so left undivided) and
+    image 2 dark but for its last pixel (2 in every channel: lit)."""
+    shape = (n, h, w) if c == 1 else (n, h, w, c)
+    raw = rng.integers(0, 256, shape, dtype=np.uint8)
+    if n > 1:
+        raw[1] = rng.integers(0, 2, shape[1:], dtype=np.uint8)
+    if n > 2:
+        raw[2] = 0
+        raw[2, -1, -1] = 2
+    return raw
+
+
+def every_colour():
+    """All 2^24 RGB values as 8 uint8 images of 8192 x 256 x 3: image i
+    holds red 32 i to 32 i + 31, every green and every blue."""
+    r = np.arange(256, dtype=np.uint8)
+    return np.stack([
+        np.stack(np.meshgrid(r[lo:lo + 32], r, r, indexing="ij"), -1)
+        .reshape(32 * 256, 256, 3) for lo in range(0, 256, 32)])
+
+
+def prep_phase(run_path, dev, card, rows):
+    """3e: the prep kernel (PREP, csrc/prep.cu) at PREP_SHAPES, bitwise its
+    plain version and the oracle's grayscale and pad, two launches a call;
+    at a stream batch's side its event time, its kernels' device time and
+    its time as the host issues it, beside the host's NumPy path and the
+    plain version."""
+    import torch
+    from types import SimpleNamespace
+    from deepmatching_stereo_matching_tpu_torch import work
+    from deepmatching_stereo_matching_tpu_torch.ops import prep_cuda
+    from deepmatching_stereo_matching_tpu_torch.oracle import reference as oracle
+    from deepmatching_stereo_matching_tpu_torch.profile_steps import device_ms
+
+    rng = np.random.default_rng(17)
+    for n, h, w, c, hp, wp in PREP_SHAPES:
+        raw = prep_batch(rng, n, h, w, c)
+        geom = SimpleNamespace(padded_height=hp, padded_width=wp)
+        want = np.stack([oracle.pad_image(oracle.to_grayscale_f32(x), geom)
+                         for x in raw])
+        plain = prep_cuda.gray_pad(torch.from_numpy(raw), hp, wp).numpy()
+        src = torch.from_numpy(raw).to(dev)
+        got = run_path(f"prep {n}x{h}x{w}x{c}", {"PREP"},
+                       lambda: prep_cuda.gray_pad(src, hp, wp))
+        got = got.cpu().numpy()
+        calls = prep_cuda.gray_pad.launches
+        same = (np.array_equal(got.view(np.uint32), plain.view(np.uint32))
+                and np.array_equal(got.view(np.uint32),
+                                   want.view(np.uint32)))
+        print(f"PREP {tuple(raw.shape)} -> {tuple(got.shape)}: bitwise its "
+              f"plain version and the oracle {same}; {calls} launches")
+        require(same, f"PREP {tuple(raw.shape)} differs: max |err| "
+                f"{float(np.abs(got - want).max())}")
+        require(calls == prep_cuda.LAUNCHES,
+                f"PREP launched {calls} kernels, not {prep_cuda.LAUNCHES}")
+    # Every one of the 2^24 colours: 8 lit images of 8192 x 256 x 3.
+    colours = every_colour()
+    src = torch.from_numpy(colours).to(dev)
+    got = run_path("prep every colour", {"PREP"},
+                   lambda: prep_cuda.gray_pad(src, *colours.shape[1:3]))
+    got = got.cpu().numpy()
+    same = all(np.array_equal(g.view(np.uint32),
+                              oracle.to_grayscale_f32(x).view(np.uint32))
+               for g, x in zip(got, colours))
+    print(f"PREP all 2^24 colours {tuple(colours.shape)}: bitwise the "
+          f"oracle's grayscale {same}")
+    require(same, "PREP differs from the oracle on some colour")
+    del src, got
+    n, h, w, c, hp, wp = PREP_SHAPES[0]
+    host = [prep_batch(rng, n, h, w, c) for _ in range(PREP_SETS)]
+    sets = [torch.from_numpy(x).to(dev) for x in host]
+    order = iter(range(10 ** 9))
+
+    def call():
+        return prep_cuda.gray_pad(sets[next(order) % PREP_SETS], hp, wp)
+    # A call's host issue (two allocations, the ctypes launch) outlasts its
+    # device time, so the timed calls queue behind a sleep kernel that
+    # covers their issue: the events then time the device alone.
+    reps = 200
+    for _ in range(PREP_SETS):
+        call()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    require(ms > 0, f"non-positive timing sample {ms}")
+    dev_ms = device_ms(torch, call, "bright_kernel", reps) + device_ms(
+        torch, call, "gray_pad_kernel", reps)
+    issue_ms = cuda_ms(torch, call, reps)
+    t0 = time.perf_counter()
+    prep_cuda.gray_pad(torch.from_numpy(host[0]), hp, wp)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    geom = SimpleNamespace(padded_height=hp, padded_width=wp)
+    t0 = time.perf_counter()
+    np.stack([oracle.pad_image(oracle.to_grayscale_f32(x), geom)
+              for x in host[0]])
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    model = work.gray_pad(n, h, w, c, hp, wp)
+    bound_ms = work.bound(model)[0] * 1e3
+    print(f"PREP {n} x {h}x{w}x{c} -> {hp}x{wp}: {ms:.4f} ms a call "
+          f"({PREP_SETS} inputs cycled, queued), its two kernels "
+          f"{dev_ms:.4f} ms on the device (profiler), back to back as "
+          f"issued {issue_ms:.4f} ms; bound {bound_ms:.4f} ms (bytes), "
+          f"{ms / bound_ms:.2f}x; plain version {plain_ms:.1f} ms, the "
+          f"host's NumPy grayscale and pad {numpy_ms:.1f} ms {card}")
+    rows["PREP"] = dict(err=0.0, ms=ms, plain=plain_ms, work=model,
+                        device_ms=dev_ms, numpy_ms=numpy_ms)
+    print(flush=True)
+
+
 def bench_phase(run_path, dev, card, card_line):
     """7: the port's bench rows (`bench.py`, `tools/bench_large.py`) in this
     process, each a path of its own with its gates; then the bench in its
@@ -752,8 +887,8 @@ def main():
     from deepmatching_stereo_matching_tpu_torch.models import descriptors
     from deepmatching_stereo_matching_tpu_torch.models import pipeline
     from deepmatching_stereo_matching_tpu_torch.ops import (
-        _build, costvol, costvol_cuda, fused_cuda, pool, probe_cuda,
-        pyramid_cuda)
+        _build, costvol, costvol_cuda, fused_cuda, pool, prep_cuda,
+        probe_cuda, pyramid_cuda)
     from deepmatching_stereo_matching_tpu_torch.parallel import (
         launch, mesh as mesh_lib, runner, sharded, wtiled)
     from deepmatching_stereo_matching_tpu_torch import work
@@ -1656,7 +1791,8 @@ def main():
                 "K6": (costvol_cuda.cost_volume_rows, "launches"),
                 "P1": (probe_cuda.stream, "launches"),
                 "P2": (probe_cuda.small, "launches"),
-                "P3": (probe_cuda.shift, "launches")}
+                "P3": (probe_cuda.shift, "launches"),
+                "PREP": (prep_cuda.gray_pad, "launches")}
     path_launches = {}
 
     def reset_counts():
@@ -1783,6 +1919,9 @@ def main():
           f" a repetition, {sms} SMs x 4 at {clock_mhz:g} MHz), "
           f"{ceiling / rows['P3']['ms']:.3f} of it {card}")
     print(flush=True)
+
+    # 3e. The prep kernel: the stream's grayscale and pad on the card.
+    prep_phase(run_path, dev, card, rows)
 
     # 4. Main path through the public API, against the oracle.
     kcfg = kitti[128][0]
@@ -2160,15 +2299,17 @@ def main():
                         on_result=lambda i, out: got.update({i: out}),
                         logger=logger, **kw)
                 with open(log_path) as f:
-                    events = [json.loads(line)["event"] for line in f]
+                    recs = [json.loads(line) for line in f]
+            events = [r["event"] for r in recs]
+            pads = {r["pad"] for r in recs if r["event"] == "batch_done"}
             same = sorted(got) == list(range(len(want))) and all(
                 np.array_equal(got[b][k], w_[k], equal_nan=k == "disparity")
                 for b, w_ in enumerate(want) for k in KEYS)
-            return rep, events, same
+            return rep, events, same, pads
 
         want = unsharded_batches(cfg, stream_pairs)
-        rep, events, same = run_path("stream tiled fused", {"K1"},
-                                     lambda: run(stream_pairs, cfg, want))
+        rep, events, same, pads = run_path(
+            "stream tiled fused", {"K1"}, lambda: run(stream_pairs, cfg, want))
         print(f"stream [tiled, fused] {STREAM_PAIRS} pairs {W}x{H}, batch "
               f"{BATCH}: {rep}; log events batch_done "
               f"{events.count('batch_done')}, tail_batch "
@@ -2182,8 +2323,27 @@ def main():
         require(same and rep.pairs_completed == STREAM_PAIRS
                 and rep.batches_completed == 3 and rep.retries == 0
                 and events.count("batch_done") == 3
-                and events.count("tail_batch") == 1,
+                and events.count("tail_batch") == 1 and pads == {"host"},
                 "the stream's outputs or accounting are wrong")
+        # The same pairs as uint8 colour images: each batch copied in as
+        # bytes and padded on the card (PREP, two launches a side).
+        rgb = [tuple(np.repeat(np.round(x * 255).astype(np.uint8)[..., None],
+                               3, -1) for x in pair) for pair in stream_pairs]
+        want8 = unsharded_batches(cfg, rgb)
+        rep8, events8, same8, pads8 = run_path(
+            "stream tiled fused uint8", {"PREP", "K1"},
+            lambda: run(rgb, cfg, want8))
+        prep_launches = path_launches["stream tiled fused uint8"]["PREP"]
+        print(f"stream [tiled, fused] uint8 colour {STREAM_PAIRS} pairs: "
+              f"{rep8}; pad {sorted(pads8)}, {prep_launches} PREP launches; "
+              f"every pair bitwise equal to the unsharded pipeline on the "
+              f"host's padding {same8}; {rep8.mpx_per_s:.1f} Mpx/s against "
+              f"{rep.mpx_per_s:.1f} padded on the host {card}")
+        require(same8 and pads8 == {"device"}
+                and rep8.pairs_completed == STREAM_PAIRS
+                and prep_launches == 2 * prep_cuda.LAUNCHES
+                * rep8.batches_completed,
+                "the uint8 stream's outputs or accounting are wrong")
         calls = {"n": 0}
 
         def flaky(lp, rp):
@@ -2193,7 +2353,7 @@ def main():
             return sharded.match_batch_sharded(lp, rp, cfg, H, W, smesh,
                                                "tiled", "fused")
 
-        rep2, events2, same2 = run_path(
+        rep2, events2, same2, _ = run_path(
             "stream retry", {"K1"}, lambda: run(stream_pairs, cfg, want,
                                                 _match_fn=flaky))
         print(f"stream with one injected failure: retries {rep2.retries}, "
@@ -2207,7 +2367,7 @@ def main():
         n16 = BATCH + STREAM_TAIL
         cfg16s = dataclasses.replace(cfg, dtype="bfloat16")
         want16 = unsharded_batches(cfg16s, stream_pairs[:n16])
-        rep16, events16, same16 = run_path(
+        rep16, events16, same16, _ = run_path(
             "stream tiled fused bf16", {"K1 bf16"},
             lambda: run(stream_pairs[:n16], cfg16s, want16))
         print(f"stream [tiled, fused] bf16 {n16} pairs: {rep16}; every pair "
@@ -2453,6 +2613,8 @@ def main():
                "tools/vpu_ceiling.py:120"),
         "P3": ("P3 streaming probe (shifted window)", "csrc/probe.cu",
                "tools/vpu_ceiling.py:165"),
+        "PREP": ("PREP grayscale and zero pad of raw uint8 images",
+                 "csrc/prep.cu", "none: the JAX package pads on the host"),
     }
     regs = {"K1": fused_ptxas.get((4, "patch", "f32")),
             "K1 KITTI": fused_ptxas.get((4, "patch", "f32")),
@@ -2496,7 +2658,7 @@ def main():
             **{key: rows[k][key] for key in ("flips", "blocks_per_sm",
                                              "library_extra_bytes",
                                              "registers", "issue_ceiling_ms",
-                                             "device_ms")
+                                             "device_ms", "numpy_ms")
                if key in rows[k]}})
         print(f"  {k}: kernel {rows[k]['ms']:.4f} ms, bound {bound_ms:.4f} "
               f"ms ({bound_by}), {rows[k]['ms'] / bound_ms:.1f}x its bound; "

@@ -81,6 +81,8 @@ _SIGNATURES = {
     # (none); copies
     "dm_probe_shift_blocks_per_sm": [],
     "dm_probe_shift_grid": [_I],
+    # src, flags, out, n, h, w, c, hp, wp, slices, stream
+    "dm_gray_pad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

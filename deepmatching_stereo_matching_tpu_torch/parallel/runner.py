@@ -137,7 +137,12 @@ def run_stream(pairs: Iterable[Tuple[np.ndarray, np.ndarray]],
 
     Args:
       pairs: iterable of (left, right) arrays, all height x width, or
-        `sharded.as_padded` planes (`pairs_from_paths`).
+        `sharded.as_padded` planes (`pairs_from_paths`).  A batch of raw
+        uint8 images (`sharded.raw_batch`) is copied in as bytes and
+        padded on the mesh's device, inside `pad_batch`; any other is
+        padded on the host and copied in as float32 planes, inside the
+        timed step.  Each `batch_done` record says which (`pad`:
+        "device" or "host").
       mesh: default `parallel.auto_mesh()` over the whole world.
       start_batch: skip batches below this index (resume after restart).
       max_retries: per-batch retry budget; exceeded -> the error
@@ -188,18 +193,23 @@ def run_stream(pairs: Iterable[Tuple[np.ndarray, np.ndarray]],
         if index < start_batch:
             return
         with span("stream.batch"):
+            sides = [p[0] for p in batch], [p[1] for p in batch]
+            # Raw pairs are copied in and padded on the device inside
+            # pad_batch; any other batch is padded on the host and copied
+            # in below, inside the timed copy_in.
+            raw = all(sharded.raw_batch(s, height, width) for s in sides)
+            pad = "device" if raw else "host"
             with span("stream.pad"):
-                lefts = sharded.pad_batch([p[0] for p in batch], cfg, height,
-                                          width, mesh, strategy, merge_level)
-                rights = sharded.pad_batch([p[1] for p in batch], cfg, height,
-                                           width, mesh, strategy, merge_level)
+                lefts, rights = (sharded.pad_batch(
+                    s, cfg, height, width, mesh, strategy, merge_level,
+                    device=device if raw else None) for s in sides)
             attempt = 0
             while True:
                 try:
                     t0 = time.perf_counter()
                     with span("stream.copy_in"):
-                        lp = torch.from_numpy(lefts).to(device)
-                        rp = torch.from_numpy(rights).to(device)
+                        lp, rp = (torch.as_tensor(x, device=device)
+                                  for x in (lefts, rights))
                     with span("stream.match"):
                         out = match(lp, rp)
                     with span("stream.wait"):
@@ -221,7 +231,7 @@ def run_stream(pairs: Iterable[Tuple[np.ndarray, np.ndarray]],
                         raise
             done += 1
             pairs_done += real
-            log.log("batch_done", batch=index, pairs=real,
+            log.log("batch_done", batch=index, pairs=real, pad=pad,
                     seconds=round(dt, 4),
                     mpx_per_s=round(real * height * width * 1e-6 / dt, 3))
             if on_result is not None:

@@ -44,7 +44,7 @@ from ..oracle import reference as oracle
 
 from ..models import descriptors, pipeline
 from ..ops import costvol as costvol_ops
-from ..ops import costvol_cuda, pyramid_cuda
+from ..ops import costvol_cuda, prep_cuda, pyramid_cuda
 from ..ops._dispatch import check_route
 from . import collectives
 from . import mesh as mesh_lib
@@ -212,14 +212,36 @@ def as_padded(plane) -> PaddedPlane:
     return a.view(PaddedPlane)
 
 
+def raw_batch(images, height: int, width: int) -> bool:
+    """True where `pad_batch` pads the batch on its device: every image a
+    uint8 array of exactly (height, width), or every one (height, width,
+    3 or 4), all of one shape."""
+    shapes = {np.shape(img) if isinstance(img, np.ndarray)
+              and img.dtype == np.uint8 else None for img in images}
+    return len(shapes) == 1 and shapes.pop() in (
+        (height, width), *((height, width, c) for c in prep_cuda.CHANNELS))
+
+
 def pad_batch(images, cfg: Config, height: int, width: int,
               mesh: DeviceMesh, strategy: str = "tiled",
-              merge_level: Optional[int] = None) -> np.ndarray:
+              merge_level: Optional[int] = None,
+              device: Optional[torch.device] = None):
     """Grayscale-normalise and zero-pad a batch for the given strategy:
     a (B, Hp, Wp) float32 array whose extents satisfy the tile and slab
-    alignment for `mesh`.  `as_padded` planes are copied through."""
+    alignment for `mesh`.  `as_padded` planes are copied through.
+
+    With `device`, the (B, Hp, Wp) float32 tensor on it: a `raw_batch` is
+    copied in as its uint8 bytes, an image a copy (no host-side stack),
+    and padded there (`prep_cuda.gray_pad`, bitwise the host path); any
+    other batch is padded on the host, then copied in."""
     glob = strategy_geometry(cfg, height, width, mesh, strategy,
                              merge_level)
+    if device is not None and raw_batch(images, height, width):
+        raw = torch.empty((len(images), *images[0].shape), dtype=torch.uint8,
+                          device=device)
+        for dst, img in zip(raw, images):
+            dst.copy_(torch.from_numpy(np.ascontiguousarray(img)))
+        return prep_cuda.gray_pad(raw, glob.padded_height, glob.padded_width)
     out = np.zeros((len(images), glob.padded_height, glob.padded_width),
                    dtype=np.float32)
     for i, img in enumerate(images):
@@ -232,7 +254,7 @@ def pad_batch(images, cfg: Config, height: int, width: int,
             continue
         g = oracle.to_grayscale_f32(img)
         out[i, : g.shape[0], : g.shape[1]] = g
-    return out
+    return out if device is None else torch.from_numpy(out).to(device)
 
 
 def input_spec(strategy: str = "tiled") -> Tuple[Optional[str], ...]:

@@ -229,6 +229,17 @@ def probe(name: str, repetitions: Optional[int] = None) -> Work:
                  * probe_cuda.FLOPS_PER_PLANE * rows * cols}, PEAK_NO_FMA)
 
 
+def gray_pad(n: int, height: int, width: int, channels: int, hp: int,
+             wp: int) -> Work:
+    """The stream's input preparation (csrc/prep.cu): n raw uint8 images
+    of (height, width, channels) read once, n float32 (hp, wp) planes
+    written once.  Its arithmetic (5 operations a colour pixel, a compare
+    and a divide) is left out: its time at the peak is a 30th of the
+    bytes' time."""
+    return Work({"raw": n * height * width * channels,
+                 "planes": n * hp * wp * 4}, {})
+
+
 def step_fused(cfg: Config, geom: Geometry, batch: int) -> Work:
     """The bench step's function (`match_padded_core`, 'fused', LR flip):
     two padded float32 planes a pair in, the five padded maps a pair out,
