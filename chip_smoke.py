@@ -11,7 +11,8 @@ Phases, each printing its own lines (any failure exits nonzero):
      magbin, float32 and bfloat16), the six costvol_kernel instances
      (D-major and rows, 16-byte and 4-byte staging, in float32; D-major in
      bfloat16), the four costrows_kernel instances (p = 4 and runtime p,
-     float32 and bfloat16 volumes), the two pyramid_kernel instances, the
+     float32 and bfloat16 volumes) and the four costrows_magbin_kernel
+     (K4b) instances, the two pyramid_kernel instances, the
      eight aggregate_kernel instances (float32 and bfloat16, 16-byte and
      narrow form, fast and exact) and the three probe kernels must spill
      nothing;
@@ -114,6 +115,14 @@ Phases, each printing its own lines (any failure exits nonzero):
      its plain version and the oracle's grayscale and pad, exactly two
      launches a call; all 2^24 colours bitwise the oracle; its event time at the stream's side (inputs cycled
      past the L2) beside its bytes bound, the plain version and NumPy;
+  3f. K4b, the cost volume on grad_hist (magnitude, bin) planes
+     (`k4b_phase`): shared memory equal to fused_cuda's mirror and >= 2
+     blocks per SM at both KITTI ranges in both dtypes; within 2e-5 of
+     its plain version at KITTI D=256, on a ragged grid and at p 3 and 5,
+     bf16 bitwise that volume rounded; K1b's scores bitwise K4b's costs;
+     the grad_hist KITTI step launching exactly K4b and K5 (and their bf16
+     instances), within the fused gate of the oracle; K4b's event time
+     beside work.k4b's bound;
   4. main path through `api.match_stereo` against the NumPy oracle: two
      bench pairs (patch: 'fused' within the bench's 0.5% decision gate,
      'exact' bitwise on decisions), one KITTI pair at D=128 (the
@@ -616,6 +625,7 @@ def prep_phase(run_path, dev, card, rows):
     from deepmatching_stereo_matching_tpu_torch.profile_steps import device_ms
 
     rng = np.random.default_rng(17)
+    err = 0.0       # the largest |kernel - plain or oracle| over the checks
     for n, h, w, c, hp, wp in PREP_SHAPES:
         raw = prep_batch(rng, n, h, w, c)
         geom = SimpleNamespace(padded_height=hp, padded_width=wp)
@@ -627,6 +637,8 @@ def prep_phase(run_path, dev, card, rows):
                        lambda: prep_cuda.gray_pad(src, hp, wp))
         got = got.cpu().numpy()
         calls = prep_cuda.gray_pad.launches
+        err = max(err, float(np.abs(got - plain).max()),
+                  float(np.abs(got - want).max()))
         same = (np.array_equal(got.view(np.uint32), plain.view(np.uint32))
                 and np.array_equal(got.view(np.uint32),
                                    want.view(np.uint32)))
@@ -642,9 +654,10 @@ def prep_phase(run_path, dev, card, rows):
     got = run_path("prep every colour", {"PREP"},
                    lambda: prep_cuda.gray_pad(src, *colours.shape[1:3]))
     got = got.cpu().numpy()
-    same = all(np.array_equal(g.view(np.uint32),
-                              oracle.to_grayscale_f32(x).view(np.uint32))
-               for g, x in zip(got, colours))
+    grays = [oracle.to_grayscale_f32(x) for x in colours]
+    err = max([err] + [float(np.abs(g - x).max()) for g, x in zip(got, grays)])
+    same = all(np.array_equal(g.view(np.uint32), x.view(np.uint32))
+               for g, x in zip(got, grays))
     print(f"PREP all 2^24 colours {tuple(colours.shape)}: bitwise the "
           f"oracle's grayscale {same}")
     require(same, "PREP differs from the oracle on some colour")
@@ -692,8 +705,162 @@ def prep_phase(run_path, dev, card, rows):
           f"issued {issue_ms:.4f} ms; bound {bound_ms:.4f} ms (bytes), "
           f"{ms / bound_ms:.2f}x; plain version {plain_ms:.1f} ms, the "
           f"host's NumPy grayscale and pad {numpy_ms:.1f} ms {card}")
-    rows["PREP"] = dict(err=0.0, ms=ms, plain=plain_ms, work=model,
+    rows["PREP"] = dict(err=err, ms=ms, plain=plain_ms, work=model,
                         device_ms=dev_ms, numpy_ms=numpy_ms)
+    print(flush=True)
+
+
+def k4b_phase(run_path, dev, card, rows):
+    """3f: K4b (csrc/costrows.cu: costrows_magbin_kernel), the cost volume
+    on grad_hist (magnitude, bin) planes.  Its shared memory per block as
+    the library computes it equal to `fused_cuda.cost_smem_bytes(...,
+    magbin=True)`, at least 2 blocks per SM in both dtypes at both KITTI
+    ranges; at KITTI D=256 (4 pairs x 2 directions), on a ragged grid with
+    a masked plane and at the runtime-p instance (p 3, 5): within 2e-5 of
+    its plain version, its bf16 instance bitwise that volume rounded, one
+    launch a call; K1b's scores bitwise K4b's volume at K1b's decisions
+    (bench grad_hist, 8 pairs x 2 directions); the `fused` step on 4
+    grad_hist KITTI pairs launches exactly K4b and K5 (bf16: their bf16
+    instances), one pair within the fused gate of the oracle; K4b's event
+    time at the 32-pair step's 64 instances beside work.k4b's bound."""
+    import dataclasses
+    import torch
+    from deepmatching_stereo_matching_tpu_torch import work
+    from deepmatching_stereo_matching_tpu_torch.config import Config
+    from deepmatching_stereo_matching_tpu_torch.models import (descriptors,
+                                                               pipeline)
+    from deepmatching_stereo_matching_tpu_torch.ops import _build, fused_cuda
+    from deepmatching_stereo_matching_tpu_torch.oracle import reference as oracle
+
+    def padded(imgs, geom):
+        return torch.from_numpy(np.stack([
+            oracle.pad_image(oracle.to_grayscale_f32(x), geom)
+            for x in imgs])).to(dev)
+
+    def magbin_planes(pairs, cfg, geom):
+        lp, rp = (padded([p[j] for p in pairs], geom) for j in (0, 1))
+        (lm, lb), (rm, rb) = (descriptors.grad_hist_magbin(x) for x in (
+            torch.cat([lp, rp.flip(-1)]), torch.cat([rp, lp.flip(-1)])))
+        return lm, rm, lb, rb
+
+    def vs_plain(label, cfg, geom, lm, rm, lb, rb):
+        """K4b's largest |kernel - plain| and its bf16 instance's (whose
+        plain version is the float32 one rounded)."""
+        vol = run_path(label, {"K4b"}, lambda: fused_cuda.cost_volume_rows(
+            lm, rm, cfg, geom, lb, rb))
+        plain = fused_cuda.cost_volume_torch(lm, rm, cfg, geom, lb, rb)
+        err = float((vol - plain).abs().max())
+        c16 = dataclasses.replace(cfg, dtype="bfloat16")
+        vol16 = run_path(label + " bf16", {"K4b bf16"},
+                         lambda: fused_cuda.cost_volume_rows(
+                             lm, rm, c16, geom, lb, rb))
+        same16 = vol16.dtype == torch.bfloat16 and torch.equal(
+            vol16, vol.to(torch.bfloat16))
+        err16 = float((vol16.float() - plain.to(torch.bfloat16).float())
+                      .abs().max())
+        print(f"{label} {tuple(lm.shape)} -> {tuple(vol.shape)}: max |kernel "
+              f"- plain| = {err:.3e}; bf16 bitwise the float32 volume "
+              f"rounded {same16}, max |bf16 - plain rounded| = {err16:.3e}")
+        require(err <= 2e-5, f"{label} disagrees with its plain version: "
+                f"{err}")
+        require(same16, f"{label} bf16 is not the float32 volume rounded")
+        return err, err16
+
+    lib = _build.library()
+    occ = {}
+    for max_d in (128, 256):
+        mirror = fused_cuda.cost_smem_bytes(4, max_d, magbin=True)
+        got = lib.dm_cost_rows_magbin_smem(4, max_d)
+        occ[max_d] = [fused_cuda.cost_blocks_per_sm(4, max_d, bf16,
+                                                    magbin=True)
+                      for bf16 in (False, True)]
+        print(f"K4b KITTI D={max_d}: {got} B a block (mirror {mirror}), "
+              f"blocks per SM (f32, bf16) {occ[max_d]}")
+        require(got == mirror, f"K4b D={max_d}: the library's {got} B, the "
+                f"mirror's {mirror} B")
+        require(min(occ[max_d]) >= 2, f"K4b D={max_d}: {occ[max_d]} blocks "
+                f"per SM, fewer than 2")
+
+    cfg = Config(max_disparity=256, descriptor="grad_hist")
+    geom = cfg.geometry(KH, KW)
+    require(not fused_cuda.supported(cfg, geom)
+            and fused_cuda.cost_supported(cfg, geom),
+            f"grad_hist KITTI D=256 must take K4b: {geom}")
+    pairs = [make_kitti_pair(s, 256)[:2] for s in range(4)]
+    planes = magbin_planes(pairs, cfg, geom)
+    errs = [vs_plain("K4b KITTI D=256", cfg, geom, *planes)]
+    for label, h, w, fields in (
+            ("K4b ragged", 112, 304, dict(max_disparity=99, levels=2)),
+            ("K4b p=3", 75, 200, dict(max_disparity=45, levels=2,
+                                      patch_size=3)),
+            ("K4b p=5", 80, 330, dict(max_disparity=61, levels=1,
+                                      patch_size=5))):
+        rcfg = Config(descriptor="grad_hist", **fields)
+        rgeom = rcfg.geometry(h, w)
+        p_, md = rcfg.patch_size, rcfg.max_disparity
+        require(lib.dm_cost_rows_magbin_smem(p_, md)
+                == fused_cuda.cost_smem_bytes(p_, md, magbin=True),
+                f"{label}: the library's shared memory is not the mirror's")
+        rng = np.random.default_rng(p_ * 100 + md)
+        rpairs = [(rng.random((h, w), dtype=np.float32),
+                   rng.random((h, w), dtype=np.float32)) for _ in range(2)]
+        errs.append(vs_plain(label, rcfg, rgeom,
+                             *magbin_planes(rpairs, rcfg, rgeom)))
+
+    # K1b's scores are K4b's costs: one cost block.
+    bcfg = Config(max_disparity=MAX_D, descriptor="grad_hist")
+    bgeom = bcfg.geometry(H, W)
+    bl, br, bbl, bbr = magbin_planes([make_pair(100 + i)[:2]
+                                      for i in range(8)], bcfg, bgeom)
+    disp, score = fused_cuda.match_planes(bl, br, bcfg, bgeom, bbl, bbr)
+    at = fused_cuda.cost_volume_rows(bl, br, bcfg, bgeom, bbl, bbr).gather(
+        1, disp.long()[:, None])[:, 0]
+    torch.cuda.synchronize()
+    same = torch.equal(at, score)
+    print(f"K1b's scores bitwise K4b's volume at K1b's decisions ({bl.shape[0]}"
+          f" bench grad_hist instances): {same}")
+    require(same, "K1b's scores differ from K4b's costs")
+
+    # The step: planes, K4b, K5, the walk, the LR check.
+    lp, rp = (padded([p[j] for p in pairs], geom) for j in (0, 1))
+    for dt, kernels in (("float32", {"K4b", "K5"}),
+                        ("bfloat16", {"K4b bf16", "K5 bf16"})):
+        c = dataclasses.replace(cfg, dtype=dt)
+        out = run_path(f"K4b step grad_hist KITTI D=256 {dt}", kernels,
+                       lambda: pipeline.match_padded_core(lp, rp, c, geom,
+                                                          "fused"))
+        if dt == "float32":
+            want = oracle.match_stereo(*pairs[0], cfg)
+            for k in ("disparity_raw", "valid", "disparity_right"):
+                rate = float(np.mean(out[k][0, :KH, :KW].cpu().numpy()
+                                     != getattr(want, k)))
+                print(f"K4b step vs oracle, pair 0: {k} off on {rate:.6f}")
+                require(rate <= FUSED_DECISION_TOL, f"K4b step: {k} off the "
+                        f"oracle on {rate}")
+        ms = cuda_ms(torch, lambda: pipeline.match_padded_core(
+            lp, rp, c, geom, "fused"), 5)
+        print(f"grad_hist KITTI D=256 step ({dt}), {lp.shape[0]} pairs: "
+              f"{ms:.4f} ms = {lp.shape[0] * KH * KW * 1e-6 / (ms * 1e-3):.1f}"
+              f" Mpx/s {card}")
+
+    # Timed at the 32-pair step's 64 instances.
+    big = [x.repeat(8, 1, 1) for x in planes]
+    for i, (key, dt) in enumerate((("K4b", "float32"),
+                                   ("K4b bf16", "bfloat16"))):
+        c = dataclasses.replace(cfg, dtype=dt)
+        rows[key] = dict(
+            err=max(e[i] for e in errs), ms=cuda_ms(torch, lambda: fused_cuda.cost_volume_rows(
+                big[0], big[1], c, geom, big[2], big[3]), 10),
+            plain=cuda_ms(torch, lambda: fused_cuda.cost_volume_torch(
+                big[0], big[1], c, geom, big[2], big[3]), 1),
+            work=work.k4b(c, geom, big[0].shape[0]),
+            blocks_per_sm=occ[256][dt == "bfloat16"])
+        bound_ms = work.bound(rows[key]["work"])[0] * 1e3
+        print(f"{key} x{big[0].shape[0]} KITTI D=256: {rows[key]['ms']:.4f} ms"
+              f", bound {bound_ms:.4f} ms, {bound_ms / rows[key]['ms']:.4f} of "
+              f"it; plain {rows[key]['plain']:.4f} ms {card}")
+        require(bound_ms / rows[key]["ms"] <= work.MERGED_WORK,
+                f"{key} above {work.MERGED_WORK} of its bound")
     print(flush=True)
 
 
@@ -968,6 +1135,18 @@ def main():
         v[1] == 0 and v[2] == 0 for v in rows_ptxas.values()),
         f"costrows_kernel / pyramid_kernel / aggregate_kernel missing or "
         f"spilling: {rows_ptxas}")
+    # costrows_magbin_kernel<p, volume type> (K4b).
+    magbin_ptxas = ptxas(_build.build_log(),
+                         r"(costrows_magbin_kernelILi\d+E"
+                         r"(?:f|13__nv_bfloat16)E)",
+                         lambda m: m.group(1).replace("13__nv_bfloat16",
+                                                      "bf16"))
+    for fn, (regs, spill_st, spill_ld) in sorted(magbin_ptxas.items()):
+        print(f"{fn}: {regs} registers, spill stores {spill_st} B, spill "
+              f"loads {spill_ld} B")
+    require(len(magbin_ptxas) == 4 and all(
+        v[1] == 0 and v[2] == 0 for v in magbin_ptxas.values()),
+        f"costrows_magbin_kernel missing or spilling: {magbin_ptxas}")
     # The probes: a spill would add local loads to the measured mix.
     probe_ptxas = ptxas(_build.build_log(),
                         r"(stream_kernelILi\d+E|shift_kernel)",
@@ -1119,7 +1298,8 @@ def main():
 
     def k3_bf16(label, vol, levels):
         """K3's bf16 instance: decisions and scores bitwise plain, and
-        equal to K5 bf16 (exact) + backtrack_top on the same volume."""
+        equal to K5 bf16 (exact) + backtrack_top on the same volume.
+        Returns its decisions, scores and largest |score - plain|."""
         d, s_ = pyramid_cuda.pyramid_backtrack(vol, levels, 1.4)
         sync()
         dp, sp = pyramid_cuda.pyramid_body(vol, levels, 1.4, fast=False)
@@ -1132,7 +1312,7 @@ def main():
               f"{float((d != dp).float().mean()):.3e}), equal to K5 bf16 "
               f"(exact) + backtrack_top {same5}")
         require(same and same5, f"{label}: K3 bf16 disagrees")
-        return d, s_
+        return d, s_, float((s_.float() - sp.float()).abs().max())
 
     # 3a. Kernels vs their plain versions at the bench shapes.
     cfg = Config(max_disparity=MAX_D)
@@ -1191,8 +1371,9 @@ def main():
     print(f"K6 on bf16 descriptors: raises {refused!r}")
     require(refused is not None and "row-layout" in refused,
             "K6 took bf16 descriptors")
-    d3b, s3b = k3_bf16("bench (K2 bf16's volume)", vol16, geom.levels)
-    record("K3 bf16", 0.0,
+    d3b, s3b, serr3b = k3_bf16("bench (K2 bf16's volume)", vol16,
+                               geom.levels)
+    record("K3 bf16", serr3b,
            lambda: pyramid_cuda.pyramid_backtrack(vol16, geom.levels, cfg.lam),
            lambda: pyramid_cuda.pyramid_body(vol16, geom.levels, cfg.lam),
            work.k3(cfg, geom, 2 * BATCH, "bfloat16"))
@@ -1461,7 +1642,6 @@ def main():
         print(f"K4 D={max_d} {tuple(kl.shape)} -> {tuple(kvol.shape)}: "
               f"max |kernel - plain| = {err4:.3e}")
         require(err4 <= 2e-5, f"K4 disagrees with its plain version: {err4}")
-        del kvol_p
         if max_d == 128:
             k4_occ = occ4
             record("K4", err4,
@@ -1474,14 +1654,18 @@ def main():
         sync()
         same16 = kvol16.dtype == torch.bfloat16 and torch.equal(
             kvol16, kvol.to(torch.bfloat16))
+        err16 = float((kvol16.float() - kvol_p.to(torch.bfloat16).float())
+                      .abs().max())
+        del kvol_p
         print(f"K4 bf16 D={max_d} -> {tuple(kvol16.shape)} "
-              f"{kvol16.dtype}: bitwise K4's float32 volume rounded {same16} "
+              f"{kvol16.dtype}: bitwise K4's float32 volume rounded {same16}, "
+              f"max |bf16 - plain rounded| = {err16:.3e} "
               f"({nbytes(kvol16) / 1e6:.1f} MB against {nbytes(kvol) / 1e6:.1f}"
               f" MB)")
         require(same16, "K4 bf16 is not K4's volume rounded to bf16")
         if max_d == 128:
             k4b_occ = occ4b
-            record("K4 bf16", 0.0,
+            record("K4 bf16", err16,
                    lambda: fused_cuda.cost_volume_rows(kl, kr, kcfg16, kgeom),
                    lambda: fused_cuda.cost_volume_torch(
                        kl, kr, kcfg, kgeom).to(torch.bfloat16),
@@ -1784,6 +1968,9 @@ def main():
                 "K5": (pyramid_cuda.aggregate_dmajor, "launches"),
                 "K1 bf16": (fused_cuda.match_planes, "bf16_launches"),
                 "K4 bf16": (fused_cuda.cost_volume_rows, "bf16_launches"),
+                "K4b": (fused_cuda.cost_volume_rows, "magbin_launches"),
+                "K4b bf16": (fused_cuda.cost_volume_rows,
+                             "magbin_bf16_launches"),
                 "K5 bf16": (pyramid_cuda.aggregate_dmajor, "bf16_launches"),
                 "K1b bf16": (fused_cuda.match_planes, "magbin_bf16_launches"),
                 "K2 bf16": (costvol_cuda.cost_volume_dmajor, "bf16_launches"),
@@ -1922,6 +2109,8 @@ def main():
 
     # 3e. The prep kernel: the stream's grayscale and pad on the card.
     prep_phase(run_path, dev, card, rows)
+    # 3f. K4b: grad_hist's large-D cost volume.
+    k4b_phase(run_path, dev, card, rows)
 
     # 4. Main path through the public API, against the oracle.
     kcfg = kitti[128][0]
@@ -2594,6 +2783,13 @@ def main():
                     "csrc/fused.cu", "ops/fused_pallas.py:572"),
         "K4 bf16": ("K4 image->D-major cost volume (bfloat16)",
                     "csrc/costrows.cu", "ops/fused_pallas.py:808"),
+        # The JAX package sends grad_hist past K1b's block to its
+        # descriptor route, whose cost volume is K2's.
+        "K4b": ("K4b image->D-major cost volume (magbin, grad_hist)",
+                "csrc/costrows.cu", "ops/costvol_pallas.py:86"),
+        "K4b bf16": ("K4b image->D-major cost volume (magbin, grad_hist, "
+                     "bfloat16)", "csrc/costrows.cu",
+                     "ops/costvol_pallas.py:86"),
         "K5 bf16": ("K5 level aggregation (bfloat16)", "csrc/aggregate.cu",
                     "ops/pyramid_pallas.py:346"),
         "K1b bf16": ("K1b fused image->disparity (magbin, grad_hist, "
@@ -2629,6 +2825,8 @@ def main():
             "K3 bf16": rows_ptxas.get("pyramid_kernelILb1E"),
             "K4": rows_ptxas.get("costrows_kernelILi4EfE"),
             "K4 bf16": rows_ptxas.get("costrows_kernelILi4Ebf16E"),
+            "K4b": magbin_ptxas.get("costrows_magbin_kernelILi4EfE"),
+            "K4b bf16": magbin_ptxas.get("costrows_magbin_kernelILi4Ebf16E"),
             "K5": rows_ptxas.get("aggregate_kernelILb0ELb1ELb1E"),
             "K5 exact": rows_ptxas.get("aggregate_kernelILb0ELb1ELb0E"),
             "K5 bf16": rows_ptxas.get("aggregate_kernelILb1ELb1ELb1E")}

@@ -9,7 +9,8 @@ tensor the kernels' plain versions.  Which kernels a route runs is
 decided by the config and geometry, as in the JAX package:
 
   'fused': K1 (image -> disparity) where `fused_cuda.supported` holds;
-           else, for patch descriptors, K4 (image -> D-major volume),
+           else, where `fused_cuda.cost_supported` does, K4 (image ->
+           D-major volume; K4b on grad_hist's (magnitude, bin) planes),
            K5 (fast) and `match_dmajor` — the large-D route (KITTI);
            else the 'exact' route;
   'exact': descriptors in torch, K2 (cost volume), then K3 where
@@ -31,7 +32,7 @@ semantics:
     bin's products summed in float32 and rounded once; then a bfloat16
     pyramid that rounds every op (K2 bf16 -> K3 bf16, or K5 bf16 in exact
     mode at large D);
-  * the fused routes (K1, K1b, K4 -> K5): the float32 cost rounded once
+  * the fused routes (K1, K1b, K4/K4b -> K5): the float32 cost rounded once
     (ops/fused_cuda.py), then the bfloat16 pyramid.
 `check_supported` refuses only a dtype that the JAX package does not know.
 """
@@ -143,14 +144,24 @@ def one_direction(left: torch.Tensor, right: torch.Tensor, cfg: Config,
 
     'fused' runs K1 where `fused_cuda.supported` says it covers the
     config, else K4 -> K5 where `fused_cuda.cost_supported` does, else
-    the 'exact' route — decided by the config.
+    the 'exact' route — decided by the config.  For grad_hist both fused
+    kernels (K1b, K4b) take the images' (magnitude, bin) planes, built
+    here.
     """
     if check_route(route) == "fused":
-        if fused_cuda.supported(cfg, geom):
-            return fused_cuda.match_rows(left, right, cfg, geom)
-        if fused_cuda.cost_supported(cfg, geom):
+        k1 = fused_cuda.supported(cfg, geom)
+        if k1 or fused_cuda.cost_supported(cfg, geom):
+            bins = ()
+            if cfg.descriptor == "grad_hist":
+                with span("pipeline.planes"):
+                    (left, lbin), (right, rbin) = (
+                        descriptors.grad_hist_magbin(x) for x in (left, right))
+                bins = (lbin, rbin)
+            if k1:
+                return fused_cuda.match_planes(left, right, cfg, geom, *bins)
             with span("pipeline.cost"):
-                cost_dm = fused_cuda.cost_volume_rows(left, right, cfg, geom)
+                cost_dm = fused_cuda.cost_volume_rows(left, right, cfg, geom,
+                                                      *bins)
             return match_dmajor(cost_dm, geom.levels, cfg.lam, fast=True)
     desc_src = descriptors.left_descriptors(left, cfg)
     desc_tgt = descriptors.right_sliding_descriptors(right, cfg)

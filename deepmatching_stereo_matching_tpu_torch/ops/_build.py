@@ -69,6 +69,12 @@ _SIGNATURES = {
                        _I, _P],
     # left, right, out, n, hp, wp, p, d0, max_d, bf16, stream
     "dm_cost_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # p, max_d (+ bf16): K4b
+    "dm_cost_rows_magbin_smem": [_I, _I],
+    "dm_cost_rows_magbin_blocks_per_sm": [_I, _I, _I],
+    # left, right, lbin, rbin, out, n, hp, wp, p, d0, max_d, bf16, stream
+    "dm_cost_rows_magbin": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
     # levels, bf16 (+ fast)
     "dm_aggregate_smem": [_I, _I],
     "dm_aggregate_blocks_per_sm": [_I, _I, _I],

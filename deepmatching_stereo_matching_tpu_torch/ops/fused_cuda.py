@@ -1,21 +1,24 @@
-"""K1/K1b: the fused image->disparity kernel (csrc/fused.cu), K4: the
+"""K1/K1b: the fused image->disparity kernel (csrc/fused.cu), K4/K4b: the
 image->cost-volume kernel (csrc/costrows.cu), and their plain versions.
 
 K1 replaces `deepmatching_stereo_matching_tpu/ops/fused_pallas.py:_kernel`
-(via `_match_rows` / `match_rows`) in its patch form, K1b in its magbin
-form (grad_hist descriptors as (magnitude, bin) plane pairs); K4 replaces
+(via `_match_rows` / `match_rows`; here `match_planes`) in its patch
+form, K1b in its magbin form (grad_hist descriptors as (magnitude, bin)
+plane pairs, which `pipeline.one_direction` builds); K4 replaces
 `fused_pallas.py:_cost_only_kernel` (via `cost_volume_rows`), the
-large-D route's prologue.  The TPU kernels' selection-matmul phasing and
+large-D route's prologue; K4b is K4 in the magbin form, for grad_hist
+past K1b's block (the TPU package sends grad_hist there to its descriptor
+route).  The TPU kernels' selection-matmul phasing and
 split-bf16 scheme were workarounds for Mosaic and the MXU, so
 `Config.fused_dot_precision` is accepted and ignored: the kernels read
-pixels directly in f32.  K1/K1b and K4 compile one cost block,
-csrc/cost.cuh (K4's volume is K1's bitwise witness); what bounds each on
-the card: see the notes at the top of the .cu files.
+pixels directly in f32.  K1/K1b and K4/K4b compile one cost block,
+csrc/cost.cuh (K4's volume is K1's bitwise witness, K4b's K1b's); what
+bounds each on the card: see the notes in the .cu files.
 
-Config.dtype='bfloat16' (K1, K1b and K4): the planes stay float32 and
+Config.dtype='bfloat16' (K1, K1b, K4 and K4b): the planes stay float32 and
 the float32 cost is rounded to bfloat16 once, after the relu and the mask
 (fused_pallas.py:_cost_block's `c.astype(dtype)`, in the patch and the
-magbin form).  K4 then stores a bfloat16 volume, bitwise its float32
+magbin form).  K4/K4b then store a bfloat16 volume, bitwise its float32
 volume rounded; K1/K1b pool the rounded costs through a pyramid whose
 maps are rounded after each op (pyramid_cuda's plain versions define the
 rounding), with the fast rectification in float32 at lam as given, and
@@ -32,8 +35,6 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import Config, Geometry
-
-from ..models import descriptors
 from . import _build
 from ._dispatch import map_dtype, run_kernel
 from .pyramid_cuda import (MAX_SMEM, arg_bytes, level_floats, pyramid_body,
@@ -104,33 +105,48 @@ def cost_route_bytes(p: int, max_d: int) -> int:
     return 4 * (p * th * (lw + rw) + th * (rw - p + 1) + th * tw)
 
 
-def _cost_layout_bytes(p: int, max_d: int, th: int) -> int:
+def _cost_layout_bytes(p: int, max_d: int, th: int,
+                       magbin: bool = False) -> int:
     lw = p * COST_TILE_W
     right = _round_up(lw + _round_up(max_d - 1, 4), 4)
     rs, is_ = right | 4, ((right + 15) & ~31) + 16
-    return _round_up(4 * (p * th * (lw + rs) + th * is_), 16)
+    floats = _round_up(4 * (p * th * (lw + rs) + th * is_), 16)
+    if not magbin:
+        return floats
+    bins = p * th * (_round_up(lw, 16) + 4 * (_round_up(right // 4, 4) | 4))
+    return _round_up(floats + bins, 16)
 
 
-def cost_tile_rows(p: int, max_d: int) -> int:
-    """Patch rows of K4's tile: the first of COST_TILE_ROWS whose block
-    fits two per SM (the last, 1, otherwise)."""
+def cost_tile_rows(p: int, max_d: int, magbin: bool = False) -> int:
+    """Patch rows of K4's (K4b's) tile: the first of COST_TILE_ROWS whose
+    block fits two per SM (the last, 1, otherwise)."""
     return next((th for th in COST_TILE_ROWS
-                 if _cost_layout_bytes(p, max_d, th) <= TWO_PER_SM), 1)
+                 if _cost_layout_bytes(p, max_d, th, magbin) <= TWO_PER_SM),
+                1)
 
 
-def cost_smem_bytes(p: int, max_d: int) -> int:
+def cost_smem_bytes(p: int, max_d: int, magbin: bool = False) -> int:
     """Shared memory of one K4 block (csrc/costrows.cu:rows_layout): the
     tile's left pixel rows, the right strip from a 4-aligned column at a
-    stride of 4 mod 8 floats and its window norms at 16 mod 32.  A mirror
-    of `dm_cost_rows_smem`, which chip_smoke.py holds it to."""
-    return _cost_layout_bytes(p, max_d, cost_tile_rows(p, max_d))
+    stride of 4 mod 8 floats and its window norms at 16 mod 32; with
+    magbin, one K4b block: the same floats, then the bin planes as bytes,
+    left rows at a multiple of 16 bytes and the strip at 4 mod 8 words.
+    A mirror of `dm_cost_rows_smem` /
+    `dm_cost_rows_magbin_smem`, which chip_smoke.py holds it to."""
+    return _cost_layout_bytes(p, max_d, cost_tile_rows(p, max_d, magbin),
+                              magbin)
 
 
-def cost_blocks_per_sm(p: int, max_d: int, bf16: bool = False) -> int:
-    """Blocks of K4 (its float32 or bfloat16 instance) that one SM of the
-    current card holds at (p, max_d) (CUDA's occupancy calculator, through
-    `dm_cost_rows_blocks_per_sm`).  Needs the card."""
-    n = _build.library().dm_cost_rows_blocks_per_sm(p, max_d, int(bf16))
+def cost_blocks_per_sm(p: int, max_d: int, bf16: bool = False,
+                       magbin: bool = False) -> int:
+    """Blocks of K4 (K4b with magbin), its float32 or bfloat16 instance,
+    that one SM of the current card holds at (p, max_d) (CUDA's occupancy
+    calculator, through `dm_cost_rows_blocks_per_sm` /
+    `dm_cost_rows_magbin_blocks_per_sm`).  Needs the card."""
+    lib = _build.library()
+    fn = (lib.dm_cost_rows_magbin_blocks_per_sm if magbin
+          else lib.dm_cost_rows_blocks_per_sm)
+    n = fn(p, max_d, int(bf16))
     if n < 0:
         _build.check(-n, "cost-volume rows kernel occupancy")
     return n
@@ -170,12 +186,17 @@ def blocks_per_sm(cfg: Config, geom: Geometry) -> int:
 
 
 def cost_supported(cfg: Config, geom: Geometry) -> bool:
-    """True when K4 covers this configuration: patch descriptors, not
-    centred, and `cost_route_bytes` inside one block's shared memory (any
-    grid; ragged edges are masked).  Either dtype."""
-    return (cfg.descriptor == "patch" and not cfg.center_descriptors
-            and cost_route_bytes(cfg.patch_size, cfg.max_disparity)
-            <= MAX_SMEM)
+    """True when K4 (patch) or K4b (grad_hist) covers this configuration:
+    not centred, and inside one block's shared memory (any grid; ragged
+    edges are masked): for K4 `cost_route_bytes`, its earlier layout's
+    bytes, so that its routing stays as it was; for K4b its own layout,
+    `cost_smem_bytes(..., magbin=True)`.  Either dtype."""
+    if cfg.center_descriptors:
+        return False
+    p, max_d = cfg.patch_size, cfg.max_disparity
+    if _magbin(cfg):
+        return cost_smem_bytes(p, max_d, magbin=True) <= MAX_SMEM
+    return cost_route_bytes(p, max_d) <= MAX_SMEM
 
 
 def cost_volume_torch(left: torch.Tensor, right: torch.Tensor,
@@ -311,51 +332,63 @@ match_planes.magbin_launches = 0        # K1b, magbin form
 match_planes.magbin_bf16_launches = 0   # K1b, magbin form in bfloat16
 
 
-def match_rows(left_p: torch.Tensor, right_p: torch.Tensor, cfg: Config,
-               geom: Geometry) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(..., Hp, Wp) f32 padded pixel pairs -> (disp int32, score f32),
-    (..., H0, W0), one pair-direction per leading index.  For grad_hist
-    the (magnitude, bin) planes of both images are built here in torch
-    and run through K1b."""
-    if cfg.descriptor == "grad_hist":
-        lmag, lbin = descriptors.grad_hist_magbin(left_p)
-        rmag, rbin = descriptors.grad_hist_magbin(right_p)
-        return match_planes(lmag, rmag, cfg, geom, lbin, rbin)
-    return match_planes(left_p, right_p, cfg, geom)
-
-
 def cost_volume_rows(left_p: torch.Tensor, right_p: torch.Tensor,
-                     cfg: Config, geom: Geometry) -> torch.Tensor:
-    """(..., Hp, Wp) f32 padded pixel pairs -> (..., D0, H0, W0) D-major
-    cost volume in cfg.dtype through K4 (patch descriptors); in bfloat16
-    it is the float32 volume rounded."""
+                     cfg: Config, geom: Geometry,
+                     left_bin: Optional[torch.Tensor] = None,
+                     right_bin: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """(..., Hp, Wp) f32 padded planes -> (..., D0, H0, W0) D-major cost
+    volume in cfg.dtype: K4 on pixel pairs (patch), K4b on (magnitude,
+    bin) pairs (grad_hist; the bins are integers 0..7 held as f32, from
+    `descriptors.grad_hist_magbin`); in bfloat16 it is the float32 volume
+    rounded."""
     p, d0 = cfg.patch_size, geom.disparities
     *lead, hp, wp = left_p.shape
-    _check_pair(left_p, right_p, geom)
+    planes = [x for x in (left_p, right_p, left_bin, right_bin)
+              if x is not None]
+    for x in planes[1:]:
+        _check_pair(left_p, x, geom)
+    if ((left_bin is None) != (right_bin is None)
+            or (left_bin is not None) != _magbin(cfg)):
+        raise ValueError("bin planes come for both images exactly when "
+                         "descriptor='grad_hist'")
     dtype = map_dtype(cfg.dtype)
-    if not run_kernel(left_p, right_p):
-        return cost_volume_torch(left_p, right_p, cfg, geom).to(dtype)
-    _check_planes(left_p, right_p)
+    if not run_kernel(*planes):
+        return cost_volume_torch(left_p, right_p, cfg, geom, left_bin,
+                                 right_bin).to(dtype)
+    _check_planes(*planes)
     if not cost_supported(cfg, geom):
         raise NotImplementedError(
             f"the cost-volume kernel does not cover {cfg} at {geom}")
     n = math.prod(lead)
-    left = left_p.contiguous()
-    right = right_p.contiguous()
+    left, right = left_p.contiguous(), right_p.contiguous()
     out = torch.empty((*lead, d0, hp // p, wp // p), dtype=dtype,
                       device=left.device)
     if out.numel():
         stream = torch.cuda.current_stream(left.device).cuda_stream
-        rc = _build.library().dm_cost_rows(
-            left.data_ptr(), right.data_ptr(), out.data_ptr(), n, hp, wp, p,
-            d0, cfg.max_disparity, int(_bf16(cfg)), stream)
+        args = (out.data_ptr(), n, hp, wp, p, d0, cfg.max_disparity,
+                int(_bf16(cfg)), stream)
+        if left_bin is not None:
+            lbin, rbin = left_bin.contiguous(), right_bin.contiguous()
+            rc = _build.library().dm_cost_rows_magbin(
+                left.data_ptr(), right.data_ptr(), lbin.data_ptr(),
+                rbin.data_ptr(), *args)
+        else:
+            rc = _build.library().dm_cost_rows(left.data_ptr(),
+                                               right.data_ptr(), *args)
         _build.check(rc, "cost-volume rows kernel launch")
-        if _bf16(cfg):
+        if left_bin is not None and _bf16(cfg):
+            cost_volume_rows.magbin_bf16_launches += 1
+        elif left_bin is not None:
+            cost_volume_rows.magbin_launches += 1
+        elif _bf16(cfg):
             cost_volume_rows.bf16_launches += 1
         else:
             cost_volume_rows.launches += 1
     return out
 
 
-cost_volume_rows.launches = 0        # K4, float32 volume
-cost_volume_rows.bf16_launches = 0   # K4, bfloat16 volume
+cost_volume_rows.launches = 0               # K4, float32 volume
+cost_volume_rows.bf16_launches = 0          # K4, bfloat16 volume
+cost_volume_rows.magbin_launches = 0        # K4b, float32 volume
+cost_volume_rows.magbin_bf16_launches = 0   # K4b, bfloat16 volume

@@ -1,7 +1,8 @@
 """Where the time goes in the port's batched steps, on one CUDA device.
 
     python -m deepmatching_stereo_matching_tpu_torch.profile_steps \
-        [--cells bench,grad_hist,kitti128,kitti256] [--routes fused,exact] \
+        [--cells bench,grad_hist,kitti128,kitti256,kitti256gh] \
+        [--routes fused,exact] \
         [--steps 5] [--strategies tiled,dslab,ringd,wtiled,wtiled1] \
         [--dtype float32,bfloat16]
     python deepmatching_stereo_matching_tpu_torch/profile_steps.py --k1 \
@@ -21,7 +22,8 @@
 Cells (synthetic pairs made from seeds, `lr_mode="flip"`): bench
 (450x375, D=64, 32 pairs, bench.py's recipe), grad_hist (the same with
 grad_hist descriptors), kitti128 and kitti256 (1242x375 at D=128 x 8
-pairs and D=256 x 4 pairs, tools/bench_large.py's recipe).
+pairs and D=256 x 4 pairs, tools/bench_large.py's recipe), kitti256gh
+(kitti256 with grad_hist descriptors: the magbin planes, K4b -> K5).
 
 For each cell, dtype (`--dtype`, default float32; bfloat16 runs on every
 route) and route, `--steps` calls of `match_padded_core` run
@@ -117,6 +119,7 @@ CELLS = {  # name -> (height, width, max_disparity, descriptor, pairs, block, se
     "grad_hist": (375, 450, 64, "grad_hist", 32, 32, 100),
     "kitti128": (375, 1242, 128, "patch", 8, 48, 0),
     "kitti256": (375, 1242, 256, "patch", 4, 48, 0),
+    "kitti256gh": (375, 1242, 256, "grad_hist", 4, 48, 0),
 }
 STRATEGIES = {  # name -> (strategy, route, merge_level)
     "tiled": ("tiled", "fused", None),
@@ -870,6 +873,8 @@ SASS_KERNELS = {
     "fused_kernel": r"fused_kernelILi(\d+)ELb([01])ELb([01])E",
     "costvol_kernel": r"costvol_kernelILb([01])ELb([01])E(f|13__nv_bfloat16|)E",
     "costrows_kernel": r"costrows_kernelILi(\d+)E(f|13__nv_bfloat16)E",
+    "costrows_magbin_kernel":
+        r"costrows_magbin_kernelILi(\d+)E(f|13__nv_bfloat16)E",
     "pyramid_kernel": r"pyramid_kernel(?:ILb([01])E)?",
     "aggregate_kernel": r"aggregate_kernelILb([01])ELb([01])ELb([01])E",
     "stream_kernel": r"stream_kernelILi(\d+)E",

@@ -11,7 +11,7 @@ ROOFLINE.json under its names:
 
   full_step_fused     `pipeline.match_padded_core`, 'fused' (K1), as
                       `bench.step_mpxs` runs it; model `work.step_fused`;
-  fused_kernel        `fused_cuda.match_rows` on the 64 stacked
+  fused_kernel        `fused_cuda.match_planes` on the 64 stacked
                       directions (K1); model `work.k1`;
   descriptors_xla     `left_descriptors` + `right_sliding_descriptors` on
                       them (torch ops; seconds only; the name is the JAX
@@ -129,7 +129,7 @@ def fused_kernel(device: torch.device, *, height: int = H, width: int = W,
                  max_d: int = MAX_D, batch: int = BATCH,
                  repeats: int = REPEATS) -> dict:
     cfg, geom, lp, rp = _setup(device, height, width, max_d, batch)
-    row = _timed(lambda a, b: fused_cuda.match_rows(a, b, cfg, geom),
+    row = _timed(lambda a, b: fused_cuda.match_planes(a, b, cfg, geom),
                  _directions(lp, rp), device, repeats)
     return _modelled(row, work.k1(cfg, geom, 2 * batch), 2 * batch, device)
 

@@ -10,12 +10,12 @@ the design:
   * bytes: each input of the function read once and each output written
     once, at the sizes of the TPU kernel's signature, which the port's
     kernels share: padded pixel planes (K1, K4), (magnitude, bin) planes
-    (K1b), (H0, W0, C) and (H0, Wp, C) descriptors (K2, K6), the D-major
-    (D0, H0, W0) volume (K3, K5), (H0, W0) disparity int32 and score
-    float32 maps;
+    (K1b, K4b), (H0, W0, C) and (H0, Wp, C) descriptors (K2, K6), the
+    D-major (D0, H0, W0) volume (K3, K5), (H0, W0) disparity int32 and
+    score float32 maps;
   * operations: the correlation over min(max_disparity, D0) bins, 2 C a
     bin on descriptors of width C (p^2, or 8 p^2 for grad_hist); on
-    (magnitude, bin) planes (K1b) the one-hot histogram leaves p^2
+    (magnitude, bin) planes (K1b, K4b) the one-hot histogram leaves p^2
     multiply-adds and p^2 compares of the two bins a bin; per cell of each
     level above 0 the 3-pool (2 max), the 4-child mean (3 add, 1 mul) and
     the power (1); the walk down: the top level's argmax (D0 / 2^L - 1
@@ -28,8 +28,9 @@ Its MXU terms (`sel`, `m2c`, `r2`, `invr`, `dcomp`, tools/roofline.py:
 96-104) count Mosaic's phasing matmuls, which the port does not run, and
 have no counterpart here.  K1 is K4's correlation plus K3's aggregation
 and walk down on the same volume; K1b is the same on (magnitude, bin)
-planes; K6 is K2's function in the row layout; K5's exact and fast modes
-compute the same function to different roundings.  `bound(work)` is the
+planes, and K4b K4's correlation on them; K6 is K2's function in the row
+layout; K5's exact and fast modes compute the same function to different
+roundings.  `bound(work)` is the
 larger of the bytes over the memory rate and the operations over the
 peak: the least time the card could take.
 """
@@ -202,6 +203,23 @@ def k4(cfg: Config, geom: Geometry, n: int) -> Work:
     return Work({"imgs": _planes(geom, n),
                  "vol": _volume(geom, n, _elem(cfg, None))},
                 correlation_ops(cfg, geom, n))
+
+
+def k4b(cfg: Config, geom: Geometry, n: int) -> Work:
+    """K4b: (magnitude, bin) planes -> the D-major volume in cfg.dtype.
+    Counted as K1b counts its planes and correlation: four float32 padded
+    planes an instance in (the magnitudes and the bins, as the kernel
+    takes them), the volume out once, and a bin's p^2 multiply-adds (2
+    each) and p^2 bin compares (1 each) over the bins below
+    max_disparity.  The bins count 4 bytes a pixel because the kernel is
+    given them as float32 planes (`descriptors.grad_hist_magbin`): a
+    tenth of the bytes at KITTI D=256.  A uint8 bin plane would
+    lower the bound at the 32-pair KITTI D=256 step's 64 instances from
+    0.9015 to 0.8339 ms (f32 volume), or from 0.5409 to 0.4733 ms (bf16);
+    count 1 byte once the plane build emits bytes."""
+    return Work({"imgs": _planes(geom, n), "bins": _planes(geom, n),
+                 "vol": _volume(geom, n, _elem(cfg, None))},
+                magbin_ops(cfg, geom, n))
 
 
 def k5(cfg: Config, geom: Geometry, n: int,

@@ -9,11 +9,14 @@ the window norm; at any other p it reads the staged pixels per cost.
 `fused_cuda.cost_smem_bytes` mirrors the block's layout (the library's
 `dm_cost_rows_smem` is held to it on the card by chip_smoke.py), and
 `fused_cuda.cost_route_bytes` keeps the earlier layout's bytes, on which
-`cost_supported` still routes.  These tests hold the routing to the
-earlier rule, the layout to two blocks per SM at every routed shape, and
-rebuild the plain volume exactly from a numpy emulation of the kernel's
-indexing: an off-by-one in the strip, the window's float4s or the masks
-shows here before a chip call does.  Nothing here needs a card.
+`cost_supported` still routes patch descriptors.  K4b, the same block
+on grad_hist (magnitude, bin) planes, stages the bin planes as bytes
+beside the floats and routes on its own layout.  These tests hold the
+routing to the earlier rule, the layouts to two blocks per SM at every
+routed shape, and rebuild the plain volume exactly from a numpy emulation
+of the kernel's indexing, in both forms: an off-by-one in the strip, the
+window's float4s, the bins or the masks shows here before a chip call
+does.  Nothing here needs a card.
 """
 
 import numpy as np
@@ -45,8 +48,9 @@ def _earlier_bytes(p, max_d):
 
 @pytest.mark.parametrize("p", [3, 4, 5, 6, 7, 8])
 def test_routing_takes_the_earlier_configurations(p):
-    """cost_supported takes exactly the configurations it took before,
-    over max_d 1-512 and levels 1-5; refuses grad_hist and centred."""
+    """cost_supported takes exactly the patch configurations it took
+    before, over max_d 1-512 and levels 1-5; takes grad_hist (K4b) where
+    its own layout fits a block; refuses centred descriptors."""
     taken = refused = 0
     for max_d in range(1, 513):
         for levels in range(1, 6):
@@ -61,10 +65,16 @@ def test_routing_takes_the_earlier_configurations(p):
             taken += earlier
             refused += not earlier
         if max_d in (1, 64, 256):
-            for kw in ({"descriptor": "grad_hist"},
-                       {"center_descriptors": True}):
+            for kw in ({"center_descriptors": True},
+                       {"descriptor": "grad_hist",
+                        "center_descriptors": True}):
                 cfg = Config(max_disparity=max_d, patch_size=p, **kw)
                 assert not fused_cuda.cost_supported(cfg, _geom(8, 8, p, 64))
+            cfg = Config(max_disparity=max_d, patch_size=p,
+                         descriptor="grad_hist")
+            assert fused_cuda.cost_supported(cfg, _geom(8, 8, p, 64)) == (
+                fused_cuda.cost_smem_bytes(p, max_d, magbin=True)
+                <= pyramid_cuda.MAX_SMEM)
     assert taken > 0
     assert refused == 0 or p >= 7   # p = 7, 8 outgrow a block at large max_d
 
@@ -129,13 +139,16 @@ def _inv_norm(sq):
     return np.float32(1.0) / np.maximum(np.sqrt(sq.astype(np.float32)), EPS)
 
 
-def emulate(left, right, p, d0, max_d):
+def emulate(left, right, p, d0, max_d, left_bin=None, right_bin=None):
     """The kernel's schedule in numpy: the (n, d0, h0, w0) volume and how
-    many times each bin was stored.  Integer pixels make every sum exact,
+    many times each bin was stored; with bin planes K4b's, whose products
+    count where the bins agree.  Integer pixels make every sum exact,
     so the float32 roundings left are the norms and relu(raw * il * ir)."""
     n, hp, wp = left.shape
     h0, w0 = hp // p, wp // p
-    th, tw = fused_cuda.cost_tile_rows(p, max_d), fused_cuda.COST_TILE_W
+    magbin = left_bin is not None
+    th = fused_cuda.cost_tile_rows(p, max_d, magbin)
+    tw = fused_cuda.COST_TILE_W
     lw = p * tw
     lead = -(-(max_d - 1) // 4) * 4
     width = -(-(lw + lead) // 4) * 4
@@ -153,6 +166,11 @@ def emulate(left, right, p, d0, max_d):
                 lt = _stage(left[b], p * y0, lx, p * th, lw).astype(np.int64)
                 rt = _stage(right[b], p * y0, rx0, p * th, width
                             ).astype(np.int64)
+                if magbin:      # bins as bytes; 0 outside the image
+                    lbt = _stage(left_bin[b], p * y0, lx, p * th, lw)
+                    rbt = _stage(right_bin[b], p * y0, rx0, p * th, width)
+                else:           # one bin everywhere: every product counts
+                    lbt, rbt = np.zeros_like(lt), np.zeros_like(rt)
                 col = (rt * rt).reshape(th, p, width).sum(1)
                 nwin = width - p + 1
                 invr = _inv_norm(sum(col[:, dc:dc + nwin] for dc in range(p)))
@@ -160,6 +178,7 @@ def emulate(left, right, p, d0, max_d):
                 live = (y0 + I < h0) & (jg < w0)
                 rows = p * I[..., None] + u                      # (th, tw, p)
                 L = lt[rows[..., None], (p * J)[..., None, None] + u]
+                LB = lbt[rows[..., None], (p * J)[..., None, None] + u]
                 il = _inv_norm((L * L).sum((-1, -2)))
 
                 def store(d, cost):
@@ -178,25 +197,31 @@ def emulate(left, right, p, d0, max_d):
                 if p != 4:                  # the runtime-p instance
                     for d in range(d0):
                         w = np.clip(p * J + lead - d, 0, nwin - 1)
-                        r = rt[rows[..., None], w[..., None, None] + u]
-                        store(d, scale((L * r).sum((-1, -2)), invr[I, w], d))
+                        at = (rows[..., None], w[..., None, None] + u)
+                        prod = L * rt[at] * (LB == rbt[at])
+                        store(d, scale(prod.sum((-1, -2)), invr[I, w], d))
                     continue
                 col0 = 4 * J + lead
-                win = lambda c0: rt[rows[..., None], c0[..., None, None] + u]
+
+                def win(plane, c0):
+                    return plane[rows[..., None], c0[..., None, None] + u]
+
                 ivc = invr[I, col0]
                 d4 = 0
                 while d4 < min(d0, max_d):
                     prev = d4 + 1 < max_d
                     col = col0 - d4
-                    cu = win(col)
-                    pv = win(col - 4) if prev else np.zeros_like(cu)
-                    w8 = np.concatenate([pv, cu], -1)
+                    w8, b8 = (np.concatenate([
+                        win(x, col - 4) if prev else np.zeros_like(
+                            win(x, col)), win(x, col)], -1)
+                        for x in (rt, rbt))
                     ip = (invr[I[..., None], col[..., None] - 4 + u] if prev
                           else np.zeros(I.shape + (4,), np.float32))
                     iv = [ivc, ip[..., 3], ip[..., 2], ip[..., 1]]
                     ivc = ip[..., 0]
                     for r in range(4):
-                        raw = (L * w8[..., 4 - r:8 - r]).sum((-1, -2))
+                        same = LB == b8[..., 4 - r:8 - r]
+                        raw = (L * w8[..., 4 - r:8 - r] * same).sum((-1, -2))
                         store(d4 + r, scale(raw, iv[r], d4 + r))
                     d4 += 4
                 while d4 < d0:
@@ -240,3 +265,36 @@ def test_schedule_rebuilds_the_plain_volume(n, h0, w0, p, d0, max_d):
                                       torch.from_numpy(right), cfg,
                                       _geom(h0, w0, p, d0))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,h0,w0,p,d0,max_d", SCHEDULES)
+def test_magbin_schedule_rebuilds_the_plain_volume(n, h0, w0, p, d0, max_d):
+    """K4b: the same schedule with the bin planes staged beside the
+    magnitudes stores every bin once and equals `cost_volume_torch` on
+    (magnitude, bin) planes (integer magnitudes, bins 0..7 drawn so that
+    about one product in eight counts).  Every sum is exact, so the two
+    differ only where a norm's square root rounds differently: this
+    torch build's CPU sqrt is off the correctly rounded value by an ulp
+    on some inputs (sqrt(267.0): numpy and the card's __fsqrt_rn agree,
+    torch does not), which the non-negative magnitudes reach.  So the
+    zeros (the masks) must coincide and the rest agree within 4 ulps; a
+    wrong strip column, bin or mask is off by far more."""
+    rng = np.random.default_rng(n * 1000 + h0 * w0 + p + d0 + 7)
+    mags = [rng.integers(0, 4, (n, h0 * p, w0 * p)).astype(np.float32)
+            for _ in range(2)]
+    bins = [rng.integers(0, 8, (n, h0 * p, w0 * p)).astype(np.float32)
+            for _ in range(2)]
+    vol, written = emulate(*mags, p, d0, max_d, *bins)
+    assert (written == 1).all()
+    cfg = Config(max_disparity=max_d, levels=1, patch_size=p,
+                 descriptor="grad_hist")
+    geom = _geom(h0, w0, p, d0)
+    planes = [torch.from_numpy(x) for x in mags + bins]
+    want = fused_cuda.cost_volume_torch(*planes[:2], cfg, geom,
+                                        *planes[2:]).numpy()
+    np.testing.assert_array_equal(vol == 0, want == 0)
+    np.testing.assert_allclose(vol, want, rtol=2.0 ** -21, atol=0)  # 4 ulps
+    got = fused_cuda.cost_volume_rows(*planes[:2], cfg, geom, *planes[2:])
+    np.testing.assert_array_equal(got.numpy(), want)
+    # and a bin plane that agreed everywhere would be K4's volume
+    assert not np.array_equal(vol, emulate(*mags, p, d0, max_d)[0])

@@ -118,8 +118,8 @@ def test_supported_covers_the_earlier_rule(p, descriptor):
 def test_large_d_at_four_levels_keeps_its_route(descriptor):
     """450x375 at max_disparity 192 with levels 4: the new block fits
     (139,104 B patch) where the earlier one did not (295,424 B), and the
-    pair still takes the route it took before (K4 for patch, `exact` for
-    grad_hist)."""
+    pair still takes the large-D route, not K1/K1b: K4 for patch, and
+    for grad_hist K4b (which took the place of the `exact` route there)."""
     cfg = Config(max_disparity=192, levels=4, descriptor=descriptor)
     geom = cfg.geometry(375, 450)
     assert (geom.levels, geom.disparities) == (4, 192)
@@ -130,7 +130,7 @@ def test_large_d_at_four_levels_keeps_its_route(descriptor):
         assert fused_cuda.smem_bytes(*shape) == 139104
         assert fused_cuda.route_bytes(*shape) == 295424
     assert not fused_cuda.supported(cfg, geom)
-    assert fused_cuda.cost_supported(cfg, geom) == (descriptor == "patch")
+    assert fused_cuda.cost_supported(cfg, geom)
 
 
 def test_kitti_still_takes_the_large_d_route():

@@ -245,7 +245,8 @@ def test_pyramid_misaligned_rejected():
 def test_kernel_coverage_gates_new_paths():
     """KITTI at D=128/256 needs the large-D route (K1 and K3 tiles do not
     fit a block; K4's fixed tile does); grad_hist at the bench geometry
-    runs K1b, whose block holds the bin planes too."""
+    runs K1b, whose block holds the bin planes too (K4b's block would fit
+    there as well, but K1b comes first)."""
     for max_d in (128, 256):
         cfg = carry_over(Config(max_disparity=max_d))
         geom = cfg.geometry(375, 1242)
@@ -259,7 +260,7 @@ def test_kernel_coverage_gates_new_paths():
     gh = carry_over(Config(max_disparity=64, descriptor="grad_hist"))
     geom = gh.geometry(375, 450)
     assert fused_cuda.supported(gh, geom)
-    assert not fused_cuda.cost_supported(gh, geom)
+    assert fused_cuda.cost_supported(gh, geom)
     assert fused_cuda.smem_bytes(4, 64, 64, 4) == 72992
     assert fused_cuda.smem_bytes(4, 64, 64, 4, magbin=True) == 86304
 
@@ -296,8 +297,8 @@ def _fused_both(left, right, max_d, levels, p=4):
         jnp.asarray(left), jnp.asarray(right), p, d0, max_d, levels, cfg.lam,
         fused_pallas.dot_precision(cfg), "float32",
         fused_pallas.use_interpret())
-    gd, gs = fused_cuda.match_rows(t(left), t(right), carry_over(cfg),
-                                   _geom(h0, w0, p, d0, levels))
+    gd, gs = fused_cuda.match_planes(t(left), t(right), carry_over(cfg),
+                                     _geom(h0, w0, p, d0, levels))
     return (np.asarray(wd), np.asarray(ws)), (gd.numpy(), gs.numpy())
 
 
@@ -337,17 +338,18 @@ def test_plain_fused_batched_equals_single():
     pairs = [rand_pair(rng, 32, 64) for _ in range(3)]
     lb = t(np.stack([l for l, _ in pairs]))
     rb = t(np.stack([r for _, r in pairs]))
-    bd, bs = fused_cuda.match_rows(lb, rb, cfg, geom)
+    bd, bs = fused_cuda.match_planes(lb, rb, cfg, geom)
     for i, (l, r) in enumerate(pairs):
-        d, s = fused_cuda.match_rows(t(l), t(r), cfg, geom)
+        d, s = fused_cuda.match_planes(t(l), t(r), cfg, geom)
         np.testing.assert_array_equal(bd[i].numpy(), d.numpy())
         np.testing.assert_array_equal(bs[i].numpy(), s.numpy())
 
 
 @pytest.mark.parametrize("kind", ["patch", "grad_hist"])
 def test_plain_fused_magbin_matches_pallas(kind):
-    """Plain K1b (and K1 on the same pair) vs fused_pallas.match_rows in
-    interpret mode, at the JAX package's magbin test geometry."""
+    """Plain K1b (and K1 on the same pair), as `pipeline.one_direction`
+    runs it on the padded images, vs fused_pallas.match_rows in interpret
+    mode, at the JAX package's magbin test geometry."""
     h, w, max_d = 96, 128, 16
     cfg = Config(max_disparity=max_d, descriptor=kind)
     geom = cfg.geometry(h, w)
@@ -359,7 +361,9 @@ def test_plain_fused_magbin_matches_pallas(kind):
     wd, ws = fused_pallas.match_rows(jnp.asarray(lp), jnp.asarray(rp), cfg,
                                      geom)
     pcfg = carry_over(cfg)
-    gd, gs = fused_cuda.match_rows(t(lp), t(rp), pcfg, pcfg.geometry(h, w))
+    pgeom = pcfg.geometry(h, w)
+    assert fused_cuda.supported(pcfg, pgeom)
+    gd, gs = pipeline.one_direction(t(lp), t(rp), pcfg, pgeom, "fused")
     np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
     np.testing.assert_allclose(gs.numpy(), np.asarray(ws), rtol=1e-4,
                                atol=1e-5)

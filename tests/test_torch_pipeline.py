@@ -236,7 +236,7 @@ def test_profile_steps_needs_a_card(monkeypatch, capsys):
     assert profile_steps.main(["--cells", "kitti128"]) == 2
     assert "needs a CUDA device" in capsys.readouterr().err
     assert set(profile_steps.CELLS) == {"bench", "grad_hist", "kitti128",
-                                        "kitti256"}
+                                        "kitti256", "kitti256gh"}
 
 
 def test_kernel_modules_import_without_nvcc():
@@ -400,7 +400,7 @@ def test_new_paths_api_match_oracle(route, path):
 @pytest.mark.parametrize("path,route,called", [
     ("large_d", "fused", ["cost_volume_rows", "aggregate_dmajor(fast)"]),
     ("large_d", "exact", ["cost_volume_dmajor", "aggregate_dmajor(exact)"]),
-    ("grad_hist", "fused", ["match_rows"]),
+    ("grad_hist", "fused", ["match_planes"]),
     ("grad_hist", "exact", ["cost_volume_dmajor", "pyramid_backtrack"]),
     ("direct", "fused", ["cost_volume_dmajor", "pyramid_backtrack"] * 2),
 ])
@@ -421,7 +421,7 @@ def test_routes_pick_kernels_by_config(monkeypatch, path, route, called):
             return real(*a, **kw)
         monkeypatch.setattr(mod, name, wrapped)
 
-    spy(fused_cuda, "match_rows")
+    spy(fused_cuda, "match_planes")
     spy(fused_cuda, "cost_volume_rows")
     spy(costvol_cuda, "cost_volume_dmajor")
     spy(pyramid_cuda, "pyramid_backtrack")

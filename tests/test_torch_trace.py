@@ -1,7 +1,7 @@
 """The port's own profiler spans (`utils/logging.span`) on the CPU.
 
 Each entry point (the stream, the API, the step, and the step on the
-large-D route) records its stages as `dm.` ranges under a CPU-only
+large-D route, patch and grad_hist) records its stages as `dm.` ranges under a CPU-only
 `torch.profiler`, nested as the stages are; the outputs are bitwise the
 same with the profiler on and off; each span is a profiler op, not a
 user annotation, so a CUDA trace holds no device-side range of it; a call
@@ -44,6 +44,9 @@ LARGE_D_MATCH = ["dm.pipeline.cost", "dm.pipeline.aggregate",
                  "dm.pipeline.walk"]
 # (height, width, max_disparity): K1's plain version; K4 -> K5's.
 SIZES = {"k1": (48, 64, 16), "large_d": (128, 320, 256)}
+# grad_hist's fused routes build the (magnitude, bin) planes first.
+PLANES = ["dm.pipeline.planes"]
+MAGBIN_MATCH = PLANES + LARGE_D_MATCH
 
 
 def _pairs(n, h, w, d):
@@ -94,10 +97,10 @@ def _api(tmp_path):
     return run, ["dm.api.match_stereo"], []
 
 
-def _step(size):
+def _step(size, descriptor="patch"):
     def case(tmp_path):
         h, w, d = SIZES[size]
-        cfg = Config(max_disparity=d)
+        cfg = Config(max_disparity=d, descriptor=descriptor)
         geom = cfg.geometry(h, w)
         assert fused_cuda.supported(cfg, geom) == (size == "k1")
         pairs = _pairs(2, h, w, d)
@@ -108,8 +111,12 @@ def _step(size):
         def run():
             return _host(pipeline.match_padded_core(lp, rp, cfg, geom,
                                                     "fused"))
-        return run, ["dm.pipeline.step"], (LARGE_D_MATCH if size == "large_d"
-                                           else [])
+        if size == "k1":
+            return run, ["dm.pipeline.step"], (
+                PLANES if descriptor == "grad_hist" else [])
+        assert fused_cuda.cost_supported(cfg, geom)
+        return run, ["dm.pipeline.step"], (
+            MAGBIN_MATCH if descriptor == "grad_hist" else LARGE_D_MATCH)
     return case
 
 
@@ -143,8 +150,11 @@ def _check_nesting(node, match_children):
 
 
 @pytest.mark.parametrize("entry", [_stream, _api, _step("k1"),
-                                   _step("large_d")],
-                         ids=["stream", "api", "step", "step_large_d"])
+                                   _step("k1", "grad_hist"),
+                                   _step("large_d"),
+                                   _step("large_d", "grad_hist")],
+                         ids=["stream", "api", "step", "step_grad_hist",
+                              "step_large_d", "step_large_d_grad_hist"])
 def test_entry_point_spans(entry, tmp_path, monkeypatch):
     run, roots, match_children = entry(tmp_path)
     real = dm_log._op_range
