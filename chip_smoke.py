@@ -123,6 +123,13 @@ Phases, each printing its own lines (any failure exits nonzero):
      the grad_hist KITTI step launching exactly K4b and K5 (and their bf16
      instances), within the fused gate of the oracle; K4b's event time
      beside work.k4b's bound;
+  3g. PLANES, grad_hist's (magnitude, bin) planes (`planes_phase`, its
+     two instances' registers with no spills): at PLANES_SHAPES and on a
+     transposed view bitwise its plain version, one launch a call; its
+     event and device time at the grad_hist KITTI step's 128 images
+     beside work.magbin_planes's bound and the plain torch build's time
+     on the card; PLANES is counted on every path but held to no path's
+     set of kernels;
   4. main path through `api.match_stereo` against the NumPy oracle: two
      bench pairs (patch: 'fused' within the bench's 0.5% decision gate,
      'exact' bitwise on decisions), one KITTI pair at D=128 (the
@@ -232,8 +239,8 @@ exact mode over the wrapper's `exact_launches`;
 K1, K1b, K2 (C=16 and C=128), K3, K4 and K5 bf16 rows of their own, each
 with its own launch count;
 library_ms the yardstick where there is one; K5's rows with device_ms,
-P3's with issue_ceiling_ms, PREP's with numpy_ms; `roofline`: phase 8's
-headline and rows),
+P3's with issue_ceiling_ms, PREP's with numpy_ms, PLANES's with
+device_ms; `roofline`: phase 8's headline and rows),
 and as the last line {"ok": true, "device": {...}}.  Needs one CUDA
 device; imports nothing of JAX or the JAX package.
 """
@@ -286,6 +293,11 @@ STREAM_PAIRS, STREAM_TAIL = 69, 5       # two batches of BATCH and a tail
 PREP_SHAPES = ((BATCH, H, W, 3, 384, 512), (1, KH, KW, 3, 384, 1536),
                (3, 37, 53, 4, 48, 66), (2, 37, 53, 1, 40, 64))
 PREP_SETS = 4      # distinct input batches cycled while timed: 65 MB > L2
+# The planes kernel's stacks (csrc/planes.cu), (..., H, W): the grad_hist
+# KITTI step's two stacks as one (128 images of 384 x 1536; timed there),
+# Middlebury's, H or W of 2, a ragged width, several leading dimensions.
+PLANES_SHAPES = ((128, 384, 1536), (64, 384, 512), (3, 2, 40), (3, 40, 2),
+                 (5, 29, 53), (2, 3, 17, 36))
 PROBE_SASS = {"P1": "stream_kernelILi384", "P2": "stream_kernelILi96",
               "P3": "shift_kernel"}
 PROBE_NAMES = {"P1": "stream", "P2": "small", "P3": "shift"}
@@ -864,6 +876,84 @@ def k4b_phase(run_path, dev, card, rows):
     print(flush=True)
 
 
+def planes_images(rng, shape):
+    """float32 images of `shape` (..., H, W) in stripes of 8 columns:
+    halves in [-1, 1] (flat runs, |gx| == |gy|, gx or gy exactly 0),
+    +0.0 and -0.0 mixed, uniform noise."""
+    kinds = [(rng.integers(-2, 3, shape) / 2).astype(np.float32),
+             np.where(rng.random(shape) < 0.5, np.float32(-0.0),
+                      np.float32(0.0)),
+             rng.random(shape, dtype=np.float32)]
+    stripe = (np.arange(shape[-1]) // 8) % len(kinds)
+    return np.choose(np.broadcast_to(stripe, shape), kinds).astype(np.float32)
+
+
+def planes_phase(run_path, dev, card, rows):
+    """3g: PLANES (csrc/planes.cu), grad_hist's (magnitude, bin) planes,
+    at PLANES_SHAPES and on a transposed view (not contiguous): bitwise
+    the plain version
+    (`descriptors.grad_hist_magbin_torch` on the CPU), one launch a call;
+    at the grad_hist KITTI step's 128 images of 384 x 1536 (two inputs of
+    302 MB cycled, past the L2) its event time, its device time and the
+    step's two 64-image calls, beside work.magbin_planes's bound and the
+    plain version's time on the card."""
+    import torch
+    from deepmatching_stereo_matching_tpu_torch import work
+    from deepmatching_stereo_matching_tpu_torch.models import descriptors
+    from deepmatching_stereo_matching_tpu_torch.ops import planes_cuda
+    from deepmatching_stereo_matching_tpu_torch.profile_steps import device_ms
+
+    rng = np.random.default_rng(19)
+    err = 0.0       # the largest |kernel - plain| over both planes
+    for shape, view in [(x, False) for x in PLANES_SHAPES] + [
+            ((4, 48, 64), True)]:
+        img = torch.from_numpy(planes_images(rng, shape))
+        src = img.to(dev)
+        if view:
+            img, src = img.transpose(-1, -2), src.transpose(-1, -2)
+        label = f"planes {shape}{' transposed' if view else ''}"
+        got = run_path(label, set(),
+                       lambda: descriptors.grad_hist_magbin(src))
+        calls = planes_cuda.magbin_planes.launches    # zeroed by run_path
+        same = True
+        for g, w_ in zip(got, descriptors.grad_hist_magbin_torch(img)):
+            g, w_ = g.cpu().numpy(), w_.numpy()
+            err = max(err, float(np.abs(g - w_).max()))
+            same = same and np.array_equal(g.view(np.uint32),
+                                           w_.view(np.uint32))
+        print(f"{label}: PLANES bitwise its plain version {same}; {calls} "
+              f"launches")
+        require(same, f"{label}: PLANES differs from its plain version: "
+                f"max |err| {err}")
+        require(calls == 1, f"PLANES launched {calls} kernels a call, not 1")
+    shape = PLANES_SHAPES[0]
+    sets = [torch.from_numpy(planes_images(rng, shape)).to(dev)
+            for _ in range(2)]
+    order = iter(range(10 ** 9))
+
+    def call():
+        return descriptors.grad_hist_magbin(sets[next(order) % 2])
+    ms = cuda_ms(torch, call, 20, warmup=2)
+    dev_ms = device_ms(torch, call, planes_cuda.KERNEL, 20)
+    half = shape[0] // 2
+    step_ms = cuda_ms(torch, lambda: [descriptors.grad_hist_magbin(x) for x
+                                      in sets[next(order) % 2].split(half)],
+                      20, warmup=2)
+    plain_ms = cuda_ms(torch, lambda: descriptors.grad_hist_magbin_torch(
+        sets[next(order) % 2]), 5)
+    model = work.magbin_planes(*shape)
+    bound_ms = work.bound(model)[0] * 1e3
+    print(f"PLANES {shape}: {ms:.4f} ms a call, device {dev_ms:.4f} ms "
+          f"(profiler), as the step's two calls of {half} {step_ms:.4f} ms; "
+          f"bound {bound_ms:.4f} ms (bytes), {ms / bound_ms:.2f}x; the plain "
+          f"torch build on the card {plain_ms:.4f} ms {card}")
+    require(bound_ms / ms <= work.MERGED_WORK,
+            f"PLANES above {work.MERGED_WORK} of its bound")
+    rows["PLANES"] = dict(err=err, ms=ms, plain=plain_ms, work=model,
+                          device_ms=dev_ms)
+    print(flush=True)
+
+
 def bench_phase(run_path, dev, card, card_line):
     """7: the port's bench rows (`bench.py`, `tools/bench_large.py`) in this
     process, each a path of its own with its gates; then the bench in its
@@ -1054,8 +1144,8 @@ def main():
     from deepmatching_stereo_matching_tpu_torch.models import descriptors
     from deepmatching_stereo_matching_tpu_torch.models import pipeline
     from deepmatching_stereo_matching_tpu_torch.ops import (
-        _build, costvol, costvol_cuda, fused_cuda, pool, prep_cuda,
-        probe_cuda, pyramid_cuda)
+        _build, costvol, costvol_cuda, fused_cuda, planes_cuda, pool,
+        prep_cuda, probe_cuda, pyramid_cuda)
     from deepmatching_stereo_matching_tpu_torch.parallel import (
         launch, mesh as mesh_lib, runner, sharded, wtiled)
     from deepmatching_stereo_matching_tpu_torch import work
@@ -1147,6 +1237,16 @@ def main():
     require(len(magbin_ptxas) == 4 and all(
         v[1] == 0 and v[2] == 0 for v in magbin_ptxas.values()),
         f"costrows_magbin_kernel missing or spilling: {magbin_ptxas}")
+    # magbin_planes_kernel<16-byte form> (PLANES).
+    planes_ptxas = ptxas(_build.build_log(), r"magbin_planes_kernelILb([01])E",
+                         lambda m: m.group(1) == "1")
+    for vec, (regs, spill_st, spill_ld) in sorted(planes_ptxas.items()):
+        print(f"magbin_planes_kernel<{'16' if vec else '4'}-byte>: {regs} "
+              f"registers, spill stores {spill_st} B, spill loads "
+              f"{spill_ld} B")
+    require(len(planes_ptxas) == 2 and all(
+        v[1] == 0 and v[2] == 0 for v in planes_ptxas.values()),
+        f"magbin_planes_kernel missing or spilling: {planes_ptxas}")
     # The probes: a spill would add local loads to the measured mix.
     probe_ptxas = ptxas(_build.build_log(),
                         r"(stream_kernelILi\d+E|shift_kernel)",
@@ -1459,11 +1559,15 @@ def main():
     fused_vs_plain("K1b bf16", lefts, rights, gh16, geom)
     for k in ("K1", "K1 bf16", "K1b", "K1b bf16"):
         rows[k]["blocks_per_sm"] = rows_occ[k]
-    planes_ms = cuda_ms(torch, lambda: (descriptors.grad_hist_magbin(lefts),
-                                        descriptors.grad_hist_magbin(rights)),
-                        10)
-    print(f"  K1b's (magnitude, bin) planes, built in torch before it: "
-          f"{planes_ms:.4f} ms per 64-instance call {card}")
+    planes_ms = cuda_ms(torch, lambda: (
+        descriptors.grad_hist_magbin_torch(lefts),
+        descriptors.grad_hist_magbin_torch(rights)), 10)
+    kernel_planes_ms = cuda_ms(torch, lambda: (
+        descriptors.grad_hist_magbin(lefts),
+        descriptors.grad_hist_magbin(rights)), 10)
+    print(f"  K1b's (magnitude, bin) planes before it, per 64-instance call: "
+          f"the plain torch build {planes_ms:.4f} ms, PLANES "
+          f"{kernel_planes_ms:.4f} ms {card}")
     # Small tiles (levels 2 and 3, where the 2x2 quads fill a warp only in
     # part), and the runtime-p instance (p 3 and 8).
     for h0, w0, max_d, levels, p in SMALL_TILES:
@@ -1979,7 +2083,8 @@ def main():
                 "P1": (probe_cuda.stream, "launches"),
                 "P2": (probe_cuda.small, "launches"),
                 "P3": (probe_cuda.shift, "launches"),
-                "PREP": (prep_cuda.gray_pad, "launches")}
+                "PREP": (prep_cuda.gray_pad, "launches"),
+                "PLANES": (planes_cuda.magbin_planes, "launches")}
     path_launches = {}
 
     def reset_counts():
@@ -2004,7 +2109,9 @@ def main():
         sync()
         counts = read_counts()
         path_launches[label] = counts
-        launched = {k for k in counters if counts[k] > 0}
+        # PLANES is counted on every path and held to one launch a call by
+        # phase 3g, not to each path's set.
+        launched = {k for k in counters if counts[k] > 0} - {"PLANES"}
         calls = pyramid_cuda.aggregate_dmajor.calls
         print(f"launch counts [{label}]: {counts}"
               + (f"; aggregate_dmajor calls {calls}" if calls else ""))
@@ -2111,6 +2218,8 @@ def main():
     prep_phase(run_path, dev, card, rows)
     # 3f. K4b: grad_hist's large-D cost volume.
     k4b_phase(run_path, dev, card, rows)
+    # 3g. PLANES: grad_hist's (magnitude, bin) planes.
+    planes_phase(run_path, dev, card, rows)
 
     # 4. Main path through the public API, against the oracle.
     kcfg = kitti[128][0]
@@ -2811,6 +2920,10 @@ def main():
                "tools/vpu_ceiling.py:165"),
         "PREP": ("PREP grayscale and zero pad of raw uint8 images",
                  "csrc/prep.cu", "none: the JAX package pads on the host"),
+        "PLANES": ("PLANES grad_hist (magnitude, bin) planes",
+                   "csrc/planes.cu",
+                   "none: the JAX package builds the planes in XLA "
+                   "(models/descriptors.py: magbin_from_gradients)"),
     }
     regs = {"K1": fused_ptxas.get((4, "patch", "f32")),
             "K1 KITTI": fused_ptxas.get((4, "patch", "f32")),
@@ -2827,6 +2940,7 @@ def main():
             "K4 bf16": rows_ptxas.get("costrows_kernelILi4Ebf16E"),
             "K4b": magbin_ptxas.get("costrows_magbin_kernelILi4EfE"),
             "K4b bf16": magbin_ptxas.get("costrows_magbin_kernelILi4Ebf16E"),
+            "PLANES": planes_ptxas.get(True),
             "K5": rows_ptxas.get("aggregate_kernelILb0ELb1ELb1E"),
             "K5 exact": rows_ptxas.get("aggregate_kernelILb0ELb1ELb0E"),
             "K5 bf16": rows_ptxas.get("aggregate_kernelILb1ELb1ELb1E")}

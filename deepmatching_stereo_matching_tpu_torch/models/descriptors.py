@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Config
+from ..ops import planes_cuda
+from ..ops._dispatch import run_kernel
 
 _EPS = 1e-8
 _BINS = 8
@@ -64,6 +66,13 @@ def grad_hist_pixels(img: torch.Tensor) -> torch.Tensor:
     return hist_from_gradients(*_gradients(img))
 
 
+def grad_hist_magbin_torch(img: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `grad_hist_magbin`, in torch operations."""
+    mag, idx = magbin_from_gradients(*_gradients(img))
+    return mag, idx.to(mag.dtype)
+
+
 def grad_hist_magbin(img: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., H, W) image -> (magnitude, bin) planes, both f32 (bins 0..7).
@@ -71,9 +80,12 @@ def grad_hist_magbin(img: torch.Tensor
     The one-hot histogram has one nonzero bin per pixel, so it factors
     losslessly into these two planes, and the descriptor dot becomes
     mag_L * mag_R * [bin_L == bin_R]: the fused kernel's magbin form.
+    A CUDA tensor takes the planes kernel (`planes_cuda.magbin_planes`,
+    one launch), a CPU one the plain version; both give the same bits.
     """
-    mag, idx = magbin_from_gradients(*_gradients(img))
-    return mag, idx.to(mag.dtype)
+    if run_kernel(img):
+        return planes_cuda.magbin_planes(img)
+    return grad_hist_magbin_torch(img)
 
 
 def pixel_features(img: torch.Tensor, cfg: Config) -> torch.Tensor:

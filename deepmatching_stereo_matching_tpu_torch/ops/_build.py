@@ -89,6 +89,8 @@ _SIGNATURES = {
     "dm_probe_shift_grid": [_I],
     # src, flags, out, n, h, w, c, hp, wp, slices, stream
     "dm_gray_pad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # img, mag, bin, n, h, w, stream
+    "dm_magbin_planes": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -258,6 +258,17 @@ def gray_pad(n: int, height: int, width: int, channels: int, hp: int,
                  "planes": n * hp * wp * 4}, {})
 
 
+def magbin_planes(n: int, height: int, width: int) -> Work:
+    """grad_hist's plane build (csrc/planes.cu): n float32 (height, width)
+    images read once, their float32 magnitude and bin planes written once.
+    Its arithmetic (two gradients, a sum and the octant's compares, ~12
+    operations a pixel) is left out: at the peak it takes a 27th of the
+    bytes' time."""
+    pixels = n * height * width
+    return Work({"images": pixels * 4, "mag": pixels * 4, "bins": pixels * 4},
+                {})
+
+
 def step_fused(cfg: Config, geom: Geometry, batch: int) -> Work:
     """The bench step's function (`match_padded_core`, 'fused', LR flip):
     two padded float32 planes a pair in, the five padded maps a pair out,

@@ -1,0 +1,20 @@
+"""kernels.planes_ms.step: the device time of grad_hist's plane build
+kernel a step, in milliseconds: the profiler's device operations whose
+name holds its symbol, `magbin_planes_kernel`, which no other kernel's
+name contains, in the traced window, over the steps issued in it.  None
+where the trace holds none (no card, a patch cell, or a program that
+builds the planes in torch operations)."""
+
+from stereobench import tracing
+
+KERNEL = "magbin_planes_kernel"
+
+
+def read(rec):
+    trace = rec.trace
+    steps = len(trace.spans.get("step", []))
+    ops = tracing.clipped([(s, e) for name, s, e in trace.device_ops
+                           if KERNEL in name], 0.0, trace.window_s)
+    if not steps or not ops:
+        return None
+    return sum(e - s for s, e in ops) / steps * 1e3
