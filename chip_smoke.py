@@ -109,37 +109,36 @@ Phases, each printing its own lines (any failure exits nonzero):
      repetition; P3's blocks per SM and persistent grid, its registers,
      and its issue-rate ceiling (FP32 and shared-load warp-instructions
      at four per SM per clock of `nvidia-smi`'s clocks.max.sm);
-  3e. the prep kernel (PREP, csrc/prep.cu) at PREP_SHAPES (a stream
-     batch's side, a KITTI image, ragged RGBA into a padded width that is
-     not a multiple of 4, grayscale), lit and dark images mixed: bitwise
-     its plain version and the oracle's grayscale and pad, exactly two
-     launches a call; all 2^24 colours bitwise the oracle; its event time at the stream's side (inputs cycled
-     past the L2) beside its bytes bound, the plain version and NumPy;
+  3e. the prep kernel (PREP, csrc/prep.cu; `prep_phase`) at a stream
+     batch's side, a path of its own launching PREP alone: its event time
+     (inputs cycled past the L2) beside its bytes bound, the plain version
+     and NumPy;
   3f. K4b, the cost volume on grad_hist (magnitude, bin) planes
-     (`k4b_phase`): shared memory equal to fused_cuda's mirror and >= 2
-     blocks per SM at both KITTI ranges in both dtypes; within 2e-5 of
-     its plain version at KITTI D=256, on a ragged grid and at p 3 and 5,
-     bf16 bitwise that volume rounded; K1b's scores bitwise K4b's costs;
-     the grad_hist KITTI step launching exactly K4b and K5 (and their bf16
-     instances), within the fused gate of the oracle; K4b's event time
-     beside work.k4b's bound;
+     (`k4b_phase`): blocks per SM at KITTI D=256 in both dtypes; the
+     grad_hist KITTI D=256 step in each dtype a path of its own launching
+     exactly K4b and K5 (bf16: their bf16 instances), and timed; K4b's
+     event time beside work.k4b's bound;
   3g. PLANES, grad_hist's (magnitude, bin) planes (`planes_phase`, its
-     two instances' registers with no spills): at PLANES_SHAPES and on a
-     transposed view bitwise its plain version, one launch a call; its
-     event and device time at the grad_hist KITTI step's 128 images
-     beside work.magbin_planes's bound and the plain torch build's time
-     on the card; PLANES is counted on every path but held to no path's
-     set of kernels;
+     two instances' registers with no spills), a path of its own
+     launching PLANES alone: its event and device time
+     at the grad_hist KITTI step's 128 images beside work.magbin_planes's
+     bound and the plain torch build's time on the card; PLANES is
+     counted on every path but held to no path's set of kernels;
+  3h. the card tests (`card_tests_phase`): every tests/test_torch_*_card.py
+     in one pytest process of its own (--noconftest: tests/conftest.py
+     imports JAX), exit 0, every test passed and none skipped.  These
+     hold PREP, K4b and PLANES to their plain versions and the oracle; a
+     new kernel's card checks go there, and chip_smoke only times it;
   4. main path through `api.match_stereo` against the NumPy oracle: two
      bench pairs (patch: 'fused' within the bench's 0.5% decision gate,
      'exact' bitwise on decisions), one KITTI pair at D=128 (the
      tools/bench_large.py recipe: 'exact' raw_neq = valid_neq = 0,
      'fused' within the 0.5% gate and |d bad-rate| <= 0.005) and two bench
      pairs with grad_hist (both routes within the 0.5% gate); each path
-     and route runs with the launch counts set to 0 just before it, and
-     must launch exactly its kernels, K5 once per aggregate_dmajor call
-     (the wrapper's `calls`): bench K1 | K2, K3; KITTI K4, K5 |
-     K2, K5; grad_hist K1b | K2, K3 ('fused' | 'exact'); centred
+     and route runs with the launch counts (`_build.launches`) cleared
+     just before it, and must launch exactly its kernels: bench K1 | K2,
+     K3; KITTI K4, K5 | K2, K5 exact; grad_hist K1b | K2, K3 ('fused' |
+     'exact'); centred
      descriptors on bench pairs 100/101 ('fused': exactly K2, K3;
      raw_neq = valid_neq = 0) and on adversarial pairs (97x141, D=24,
      seeds 0, 1, 5; 'exact' and 'fused': K2, K3; raw_neq = valid_neq = 0,
@@ -164,7 +163,7 @@ Phases, each printing its own lines (any failure exits nonzero):
      this process) over synthetic pairs written to disk: the KITTI layout
      at 1242x375, 1241x376, 1224x370 and 1226x370 (16-bit PNG ground
      truth) at D=64 'fused' (K1 on the 96x384 grid), D=128 'fused' (K4,
-     K5) and 'exact' (K2, K5), D=256 'fused' with --save-disparity; the
+     K5) and 'exact' (K2, K5 exact), D=256 'fused' with --save-disparity; the
      Middlebury layout (two 450x375 scenes, ground truth x 4 in an 8-bit
      PGM, --gt-scale 0.25) at D=64 'fused' (K1) and 'exact' (K2, K3).
      Each run is a path of its own and must launch exactly its kernels,
@@ -187,7 +186,7 @@ Phases, each printing its own lines (any failure exits nonzero):
      (wtiled merge_level 1: decisions bitwise, scores rtol 1e-5, its
      merge levels running the torch pyramid); dslab and ringd raw_neq =
      valid_neq = 0 against the oracle; launch counts zeroed before each
-     strategy: tiled K1 ('direct': K2, K3), dslab K6, K5, ringd K6,
+     strategy: tiled K1 ('direct': K2, K3), dslab K6, K5 exact, ringd K6,
      wtiled(1) K6, wtiled(None) K2, K3; each again in bfloat16, as the JAX
      package runs it: tiled and wtiled(None) bitwise the unsharded bf16
      pipeline (K1 bf16, or K2 bf16 and K3 bf16), dslab, ringd and
@@ -235,12 +234,13 @@ of its bytes, each input read once and each output written once, over
 which forbid FMA;
 K2 also at C=128 and at KITTI D=256, rows of their own over K2's count;
 K1 at the KITTI grid over K1's count on the eval tool's D=64 path; K5's
-exact mode over the wrapper's `exact_launches`;
+exact mode over its own count, `K5 exact`;
 K1, K1b, K2 (C=16 and C=128), K3, K4 and K5 bf16 rows of their own, each
 with its own launch count;
 library_ms the yardstick where there is one; K5's rows with device_ms,
 P3's with issue_ceiling_ms, PREP's with numpy_ms, PLANES's with
-device_ms; `roofline`: phase 8's headline and rows),
+device_ms; PREP, K4b and PLANES carry no max_abs_err: their card tests
+hold them bitwise or within 2e-5; `roofline`: phase 8's headline and rows),
 and as the last line {"ok": true, "device": {...}}.  Needs one CUDA
 device; imports nothing of JAX or the JAX package.
 """
@@ -286,18 +286,13 @@ EARLIER_MS.update({"K5": 0.1826, "K5 bf16": 0.1944, "P3": 0.1100})
 # Centred descriptors on adversarial (tie-heavy, flat-window) pairs.
 ADV_HW, ADV_D, ADV_SEEDS = (97, 141), 24, (0, 1, 5)
 STREAM_PAIRS, STREAM_TAIL = 69, 5       # two batches of BATCH and a tail
-# The prep kernel's shapes (csrc/prep.cu), (images, H, W, C, Hp, Wp); C 1
-# is (images, H, W): a side of a stream batch, one KITTI image, then small
-# ragged ones: RGBA into a padded width that is not a multiple of 4 (its
-# 4-byte stores) and grayscale.
-PREP_SHAPES = ((BATCH, H, W, 3, 384, 512), (1, KH, KW, 3, 384, 1536),
-               (3, 37, 53, 4, 48, 66), (2, 37, 53, 1, 40, 64))
+# The prep kernel's timed shape (csrc/prep.cu), (images, H, W, C, Hp, Wp):
+# a side of a stream batch.
+PREP_SHAPE = (BATCH, H, W, 3, 384, 512)
 PREP_SETS = 4      # distinct input batches cycled while timed: 65 MB > L2
-# The planes kernel's stacks (csrc/planes.cu), (..., H, W): the grad_hist
-# KITTI step's two stacks as one (128 images of 384 x 1536; timed there),
-# Middlebury's, H or W of 2, a ragged width, several leading dimensions.
-PLANES_SHAPES = ((128, 384, 1536), (64, 384, 512), (3, 2, 40), (3, 40, 2),
-                 (5, 29, 53), (2, 3, 17, 36))
+# The planes kernel's timed stack (csrc/planes.cu): the grad_hist KITTI
+# step's two stacks as one, 128 images of 384 x 1536.
+PLANES_STACK = (128, 384, 1536)
 PROBE_SASS = {"P1": "stream_kernelILi384", "P2": "stream_kernelILi96",
               "P3": "shift_kernel"}
 PROBE_NAMES = {"P1": "stream", "P2": "small", "P3": "shift"}
@@ -313,7 +308,7 @@ EVAL_RUNS = (("kitti", 64, "fused", 4, ()),
              ("middlebury", 64, "exact", 2, ("--gt-scale", "0.25")))
 EVAL_KERNELS = {("kitti", 64, "fused"): {"K1"},
                 ("kitti", 128, "fused"): {"K4", "K5"},
-                ("kitti", 128, "exact"): {"K2", "K5"},
+                ("kitti", 128, "exact"): {"K2", "K5 exact"},
                 ("kitti", 256, "fused"): {"K4", "K5"},
                 ("middlebury", 64, "fused"): {"K1"},
                 ("middlebury", 64, "exact"): {"K2", "K3"}}
@@ -614,21 +609,12 @@ def prep_batch(rng, n, h, w, c):
     return raw
 
 
-def every_colour():
-    """All 2^24 RGB values as 8 uint8 images of 8192 x 256 x 3: image i
-    holds red 32 i to 32 i + 31, every green and every blue."""
-    r = np.arange(256, dtype=np.uint8)
-    return np.stack([
-        np.stack(np.meshgrid(r[lo:lo + 32], r, r, indexing="ij"), -1)
-        .reshape(32 * 256, 256, 3) for lo in range(0, 256, 32)])
-
-
 def prep_phase(run_path, dev, card, rows):
-    """3e: the prep kernel (PREP, csrc/prep.cu) at PREP_SHAPES, bitwise its
-    plain version and the oracle's grayscale and pad, two launches a call;
-    at a stream batch's side its event time, its kernels' device time and
-    its time as the host issues it, beside the host's NumPy path and the
-    plain version."""
+    """3e: the prep kernel (PREP, csrc/prep.cu) at a stream batch's side,
+    a path of its own (PREP alone): its event time, its kernels' device time and its time as the host
+    issues it, beside the host's NumPy path and the plain version.
+    tests/test_torch_prep_card.py holds it bitwise to its plain version
+    and the oracle."""
     import torch
     from types import SimpleNamespace
     from deepmatching_stereo_matching_tpu_torch import work
@@ -637,50 +623,14 @@ def prep_phase(run_path, dev, card, rows):
     from deepmatching_stereo_matching_tpu_torch.profile_steps import device_ms
 
     rng = np.random.default_rng(17)
-    err = 0.0       # the largest |kernel - plain or oracle| over the checks
-    for n, h, w, c, hp, wp in PREP_SHAPES:
-        raw = prep_batch(rng, n, h, w, c)
-        geom = SimpleNamespace(padded_height=hp, padded_width=wp)
-        want = np.stack([oracle.pad_image(oracle.to_grayscale_f32(x), geom)
-                         for x in raw])
-        plain = prep_cuda.gray_pad(torch.from_numpy(raw), hp, wp).numpy()
-        src = torch.from_numpy(raw).to(dev)
-        got = run_path(f"prep {n}x{h}x{w}x{c}", {"PREP"},
-                       lambda: prep_cuda.gray_pad(src, hp, wp))
-        got = got.cpu().numpy()
-        calls = prep_cuda.gray_pad.launches
-        err = max(err, float(np.abs(got - plain).max()),
-                  float(np.abs(got - want).max()))
-        same = (np.array_equal(got.view(np.uint32), plain.view(np.uint32))
-                and np.array_equal(got.view(np.uint32),
-                                   want.view(np.uint32)))
-        print(f"PREP {tuple(raw.shape)} -> {tuple(got.shape)}: bitwise its "
-              f"plain version and the oracle {same}; {calls} launches")
-        require(same, f"PREP {tuple(raw.shape)} differs: max |err| "
-                f"{float(np.abs(got - want).max())}")
-        require(calls == prep_cuda.LAUNCHES,
-                f"PREP launched {calls} kernels, not {prep_cuda.LAUNCHES}")
-    # Every one of the 2^24 colours: 8 lit images of 8192 x 256 x 3.
-    colours = every_colour()
-    src = torch.from_numpy(colours).to(dev)
-    got = run_path("prep every colour", {"PREP"},
-                   lambda: prep_cuda.gray_pad(src, *colours.shape[1:3]))
-    got = got.cpu().numpy()
-    grays = [oracle.to_grayscale_f32(x) for x in colours]
-    err = max([err] + [float(np.abs(g - x).max()) for g, x in zip(got, grays)])
-    same = all(np.array_equal(g.view(np.uint32), x.view(np.uint32))
-               for g, x in zip(got, grays))
-    print(f"PREP all 2^24 colours {tuple(colours.shape)}: bitwise the "
-          f"oracle's grayscale {same}")
-    require(same, "PREP differs from the oracle on some colour")
-    del src, got
-    n, h, w, c, hp, wp = PREP_SHAPES[0]
+    n, h, w, c, hp, wp = PREP_SHAPE
     host = [prep_batch(rng, n, h, w, c) for _ in range(PREP_SETS)]
     sets = [torch.from_numpy(x).to(dev) for x in host]
     order = iter(range(10 ** 9))
 
     def call():
         return prep_cuda.gray_pad(sets[next(order) % PREP_SETS], hp, wp)
+    run_path(f"prep {n}x{h}x{w}x{c}", {"PREP"}, call)
     # A call's host issue (two allocations, the ctypes launch) outlasts its
     # device time, so the timed calls queue behind a sleep kernel that
     # covers their issue: the events then time the device alone.
@@ -717,138 +667,40 @@ def prep_phase(run_path, dev, card, rows):
           f"issued {issue_ms:.4f} ms; bound {bound_ms:.4f} ms (bytes), "
           f"{ms / bound_ms:.2f}x; plain version {plain_ms:.1f} ms, the "
           f"host's NumPy grayscale and pad {numpy_ms:.1f} ms {card}")
-    rows["PREP"] = dict(err=err, ms=ms, plain=plain_ms, work=model,
-                        device_ms=dev_ms, numpy_ms=numpy_ms)
+    rows["PREP"] = dict(ms=ms, plain=plain_ms, work=model, device_ms=dev_ms,
+                        numpy_ms=numpy_ms)
     print(flush=True)
 
 
 def k4b_phase(run_path, dev, card, rows):
     """3f: K4b (csrc/costrows.cu: costrows_magbin_kernel), the cost volume
-    on grad_hist (magnitude, bin) planes.  Its shared memory per block as
-    the library computes it equal to `fused_cuda.cost_smem_bytes(...,
-    magbin=True)`, at least 2 blocks per SM in both dtypes at both KITTI
-    ranges; at KITTI D=256 (4 pairs x 2 directions), on a ragged grid with
-    a masked plane and at the runtime-p instance (p 3, 5): within 2e-5 of
-    its plain version, its bf16 instance bitwise that volume rounded, one
-    launch a call; K1b's scores bitwise K4b's volume at K1b's decisions
-    (bench grad_hist, 8 pairs x 2 directions); the `fused` step on 4
-    grad_hist KITTI pairs launches exactly K4b and K5 (bf16: their bf16
-    instances), one pair within the fused gate of the oracle; K4b's event
-    time at the 32-pair step's 64 instances beside work.k4b's bound."""
+    on grad_hist (magnitude, bin) planes: the grad_hist KITTI D=256 step
+    on 4 pairs, in each dtype a path of its own (K4b and K5, or their bf16
+    instances) and timed, and K4b's event time at the 32-pair
+    step's 64 instances beside work.k4b's bound, with its blocks per SM.
+    tests/test_torch_cost_magbin_card.py holds it to its plain version,
+    its mirror, K1b and the oracle."""
     import dataclasses
     import torch
     from deepmatching_stereo_matching_tpu_torch import work
     from deepmatching_stereo_matching_tpu_torch.config import Config
     from deepmatching_stereo_matching_tpu_torch.models import (descriptors,
                                                                pipeline)
-    from deepmatching_stereo_matching_tpu_torch.ops import _build, fused_cuda
+    from deepmatching_stereo_matching_tpu_torch.ops import fused_cuda
     from deepmatching_stereo_matching_tpu_torch.oracle import reference as oracle
-
-    def padded(imgs, geom):
-        return torch.from_numpy(np.stack([
-            oracle.pad_image(oracle.to_grayscale_f32(x), geom)
-            for x in imgs])).to(dev)
-
-    def magbin_planes(pairs, cfg, geom):
-        lp, rp = (padded([p[j] for p in pairs], geom) for j in (0, 1))
-        (lm, lb), (rm, rb) = (descriptors.grad_hist_magbin(x) for x in (
-            torch.cat([lp, rp.flip(-1)]), torch.cat([rp, lp.flip(-1)])))
-        return lm, rm, lb, rb
-
-    def vs_plain(label, cfg, geom, lm, rm, lb, rb):
-        """K4b's largest |kernel - plain| and its bf16 instance's (whose
-        plain version is the float32 one rounded)."""
-        vol = run_path(label, {"K4b"}, lambda: fused_cuda.cost_volume_rows(
-            lm, rm, cfg, geom, lb, rb))
-        plain = fused_cuda.cost_volume_torch(lm, rm, cfg, geom, lb, rb)
-        err = float((vol - plain).abs().max())
-        c16 = dataclasses.replace(cfg, dtype="bfloat16")
-        vol16 = run_path(label + " bf16", {"K4b bf16"},
-                         lambda: fused_cuda.cost_volume_rows(
-                             lm, rm, c16, geom, lb, rb))
-        same16 = vol16.dtype == torch.bfloat16 and torch.equal(
-            vol16, vol.to(torch.bfloat16))
-        err16 = float((vol16.float() - plain.to(torch.bfloat16).float())
-                      .abs().max())
-        print(f"{label} {tuple(lm.shape)} -> {tuple(vol.shape)}: max |kernel "
-              f"- plain| = {err:.3e}; bf16 bitwise the float32 volume "
-              f"rounded {same16}, max |bf16 - plain rounded| = {err16:.3e}")
-        require(err <= 2e-5, f"{label} disagrees with its plain version: "
-                f"{err}")
-        require(same16, f"{label} bf16 is not the float32 volume rounded")
-        return err, err16
-
-    lib = _build.library()
-    occ = {}
-    for max_d in (128, 256):
-        mirror = fused_cuda.cost_smem_bytes(4, max_d, magbin=True)
-        got = lib.dm_cost_rows_magbin_smem(4, max_d)
-        occ[max_d] = [fused_cuda.cost_blocks_per_sm(4, max_d, bf16,
-                                                    magbin=True)
-                      for bf16 in (False, True)]
-        print(f"K4b KITTI D={max_d}: {got} B a block (mirror {mirror}), "
-              f"blocks per SM (f32, bf16) {occ[max_d]}")
-        require(got == mirror, f"K4b D={max_d}: the library's {got} B, the "
-                f"mirror's {mirror} B")
-        require(min(occ[max_d]) >= 2, f"K4b D={max_d}: {occ[max_d]} blocks "
-                f"per SM, fewer than 2")
 
     cfg = Config(max_disparity=256, descriptor="grad_hist")
     geom = cfg.geometry(KH, KW)
-    require(not fused_cuda.supported(cfg, geom)
-            and fused_cuda.cost_supported(cfg, geom),
-            f"grad_hist KITTI D=256 must take K4b: {geom}")
     pairs = [make_kitti_pair(s, 256)[:2] for s in range(4)]
-    planes = magbin_planes(pairs, cfg, geom)
-    errs = [vs_plain("K4b KITTI D=256", cfg, geom, *planes)]
-    for label, h, w, fields in (
-            ("K4b ragged", 112, 304, dict(max_disparity=99, levels=2)),
-            ("K4b p=3", 75, 200, dict(max_disparity=45, levels=2,
-                                      patch_size=3)),
-            ("K4b p=5", 80, 330, dict(max_disparity=61, levels=1,
-                                      patch_size=5))):
-        rcfg = Config(descriptor="grad_hist", **fields)
-        rgeom = rcfg.geometry(h, w)
-        p_, md = rcfg.patch_size, rcfg.max_disparity
-        require(lib.dm_cost_rows_magbin_smem(p_, md)
-                == fused_cuda.cost_smem_bytes(p_, md, magbin=True),
-                f"{label}: the library's shared memory is not the mirror's")
-        rng = np.random.default_rng(p_ * 100 + md)
-        rpairs = [(rng.random((h, w), dtype=np.float32),
-                   rng.random((h, w), dtype=np.float32)) for _ in range(2)]
-        errs.append(vs_plain(label, rcfg, rgeom,
-                             *magbin_planes(rpairs, rcfg, rgeom)))
-
-    # K1b's scores are K4b's costs: one cost block.
-    bcfg = Config(max_disparity=MAX_D, descriptor="grad_hist")
-    bgeom = bcfg.geometry(H, W)
-    bl, br, bbl, bbr = magbin_planes([make_pair(100 + i)[:2]
-                                      for i in range(8)], bcfg, bgeom)
-    disp, score = fused_cuda.match_planes(bl, br, bcfg, bgeom, bbl, bbr)
-    at = fused_cuda.cost_volume_rows(bl, br, bcfg, bgeom, bbl, bbr).gather(
-        1, disp.long()[:, None])[:, 0]
-    torch.cuda.synchronize()
-    same = torch.equal(at, score)
-    print(f"K1b's scores bitwise K4b's volume at K1b's decisions ({bl.shape[0]}"
-          f" bench grad_hist instances): {same}")
-    require(same, "K1b's scores differ from K4b's costs")
-
+    lp, rp = (torch.from_numpy(np.stack([
+        oracle.pad_image(oracle.to_grayscale_f32(p[j]), geom)
+        for p in pairs])).to(dev) for j in (0, 1))
     # The step: planes, K4b, K5, the walk, the LR check.
-    lp, rp = (padded([p[j] for p in pairs], geom) for j in (0, 1))
     for dt, kernels in (("float32", {"K4b", "K5"}),
                         ("bfloat16", {"K4b bf16", "K5 bf16"})):
         c = dataclasses.replace(cfg, dtype=dt)
-        out = run_path(f"K4b step grad_hist KITTI D=256 {dt}", kernels,
-                       lambda: pipeline.match_padded_core(lp, rp, c, geom,
-                                                          "fused"))
-        if dt == "float32":
-            want = oracle.match_stereo(*pairs[0], cfg)
-            for k in ("disparity_raw", "valid", "disparity_right"):
-                rate = float(np.mean(out[k][0, :KH, :KW].cpu().numpy()
-                                     != getattr(want, k)))
-                print(f"K4b step vs oracle, pair 0: {k} off on {rate:.6f}")
-                require(rate <= FUSED_DECISION_TOL, f"K4b step: {k} off the "
-                        f"oracle on {rate}")
+        run_path(f"K4b step grad_hist KITTI D=256 {dt}", kernels,
+                 lambda: pipeline.match_padded_core(lp, rp, c, geom, "fused"))
         ms = cuda_ms(torch, lambda: pipeline.match_padded_core(
             lp, rp, c, geom, "fused"), 5)
         print(f"grad_hist KITTI D=256 step ({dt}), {lp.shape[0]} pairs: "
@@ -856,21 +708,25 @@ def k4b_phase(run_path, dev, card, rows):
               f" Mpx/s {card}")
 
     # Timed at the 32-pair step's 64 instances.
-    big = [x.repeat(8, 1, 1) for x in planes]
-    for i, (key, dt) in enumerate((("K4b", "float32"),
-                                   ("K4b bf16", "bfloat16"))):
+    (lm, lb), (rm, rb) = (descriptors.grad_hist_magbin(x) for x in (
+        torch.cat([lp, rp.flip(-1)]), torch.cat([rp, lp.flip(-1)])))
+    big = [x.repeat(8, 1, 1) for x in (lm, rm, lb, rb)]
+    for key, dt in (("K4b", "float32"), ("K4b bf16", "bfloat16")):
         c = dataclasses.replace(cfg, dtype=dt)
         rows[key] = dict(
-            err=max(e[i] for e in errs), ms=cuda_ms(torch, lambda: fused_cuda.cost_volume_rows(
+            ms=cuda_ms(torch, lambda: fused_cuda.cost_volume_rows(
                 big[0], big[1], c, geom, big[2], big[3]), 10),
             plain=cuda_ms(torch, lambda: fused_cuda.cost_volume_torch(
                 big[0], big[1], c, geom, big[2], big[3]), 1),
             work=work.k4b(c, geom, big[0].shape[0]),
-            blocks_per_sm=occ[256][dt == "bfloat16"])
+            blocks_per_sm=fused_cuda.cost_blocks_per_sm(
+                cfg.patch_size, cfg.max_disparity, dt == "bfloat16",
+                magbin=True))
         bound_ms = work.bound(rows[key]["work"])[0] * 1e3
         print(f"{key} x{big[0].shape[0]} KITTI D=256: {rows[key]['ms']:.4f} ms"
               f", bound {bound_ms:.4f} ms, {bound_ms / rows[key]['ms']:.4f} of "
-              f"it; plain {rows[key]['plain']:.4f} ms {card}")
+              f"it; plain {rows[key]['plain']:.4f} ms; "
+              f"{rows[key]['blocks_per_sm']} blocks per SM {card}")
         require(bound_ms / rows[key]["ms"] <= work.MERGED_WORK,
                 f"{key} above {work.MERGED_WORK} of its bound")
     print(flush=True)
@@ -889,14 +745,13 @@ def planes_images(rng, shape):
 
 
 def planes_phase(run_path, dev, card, rows):
-    """3g: PLANES (csrc/planes.cu), grad_hist's (magnitude, bin) planes,
-    at PLANES_SHAPES and on a transposed view (not contiguous): bitwise
-    the plain version
-    (`descriptors.grad_hist_magbin_torch` on the CPU), one launch a call;
-    at the grad_hist KITTI step's 128 images of 384 x 1536 (two inputs of
-    302 MB cycled, past the L2) its event time, its device time and the
+    """3g: PLANES (csrc/planes.cu), grad_hist's (magnitude, bin) planes, at
+    the grad_hist KITTI step's 128 images of 384 x 1536 (two inputs of
+    302 MB cycled, past the L2), a path of its own (PLANES alone): its
+    event time, its device time and the
     step's two 64-image calls, beside work.magbin_planes's bound and the
-    plain version's time on the card."""
+    plain version's time on the card.  tests/test_torch_planes_card.py
+    holds it bitwise to its plain version."""
     import torch
     from deepmatching_stereo_matching_tpu_torch import work
     from deepmatching_stereo_matching_tpu_torch.models import descriptors
@@ -904,35 +759,14 @@ def planes_phase(run_path, dev, card, rows):
     from deepmatching_stereo_matching_tpu_torch.profile_steps import device_ms
 
     rng = np.random.default_rng(19)
-    err = 0.0       # the largest |kernel - plain| over both planes
-    for shape, view in [(x, False) for x in PLANES_SHAPES] + [
-            ((4, 48, 64), True)]:
-        img = torch.from_numpy(planes_images(rng, shape))
-        src = img.to(dev)
-        if view:
-            img, src = img.transpose(-1, -2), src.transpose(-1, -2)
-        label = f"planes {shape}{' transposed' if view else ''}"
-        got = run_path(label, set(),
-                       lambda: descriptors.grad_hist_magbin(src))
-        calls = planes_cuda.magbin_planes.launches    # zeroed by run_path
-        same = True
-        for g, w_ in zip(got, descriptors.grad_hist_magbin_torch(img)):
-            g, w_ = g.cpu().numpy(), w_.numpy()
-            err = max(err, float(np.abs(g - w_).max()))
-            same = same and np.array_equal(g.view(np.uint32),
-                                           w_.view(np.uint32))
-        print(f"{label}: PLANES bitwise its plain version {same}; {calls} "
-              f"launches")
-        require(same, f"{label}: PLANES differs from its plain version: "
-                f"max |err| {err}")
-        require(calls == 1, f"PLANES launched {calls} kernels a call, not 1")
-    shape = PLANES_SHAPES[0]
+    shape = PLANES_STACK
     sets = [torch.from_numpy(planes_images(rng, shape)).to(dev)
             for _ in range(2)]
     order = iter(range(10 ** 9))
 
     def call():
         return descriptors.grad_hist_magbin(sets[next(order) % 2])
+    run_path(f"planes {shape}", set(), call)
     ms = cuda_ms(torch, call, 20, warmup=2)
     dev_ms = device_ms(torch, call, planes_cuda.KERNEL, 20)
     half = shape[0] // 2
@@ -949,9 +783,38 @@ def planes_phase(run_path, dev, card, rows):
           f"torch build on the card {plain_ms:.4f} ms {card}")
     require(bound_ms / ms <= work.MERGED_WORK,
             f"PLANES above {work.MERGED_WORK} of its bound")
-    rows["PLANES"] = dict(err=err, ms=ms, plain=plain_ms, work=model,
+    rows["PLANES"] = dict(ms=ms, plain=plain_ms, work=model,
                           device_ms=dev_ms)
     print(flush=True)
+
+
+def card_tests_phase(card):
+    """3h: every tests/test_torch_*_card.py in one pytest process of its
+    own, with --noconftest (tests/conftest.py imports JAX, which the
+    card's machine need not have): exit 0, every test passed and none
+    skipped.  The card tests are where a kernel is held to its plain
+    version on the card; chip_smoke times it.  Returns the passes."""
+    import glob
+    import re
+
+    files = sorted(glob.glob(os.path.join(REPO, "tests",
+                                          "test_torch_*_card.py")))
+    require(files, "no card tests under tests/")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p",
+         "no:cacheprovider", "-q", *files], cwd=REPO, capture_output=True,
+        text=True, timeout=1200)
+    summary = (proc.stdout.strip().splitlines() or [""])[-1]
+    passed = re.search(r"(\d+) passed", summary)
+    print(f"card tests, {len(files)} files in their own process "
+          f"({time.perf_counter() - t0:.1f} s): {summary} {card}")
+    require(proc.returncode == 0 and passed is not None
+            and not re.search(r"skipped|failed|error", summary),
+            f"card tests: exit {proc.returncode}\n{proc.stdout[-3000:]}"
+            f"{proc.stderr[-2000:]}")
+    print(flush=True)
+    return int(passed.group(1))
 
 
 def bench_phase(run_path, dev, card, card_line):
@@ -1144,8 +1007,8 @@ def main():
     from deepmatching_stereo_matching_tpu_torch.models import descriptors
     from deepmatching_stereo_matching_tpu_torch.models import pipeline
     from deepmatching_stereo_matching_tpu_torch.ops import (
-        _build, costvol, costvol_cuda, fused_cuda, planes_cuda, pool,
-        prep_cuda, probe_cuda, pyramid_cuda)
+        _build, costvol, costvol_cuda, fused_cuda, pool, prep_cuda,
+        probe_cuda, pyramid_cuda)
     from deepmatching_stereo_matching_tpu_torch.parallel import (
         launch, mesh as mesh_lib, runner, sharded, wtiled)
     from deepmatching_stereo_matching_tpu_torch import work
@@ -1267,10 +1130,6 @@ def main():
         return torch.stack([lp, rp.flip(-1)]), torch.stack([rp, lp.flip(-1)])
 
     rows = {}
-
-    def k5_launches():
-        return (pyramid_cuda.aggregate_dmajor.launches
-                + pyramid_cuda.aggregate_dmajor.bf16_launches)
 
     def record(key, err, kernel_fn, plain_fn, model, reps=10, plain_reps=3):
         """`model`: one kernel call's `work.Work` (the port's work model)."""
@@ -1789,12 +1648,12 @@ def main():
             del sample, cuda_pow   # a view of the volume: it would outlive it
         for key, vol_ in (("K5", kvol), ("K5 bf16", kvol16)):
             for fast in (True, False):
-                was = k5_launches()
+                _build.launches.clear()
                 top, args = pyramid_cuda.aggregate_dmajor(
                     vol_, kgeom.levels, kcfg.lam, fast)
                 sync()
-                require(k5_launches() - was == 1,
-                        f"{key}: {k5_launches() - was} launches for one call")
+                n_l = sum(_build.launches.values())
+                require(n_l == 1, f"{key}: {n_l} launches for one call")
                 top_p, args_p = pyramid_cuda.aggregate_dmajor_torch(
                     vol_, kgeom.levels, kcfg.lam, fast)
                 args_eq = all(torch.equal(a, b) for a, b in zip(args, args_p))
@@ -1918,10 +1777,10 @@ def main():
                     vol_ = k5_volume(shape, x_, dtype)
                     forms.add(pyramid_cuda.aggregate_vec(
                         shape[3], vol_.dtype, vol_.data_ptr()))
-                    was = k5_launches()
+                    _build.launches.clear()
                     out_ = k5_launch(shape, vol_, fast)
                     sync()
-                    n_l = k5_launches() - was
+                    n_l = sum(_build.launches.values())
                     same = all(torch.equal(a, b) for a, b in zip(
                         out_, k5_launch(shape, vol_, fast, plain=True)))
                     require(same, f"{cname} {dtype} "
@@ -2064,63 +1923,31 @@ def main():
               f"(whole range) {card}")
     print(flush=True)
 
-    counters = {"K1": (fused_cuda.match_planes, "launches"),
-                "K1b": (fused_cuda.match_planes, "magbin_launches"),
-                "K2": (costvol_cuda.cost_volume_dmajor, "launches"),
-                "K3": (pyramid_cuda.pyramid_backtrack, "launches"),
-                "K4": (fused_cuda.cost_volume_rows, "launches"),
-                "K5": (pyramid_cuda.aggregate_dmajor, "launches"),
-                "K1 bf16": (fused_cuda.match_planes, "bf16_launches"),
-                "K4 bf16": (fused_cuda.cost_volume_rows, "bf16_launches"),
-                "K4b": (fused_cuda.cost_volume_rows, "magbin_launches"),
-                "K4b bf16": (fused_cuda.cost_volume_rows,
-                             "magbin_bf16_launches"),
-                "K5 bf16": (pyramid_cuda.aggregate_dmajor, "bf16_launches"),
-                "K1b bf16": (fused_cuda.match_planes, "magbin_bf16_launches"),
-                "K2 bf16": (costvol_cuda.cost_volume_dmajor, "bf16_launches"),
-                "K3 bf16": (pyramid_cuda.pyramid_backtrack, "bf16_launches"),
-                "K6": (costvol_cuda.cost_volume_rows, "launches"),
-                "P1": (probe_cuda.stream, "launches"),
-                "P2": (probe_cuda.small, "launches"),
-                "P3": (probe_cuda.shift, "launches"),
-                "PREP": (prep_cuda.gray_pad, "launches"),
-                "PLANES": (planes_cuda.magbin_planes, "launches")}
-    path_launches = {}
+    path_launches = {}     # path -> its launches (a Counter), by kernel
 
-    def reset_counts():
-        for f, attr in counters.values():
-            setattr(f, attr, 0)
-        pyramid_cuda.aggregate_dmajor.calls = 0
-        pyramid_cuda.aggregate_dmajor.exact_launches = 0
-
-    def read_counts():
-        """Every count since reset_counts(), and as 'K5 exact' K5's float32
-        exact-mode launches: a share of K5's, a row of their own."""
-        counts = {k: getattr(f, attr) for k, (f, attr) in counters.items()}
-        counts["K5 exact"] = pyramid_cuda.aggregate_dmajor.exact_launches
-        return counts
-
-    def run_path(label, expected, fn):
-        """fn() with every count set to 0 just before and read just after;
-        the path must launch exactly the `expected` kernels, and K5 once
-        per aggregate_dmajor call (every path here has L <= 5)."""
-        reset_counts()
+    def clear_and_run(label, fn):
+        """fn() with the launch counts cleared just before it and read just
+        after, into path_launches[label]."""
+        _build.launches.clear()
         out = fn()
         sync()
-        counts = read_counts()
-        path_launches[label] = counts
-        # PLANES is counted on every path and held to one launch a call by
-        # phase 3g, not to each path's set.
-        launched = {k for k in counters if counts[k] > 0} - {"PLANES"}
-        calls = pyramid_cuda.aggregate_dmajor.calls
-        print(f"launch counts [{label}]: {counts}"
-              + (f"; aggregate_dmajor calls {calls}" if calls else ""))
-        require(launched == set(expected),
-                f"path [{label}] launched {sorted(launched)}, expected "
-                f"{sorted(expected)}")
-        require(counts["K5"] + counts["K5 bf16"] == calls,
-                f"path [{label}]: {counts['K5'] + counts['K5 bf16']} K5 "
-                f"launches for {calls} aggregate_dmajor calls")
+        path_launches[label] = _build.launches.copy()
+        return out, path_launches[label]
+
+    def launched(counts):
+        """The kernels of a path's counts but PLANES, which is counted on
+        every path and held to one launch a call by its card tests, not to
+        each path's set."""
+        return {k for k, n in counts.items() if n > 0} - {"PLANES"}
+
+    def run_path(label, expected, fn):
+        """fn() as a path of its own, which must launch exactly the
+        `expected` kernels."""
+        out, counts = clear_and_run(label, fn)
+        print(f"launch counts [{label}]: {dict(counts)}")
+        require(launched(counts) == set(expected),
+                f"path [{label}] launched {sorted(launched(counts))}, "
+                f"expected {sorted(expected)}")
         return out
 
     # 3d. P1-P3 through the probe's entry point, then each against its
@@ -2220,6 +2047,8 @@ def main():
     k4b_phase(run_path, dev, card, rows)
     # 3g. PLANES: grad_hist's (magnitude, bin) planes.
     planes_phase(run_path, dev, card, rows)
+    # 3h. The card tests, in their own process.
+    card_tests_passed = card_tests_phase(card)
 
     # 4. Main path through the public API, against the oracle.
     kcfg = kitti[128][0]
@@ -2239,7 +2068,7 @@ def main():
     path_kernels = {("bench", "fused"): {"K1"},
                     ("bench", "exact"): {"K2", "K3"},
                     ("kitti", "fused"): {"K4", "K5"},
-                    ("kitti", "exact"): {"K2", "K5"},
+                    ("kitti", "exact"): {"K2", "K5 exact"},
                     ("grad_hist", "fused"): {"K1b"},
                     ("grad_hist", "exact"): {"K2", "K3"}}
     results = {}
@@ -2319,7 +2148,7 @@ def main():
            for s in ADV_SEEDS]
     adv_want = [oracle.match_stereo(l, r, acfg) for l, r in adv]
     adv_kernels = {"K2", "K3" if pyramid_cuda.supported(
-        ageom.disparities, ageom.levels) else "K5"}
+        ageom.disparities, ageom.levels) else "K5 exact"}
     for route in ("exact", "fused"):
         got_adv = run_path(f"centred adversarial {route}", adv_kernels,
                            lambda route=route: [
@@ -2383,7 +2212,8 @@ def main():
     kl7, kr7, kgt7 = make_kitti_pair(KITTI_SEED, 256)
     kitti_runs = {}
     for route, k32, k16 in (("fused", {"K4", "K5"}, {"K4 bf16", "K5 bf16"}),
-                            ("exact", {"K2", "K5"}, {"K2 bf16", "K5 bf16"})):
+                            ("exact", {"K2", "K5 exact"},
+                             {"K2 bf16", "K5 bf16"})):
         kitti_runs[route] = [
             run_path(f"kitti D=256 {tag}{route}", exp,
                      lambda kc=kc, route=route: api.match_stereo(
@@ -2555,7 +2385,7 @@ def main():
         if strategy == "tiled":     # 'direct' takes the descriptor route
             return {f"K1{b}"} if mode == "flip" else {f"K2{b}", f"K3{b}"}
         if strategy == "dslab":
-            return {"K6", "K5"}
+            return {"K6", "K5 exact"}
         if strategy == "wtiled" and merge_level is None:
             return {f"K2{b}", f"K3{b}"}
         return {"K6"}
@@ -2720,13 +2550,9 @@ def main():
                     sl, sr = (sharded.pad_batch([x[i] for x in spairs], scfg,
                                                 H, W, mesh, strategy, ml)
                               for i in (0, 1))
-                    reset_counts()
-                    got = sharded.match_batch_sharded(sl, sr, scfg, H, W,
-                                                      mesh, strategy, route,
-                                                      ml)
-                    sync()
-                    counts = read_counts()
-                    path_launches[f"{label} {mode}"] = counts
+                    got, counts = clear_and_run(
+                        f"{label} {mode}", lambda: sharded.match_batch_sharded(
+                            sl, sr, scfg, H, W, mesh, strategy, route, ml))
                     glob = sharded.strategy_geometry(scfg, H, W, mesh,
                                                      strategy, ml)
                     ref = pipeline.apply_postfilter(pipeline.crop(
@@ -2748,7 +2574,8 @@ def main():
                           f"vs unsharded at {glob.padded_height}x"
                           f"{glob.padded_width} D0={glob.disparities}: "
                           f"mismatch rates {neq}, disparity equal {disp_eq}, "
-                          f"scores bitwise {score_eq}; launches {counts}")
+                          f"scores bitwise {score_eq}; launches "
+                          f"{dict(counts)}")
                     decisions_eq = disp_eq and not any(neq.values())
                     if strategy == "wtiled" and ml is not None:
                         # Its merge levels run the torch pyramid (torch.pow)
@@ -2771,21 +2598,19 @@ def main():
                                   f"{raw_neq:.3e} valid_neq={val_neq:.3e}")
                             require(raw_neq == 0.0 and val_neq == 0.0,
                                     f"{label} {mode} off the oracle")
-                    launched = {k for k in counters if counts[k] > 0}
                     expected = strategy_kernels(strategy, ml, mode)
-                    require(launched == expected,
-                            f"{label} {mode} launched {sorted(launched)}, "
-                            f"expected {sorted(expected)}")
+                    require(launched(counts) == expected,
+                            f"{label} {mode} launched "
+                            f"{sorted(launched(counts))}, expected "
+                            f"{sorted(expected)}")
                     # Again in bf16, as the JAX package runs it: held to
                     # its own float32 run, or to the unsharded bf16
                     # pipeline.
                     scfg16 = dataclasses.replace(scfg, dtype="bfloat16")
-                    reset_counts()
-                    got16 = sharded.match_batch_sharded(
-                        sl, sr, scfg16, H, W, mesh, strategy, route, ml)
-                    sync()
-                    counts16 = read_counts()
-                    path_launches[f"{label} bf16 {mode}"] = counts16
+                    got16, counts16 = clear_and_run(
+                        f"{label} bf16 {mode}",
+                        lambda: sharded.match_batch_sharded(
+                            sl, sr, scfg16, H, W, mesh, strategy, route, ml))
                     if in_f32(strategy, ml):
                         ref16, what = g, "its own float32 run"
                     else:
@@ -2801,16 +2626,16 @@ def main():
                     same16 = all(np.array_equal(g16[k], ref16[k],
                                                 equal_nan=k == "disparity")
                                  for k in KEYS)
-                    launched16 = {k for k in counters if counts16[k] > 0}
                     expected16 = strategy_kernels(strategy, ml, mode,
                                                   "bfloat16")
                     print(f"strategy [{label}, {route}, {mode}] bf16: "
-                          f"bitwise {what} {same16}; launches {counts16}")
+                          f"bitwise {what} {same16}; launches "
+                          f"{dict(counts16)}")
                     require(same16, f"{label} {mode} bf16 is not bitwise "
                             f"{what}")
-                    require(launched16 == expected16,
+                    require(launched(counts16) == expected16,
                             f"{label} {mode} bf16 launched "
-                            f"{sorted(launched16)}, expected "
+                            f"{sorted(launched(counts16))}, expected "
                             f"{sorted(expected16)}")
             print(flush=True)
 
@@ -2856,13 +2681,13 @@ def main():
                       or m.startswith("jax.") or m == JAX_PKG
                       or m.startswith(JAX_PKG + "."))
     require(not jax_mods, f"imported {jax_mods}")
-    launches = {k: sum(c[k] for c in path_launches.values()) for k in counters}
+    launches = {k: sum(c[k] for c in path_launches.values())
+                for k in _build.KERNELS}
     # K2 at grad_hist width and at the KITTI geometry are rows of their
     # own over K2's count: its launches on the paths of that kind.
     shape_rows = {"K2 C=128": ("K2", "grad_hist"), "K2 KITTI": ("K2", "kitti"),
                   "K2 C=128 bf16": ("K2 bf16", "grad_hist"),
-                  "K1 KITTI": ("K1", "eval kitti D=64"),
-                  "K5 exact": ("K5 exact", "")}
+                  "K1 KITTI": ("K1", "eval kitti D=64")}
     for key, (kernel, prefix) in shape_rows.items():
         launches[key] = sum(c[kernel] for p, c in path_launches.items()
                             if p.startswith(prefix))
@@ -2962,7 +2787,8 @@ def main():
                 for p, c in path_launches.items()
                 if c[shape_rows.get(k, (k,))[0]]
                 and p.startswith(shape_rows.get(k, (k, ""))[1])},
-            "max_abs_err": rows[k]["err"], "ms": rows[k]["ms"],
+            **({"max_abs_err": rows[k]["err"]} if "err" in rows[k] else {}),
+            "ms": rows[k]["ms"],
             "plain_ms": rows[k]["plain"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": rows[k].get("library"),
             "bytes": rows[k]["work"].total_bytes,
@@ -2980,6 +2806,7 @@ def main():
                       "step_range_ms": step_range, "step_peak_bytes": step_peak,
                       "strategy_ms": strategy_ms,
                       "stream_mpx_per_s": stream_mpx, "peak_bytes": peak,
+                      "card_tests_passed": card_tests_passed,
                       **bench_summary, "roofline": roofline_summary,
                       "card": card_line}))
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ sqrtf, division and powf, and that rounding decides argmax ties.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -23,6 +24,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -92,6 +95,15 @@ _SIGNATURES = {
     # img, mag, bin, n, h, w, stream
     "dm_magbin_planes": [_P, _P, _P, _I, _I, _I, _P],
 }
+
+# The kernels' names (PERF.md's table of kernels): every launch is counted
+# under one of them in `launches`.  "K5 exact" is K5's float32 exact mode;
+# "PREP" counts both of its kernels.
+KERNELS = ("K1", "K1 bf16", "K1b", "K1b bf16", "K2", "K2 bf16", "K3",
+           "K3 bf16", "K4", "K4 bf16", "K4b", "K4b bf16", "K5", "K5 bf16",
+           "K5 exact", "K6", "P1", "P2", "P3", "PLANES", "PREP")
+# Kernel launches in this process by kernel name, since the last clear().
+launches = collections.Counter()
 
 _lock = threading.Lock()
 _lib = None
@@ -180,6 +192,17 @@ def library() -> ctypes.CDLL:
 
 def loaded() -> bool:
     return _lib is not None
+
+
+def launch(kernel: str, symbol: str, device: torch.device, *args,
+           count: int = 1) -> None:
+    """Launch the library's `symbol` with `args` on `device`'s current
+    stream (every launch function takes the stream last), raise on its
+    CUDA error, and count `count` launches under `kernel` in `launches`.
+    The one place a kernel is launched."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    check(getattr(library(), symbol)(*args, stream), f"{kernel} launch")
+    launches[kernel] += count
 
 
 def check(rc: int, what: str) -> None:

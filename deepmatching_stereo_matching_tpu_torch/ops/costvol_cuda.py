@@ -155,22 +155,13 @@ def cost_volume_dmajor(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
     out = torch.empty((*lead, disparities, h0, w0), dtype=src.dtype,
                       device=src.device)
     if out.numel():
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        lib = _build.library()
-        launch = lib.dm_costvol_dmajor_bf16 if bf16 else lib.dm_costvol_dmajor
-        rc = launch(src.data_ptr(), tgt.data_ptr(), out.data_ptr(),
-                    math.prod(lead), h0, w0, wt, c, disparities, patch_size,
-                    max_disparity, int(reverse), origin_offset, stream)
-        _build.check(rc, "cost-volume kernel launch")
-        if bf16:
-            cost_volume_dmajor.bf16_launches += 1
-        else:
-            cost_volume_dmajor.launches += 1
+        _build.launch("K2 bf16" if bf16 else "K2",
+                      "dm_costvol_dmajor_bf16" if bf16 else "dm_costvol_dmajor",
+                      src.device, src.data_ptr(), tgt.data_ptr(),
+                      out.data_ptr(), math.prod(lead), h0, w0, wt, c,
+                      disparities, patch_size, max_disparity, int(reverse),
+                      origin_offset)
     return out
-
-
-cost_volume_dmajor.launches = 0        # K2, float32
-cost_volume_dmajor.bf16_launches = 0   # K2, bfloat16
 
 
 def cost_volume_rows(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
@@ -190,17 +181,11 @@ def cost_volume_rows(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
     out = torch.empty((*lead, h0, disparities, w0), dtype=torch.float32,
                       device=src.device)
     if out.numel():
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = _build.library().dm_costvol_rows(
-            src.data_ptr(), tgt.data_ptr(), out.data_ptr(), math.prod(lead),
-            h0, w0, wt, c, disparities, patch_size, max_disparity,
-            int(reverse), origin_offset, d_offset, stream)
-        _build.check(rc, "row cost-volume kernel launch")
-        cost_volume_rows.launches += 1
+        _build.launch("K6", "dm_costvol_rows", src.device, src.data_ptr(),
+                      tgt.data_ptr(), out.data_ptr(), math.prod(lead), h0, w0,
+                      wt, c, disparities, patch_size, max_disparity,
+                      int(reverse), origin_offset, d_offset)
     return out
-
-
-cost_volume_rows.launches = 0
 
 
 def cost_volume(desc_src: torch.Tensor, desc_tgt: torch.Tensor,

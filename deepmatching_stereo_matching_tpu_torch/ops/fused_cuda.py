@@ -131,8 +131,9 @@ def cost_smem_bytes(p: int, max_d: int, magbin: bool = False) -> int:
     stride of 4 mod 8 floats and its window norms at 16 mod 32; with
     magbin, one K4b block: the same floats, then the bin planes as bytes,
     left rows at a multiple of 16 bytes and the strip at 4 mod 8 words.
-    A mirror of `dm_cost_rows_smem` /
-    `dm_cost_rows_magbin_smem`, which chip_smoke.py holds it to."""
+    A mirror of `dm_cost_rows_smem`, which chip_smoke.py holds it to, and
+    of `dm_cost_rows_magbin_smem`, which tests/test_torch_cost_magbin_card.py
+    (test_layout_mirror_and_occupancy) holds it to."""
     return _cost_layout_bytes(p, max_d, cost_tile_rows(p, max_d, magbin),
                               magbin)
 
@@ -306,30 +307,16 @@ def match_planes(left: torch.Tensor, right: torch.Tensor, cfg: Config,
     score = torch.empty((*lead, h0, w0), dtype=torch.float32,
                         device=lval.device)
     if n:
-        stream = torch.cuda.current_stream(lval.device).cuda_stream
-        rc = _build.library().dm_fused_match(
-            lval.data_ptr(), rval.data_ptr(),
-            lbin.data_ptr() if lbin is not None else None,
+        kernel = (("K1b" if lbin is not None else "K1")
+                  + (" bf16" if _bf16(cfg) else ""))
+        _build.launch(
+            kernel, "dm_fused_match", lval.device, lval.data_ptr(),
+            rval.data_ptr(), lbin.data_ptr() if lbin is not None else None,
             rbin.data_ptr() if rbin is not None else None,
             disp.data_ptr(), score.data_ptr(), n, hp, wp, p,
             geom.disparities, cfg.max_disparity, geom.levels, cfg.lam,
-            int(_bf16(cfg)), stream)
-        _build.check(rc, "fused kernel launch")
-        if lbin is not None and _bf16(cfg):
-            match_planes.magbin_bf16_launches += 1
-        elif lbin is not None:
-            match_planes.magbin_launches += 1
-        elif _bf16(cfg):
-            match_planes.bf16_launches += 1
-        else:
-            match_planes.launches += 1
+            int(_bf16(cfg)))
     return disp, score
-
-
-match_planes.launches = 0               # K1, patch form
-match_planes.bf16_launches = 0          # K1, patch form in bfloat16
-match_planes.magbin_launches = 0        # K1b, magbin form
-match_planes.magbin_bf16_launches = 0   # K1b, magbin form in bfloat16
 
 
 def cost_volume_rows(left_p: torch.Tensor, right_p: torch.Tensor,
@@ -365,30 +352,13 @@ def cost_volume_rows(left_p: torch.Tensor, right_p: torch.Tensor,
     out = torch.empty((*lead, d0, hp // p, wp // p), dtype=dtype,
                       device=left.device)
     if out.numel():
-        stream = torch.cuda.current_stream(left.device).cuda_stream
-        args = (out.data_ptr(), n, hp, wp, p, d0, cfg.max_disparity,
-                int(_bf16(cfg)), stream)
+        kernel = (("K4b" if left_bin is not None else "K4")
+                  + (" bf16" if _bf16(cfg) else ""))
+        symbol, inputs = "dm_cost_rows", (left, right)
         if left_bin is not None:
-            lbin, rbin = left_bin.contiguous(), right_bin.contiguous()
-            rc = _build.library().dm_cost_rows_magbin(
-                left.data_ptr(), right.data_ptr(), lbin.data_ptr(),
-                rbin.data_ptr(), *args)
-        else:
-            rc = _build.library().dm_cost_rows(left.data_ptr(),
-                                               right.data_ptr(), *args)
-        _build.check(rc, "cost-volume rows kernel launch")
-        if left_bin is not None and _bf16(cfg):
-            cost_volume_rows.magbin_bf16_launches += 1
-        elif left_bin is not None:
-            cost_volume_rows.magbin_launches += 1
-        elif _bf16(cfg):
-            cost_volume_rows.bf16_launches += 1
-        else:
-            cost_volume_rows.launches += 1
+            symbol = "dm_cost_rows_magbin"
+            inputs += (left_bin.contiguous(), right_bin.contiguous())
+        _build.launch(kernel, symbol, left.device,
+                      *(x.data_ptr() for x in inputs), out.data_ptr(), n, hp,
+                      wp, p, d0, cfg.max_disparity, int(_bf16(cfg)))
     return out
-
-
-cost_volume_rows.launches = 0               # K4, float32 volume
-cost_volume_rows.bf16_launches = 0          # K4, bfloat16 volume
-cost_volume_rows.magbin_launches = 0        # K4b, float32 volume
-cost_volume_rows.magbin_bf16_launches = 0   # K4b, bfloat16 volume

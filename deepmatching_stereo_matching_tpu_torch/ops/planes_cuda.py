@@ -42,12 +42,6 @@ def magbin_planes(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     bins = torch.empty_like(src)
     n = math.prod(lead)
     if n:
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = _build.library().dm_magbin_planes(
-            src.data_ptr(), mag.data_ptr(), bins.data_ptr(), n, h, w, stream)
-        _build.check(rc, "planes kernel launch")
-        magbin_planes.launches += 1
+        _build.launch("PLANES", "dm_magbin_planes", src.device,
+                      src.data_ptr(), mag.data_ptr(), bins.data_ptr(), n, h, w)
     return mag, bins
-
-
-magbin_planes.launches = 0   # kernel launches, one a call

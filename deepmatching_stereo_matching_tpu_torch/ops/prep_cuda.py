@@ -89,13 +89,7 @@ def gray_pad(images: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
     if n:
         nb = slices(h * w)
         flags = torch.empty(n * nb, dtype=torch.int32, device=src.device)
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = _build.library().dm_gray_pad(
-            src.data_ptr(), flags.data_ptr(), out.data_ptr(), n, h, w, c, hp,
-            wp, nb, stream)
-        _build.check(rc, "gray-pad kernel launch")
-        gray_pad.launches += LAUNCHES
+        _build.launch("PREP", "dm_gray_pad", src.device, src.data_ptr(),
+                      flags.data_ptr(), out.data_ptr(), n, h, w, c, hp, wp, nb,
+                      count=LAUNCHES)
     return out
-
-
-gray_pad.launches = 0   # kernel launches, LAUNCHES a call

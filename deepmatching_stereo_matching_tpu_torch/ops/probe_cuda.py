@@ -124,7 +124,7 @@ def shift_torch(a: torch.Tensor, repeats: int = 2 * GRID) -> torch.Tensor:
         repeats)
 
 
-def _launch(name: str, fn_name: str, a: torch.Tensor, repeats: int,
+def _launch(kernel: str, name: str, a: torch.Tensor, repeats: int,
             inner: int) -> torch.Tensor:
     in_shape, out_shape, _, _ = PROBES[name]
     if tuple(a.shape) != in_shape or a.dtype != torch.float32:
@@ -135,10 +135,8 @@ def _launch(name: str, fn_name: str, a: torch.Tensor, repeats: int,
                          f"{inner} >= 1")
     a = a.contiguous()
     out = torch.empty(out_shape, dtype=torch.float32, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = getattr(_build.library(), fn_name)(a.data_ptr(), out.data_ptr(),
-                                            inner, repeats // inner, stream)
-    _build.check(rc, f"probe {name!r} kernel launch")
+    _build.launch(kernel, f"dm_probe_{name}", a.device, a.data_ptr(),
+                  out.data_ptr(), inner, repeats // inner)
     return out
 
 
@@ -147,9 +145,7 @@ def stream(a: torch.Tensor, repeats: int = GRID,
     """P1 on the card (plain version on the CPU)."""
     if not run_kernel(a):
         return stream_torch(a, repeats)
-    out = _launch("stream", "dm_probe_stream", a, repeats, inner)
-    stream.launches += 1
-    return out
+    return _launch("P1", "stream", a, repeats, inner)
 
 
 def small(a: torch.Tensor, repeats: int = 8 * GRID,
@@ -157,9 +153,7 @@ def small(a: torch.Tensor, repeats: int = 8 * GRID,
     """P2 on the card (plain version on the CPU)."""
     if not run_kernel(a):
         return small_torch(a, repeats)
-    out = _launch("small", "dm_probe_small", a, repeats, inner)
-    small.launches += 1
-    return out
+    return _launch("P2", "small", a, repeats, inner)
 
 
 def shift(a: torch.Tensor, repeats: int = 2 * GRID,
@@ -167,12 +161,8 @@ def shift(a: torch.Tensor, repeats: int = 2 * GRID,
     """P3 on the card (plain version on the CPU)."""
     if not run_kernel(a):
         return shift_torch(a, repeats)
-    out = _launch("shift", "dm_probe_shift", a, repeats, inner)
-    shift.launches += 1
-    return out
+    return _launch("P3", "shift", a, repeats, inner)
 
-
-stream.launches = small.launches = shift.launches = 0
 
 KERNELS = {"stream": stream, "small": small, "shift": shift}
 PLAIN = {"stream": stream_torch, "small": small_torch, "shift": shift_torch}

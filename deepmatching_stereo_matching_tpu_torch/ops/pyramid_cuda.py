@@ -189,20 +189,11 @@ def pyramid_backtrack(cost_dm: torch.Tensor, levels: int, lam: float
     score = torch.empty((*lead, h0, w0), dtype=torch.float32,
                         device=cost.device)
     if n:
-        stream = torch.cuda.current_stream(cost.device).cuda_stream
-        rc = _build.library().dm_pyramid_backtrack(
-            cost.data_ptr(), disp.data_ptr(), score.data_ptr(), n, d0, h0,
-            w0, levels, pool.map_lam(lam, cost.dtype), int(bf16), stream)
-        _build.check(rc, "pyramid kernel launch")
-        if bf16:
-            pyramid_backtrack.bf16_launches += 1
-        else:
-            pyramid_backtrack.launches += 1
+        _build.launch("K3 bf16" if bf16 else "K3", "dm_pyramid_backtrack",
+                      cost.device, cost.data_ptr(), disp.data_ptr(),
+                      score.data_ptr(), n, d0, h0, w0, levels,
+                      pool.map_lam(lam, cost.dtype), int(bf16))
     return disp, score
-
-
-pyramid_backtrack.launches = 0        # K3, float32 volume
-pyramid_backtrack.bf16_launches = 0   # K3, bfloat16 volume
 
 
 # K5's block (csrc/aggregate.cu): levels per launch, the level-0 tile
@@ -314,7 +305,6 @@ def aggregate_dmajor(cost_dm: torch.Tensor, levels: int, lam: float,
     if not run_kernel(cost_dm):
         return aggregate_dmajor_torch(cost_dm, levels, lam, fast)
     _check_dtype(cost_dm, "aggregation", (torch.float32, torch.bfloat16))
-    aggregate_dmajor.calls += 1
     bf16 = cost_dm.dtype == torch.bfloat16
     lam = pool.map_lam(lam, cost_dm.dtype)
     n = math.prod(lead)
@@ -325,7 +315,7 @@ def aggregate_dmajor(cost_dm: torch.Tensor, levels: int, lam: float,
     args = [buf[o:o + n * (d0 >> (lvl + 1)) * (h0 >> lvl) * (w0 >> lvl)]
             .view(*lead, d0 >> (lvl + 1), h0 >> lvl, w0 >> lvl)
             for lvl, o in enumerate(offs)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    kernel = "K5 bf16" if bf16 else "K5" if fast else "K5 exact"
     first = 0
     while first < levels:    # one pass for every level up to five
         lv = min(levels - first, AGG_MAX_LEVELS)
@@ -333,23 +323,10 @@ def aggregate_dmajor(cost_dm: torch.Tensor, levels: int, lam: float,
         out = torch.empty((*lead, d >> lv, h >> lv, w >> lv),
                           dtype=cost_dm.dtype, device=dev)
         if cur.numel():
-            rc = _build.library().dm_aggregate(
-                cur.data_ptr(), out.data_ptr(), buf.data_ptr() + offs[first],
-                n, d, h, w, lv, int(fast), int(fast and first > 0), lam,
-                int(bf16), stream)
-            _build.check(rc, "aggregation kernel launch")
-            if bf16:
-                aggregate_dmajor.bf16_launches += 1
-            else:
-                aggregate_dmajor.launches += 1
-                if not fast:
-                    aggregate_dmajor.exact_launches += 1
+            _build.launch(kernel, "dm_aggregate", dev, cur.data_ptr(),
+                          out.data_ptr(), buf.data_ptr() + offs[first], n, d,
+                          h, w, lv, int(fast), int(fast and first > 0), lam,
+                          int(bf16))
         cur = out
         first += lv
     return cur, args
-
-
-aggregate_dmajor.launches = 0        # K5, float32 volume
-aggregate_dmajor.bf16_launches = 0   # K5, bfloat16 volume
-aggregate_dmajor.exact_launches = 0  # of `launches`: float32, exact mode
-aggregate_dmajor.calls = 0           # calls on the card, one launch each at L <= 5

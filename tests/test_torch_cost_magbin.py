@@ -37,7 +37,7 @@ from deepmatching_stereo_matching_tpu_torch import work
 from deepmatching_stereo_matching_tpu_torch.config import Config, carry_over
 from deepmatching_stereo_matching_tpu_torch.models import (descriptors,
                                                            pipeline)
-from deepmatching_stereo_matching_tpu_torch.ops import (costvol_cuda,
+from deepmatching_stereo_matching_tpu_torch.ops import (_build, costvol_cuda,
                                                         fused_cuda,
                                                         pyramid_cuda)
 from stereobench import harness, k4b as bench_k4b
@@ -256,16 +256,16 @@ def test_kitti_layout():
 
 
 def test_counters_start_at_zero_and_cpu_launches_nothing():
-    for name in ("launches", "bf16_launches", "magbin_launches",
-                 "magbin_bf16_launches"):
-        assert isinstance(getattr(fused_cuda.cost_volume_rows, name), int)
-    before = fused_cuda.cost_volume_rows.magbin_launches
+    for name in ("K4", "K4 bf16", "K4b", "K4b bf16"):
+        assert name in _build.KERNELS
+        assert isinstance(_build.launches[name], int)
+    before = _build.launches.copy()
     cfg = Config(max_disparity=16, levels=2, descriptor="grad_hist")
     geom = cfg.geometry(32, 64)
     planes = torch.rand(4, geom.padded_height, geom.padded_width)
     fused_cuda.cost_volume_rows(planes[0], planes[1], cfg, geom, planes[2],
                                 planes[3])
-    assert fused_cuda.cost_volume_rows.magbin_launches == before
+    assert _build.launches == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

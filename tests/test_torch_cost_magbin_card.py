@@ -1,8 +1,9 @@
 """K4b (csrc/costrows.cu: costrows_magbin_kernel) on the card: held to its
 plain version as K4 is held to its own, at KITTI's geometry and at ragged
-shapes, with its launch counters, shared-memory mirror and occupancy; its
-costs are K1b's, bitwise; the `fused` step on a grad_hist KITTI batch runs
-the planes, K4b and K5, and no K2; its event time beside work.k4b's bound.
+shapes, with its launches (`_build.launches`), shared-memory mirror and
+occupancy; its costs are K1b's, bitwise; the `fused` step on a grad_hist
+KITTI batch runs the planes, K4b and K5 and nothing else, in either dtype;
+its event time beside work.k4b's bound.
 
 Skips without a CUDA card.  On the card run it as `python -m pytest
 tests/test_torch_cost_magbin_card.py --noconftest -s`: the machine with
@@ -19,6 +20,7 @@ decision gate of the oracle.
 """
 
 import dataclasses
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -29,9 +31,7 @@ from deepmatching_stereo_matching_tpu_torch.config import Config
 from deepmatching_stereo_matching_tpu_torch.data import synthetic
 from deepmatching_stereo_matching_tpu_torch.models import (descriptors,
                                                            pipeline)
-from deepmatching_stereo_matching_tpu_torch.ops import (_build, costvol_cuda,
-                                                        fused_cuda,
-                                                        pyramid_cuda)
+from deepmatching_stereo_matching_tpu_torch.ops import _build, fused_cuda
 from deepmatching_stereo_matching_tpu_torch.oracle import reference as oracle
 
 pytestmark = pytest.mark.card
@@ -78,22 +78,16 @@ def planes(n, h, w, cfg, dev):
     return geom, lm, rm, lb, rb
 
 
-def counts():
-    f = fused_cuda.cost_volume_rows
-    return (f.launches, f.bf16_launches, f.magbin_launches,
-            f.magbin_bf16_launches)
-
-
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_kernel_is_its_plain_version(card, case):
     n, h, w, fields = CASES[case]
     cfg = Config(descriptor="grad_hist", **fields)
     geom, lm, rm, lb, rb = planes(n, h, w, cfg, card)
     assert fused_cuda.cost_supported(cfg, geom)
-    before = counts()
+    before = _build.launches.copy()
     got = fused_cuda.cost_volume_rows(lm, rm, cfg, geom, lb, rb)
     torch.cuda.synchronize()
-    assert np.subtract(counts(), before).tolist() == [0, 0, 1, 0]
+    assert _build.launches - before == Counter({"K4b": 1})
     plain = fused_cuda.cost_volume_torch(lm, rm, cfg, geom, lb, rb)
     err = float((got - plain).abs().max())
     print(f"K4b {case} {tuple(lm.shape)} -> {tuple(got.shape)}: max |kernel "
@@ -102,10 +96,10 @@ def test_kernel_is_its_plain_version(card, case):
     assert not got[:, cfg.max_disparity:].any()
 
     c16 = dataclasses.replace(cfg, dtype="bfloat16")
-    before = counts()
+    before = _build.launches.copy()
     got16 = fused_cuda.cost_volume_rows(lm, rm, c16, geom, lb, rb)
     torch.cuda.synchronize()
-    assert np.subtract(counts(), before).tolist() == [0, 0, 0, 1]
+    assert _build.launches - before == Counter({"K4b bf16": 1})
     assert got16.dtype == torch.bfloat16
     assert torch.equal(got16, got.to(torch.bfloat16))
 
@@ -122,7 +116,9 @@ def test_layout_mirror_and_occupancy(card, p, max_d):
            for bf16 in (False, True)]
     print(f"K4b p={p} max_d={max_d}: {fused_cuda.cost_smem_bytes(p, max_d, magbin=True)}"
           f" B a block, blocks per SM (f32, bf16) {occ}")
-    if fused_cuda.cost_tile_rows(p, max_d, magbin=True) > 1:
+    # KITTI's two ranges must keep two blocks an SM, whatever their tile.
+    if (p, max_d) in ((4, 256), (4, 128)) or \
+            fused_cuda.cost_tile_rows(p, max_d, magbin=True) > 1:
         assert min(occ) >= 2
 
 
@@ -140,33 +136,43 @@ def test_costs_are_k1bs(card):
     assert torch.equal(at, score)
 
 
-def test_step_runs_k4b_and_matches_the_oracle(card):
-    """match_padded_core(route='fused') on a grad_hist KITTI D=256 batch:
-    one K4b launch, one K5 launch, no K1b, K2 or K4; one pair against the
-    NumPy oracle within the fused gate."""
-    cfg = Config(max_disparity=256, descriptor="grad_hist")
+def kitti_step(cfg, dev):
+    """match_padded_core(route='fused') on two grad_hist KITTI D=256
+    pairs: -> (pairs, outputs, the launches it made)."""
     geom = cfg.geometry(KH, KW)
     pairs = [kitti_pair(100 + s, KH, KW, 256) for s in range(2)]
     lp, rp = (torch.from_numpy(np.stack([
         oracle.pad_image(oracle.to_grayscale_f32(p[j]), geom)
-        for p in pairs])).to(card) for j in (0, 1))
-    watched = [(fused_cuda.match_planes, a) for a in (
-        "launches", "magbin_launches")] + [
-        (costvol_cuda.cost_volume_dmajor, "launches"),
-        (fused_cuda.cost_volume_rows, "launches"),
-        (fused_cuda.cost_volume_rows, "magbin_launches"),
-        (pyramid_cuda.aggregate_dmajor, "launches")]
-    before = [getattr(f, a) for f, a in watched]
+        for p in pairs])).to(dev) for j in (0, 1))
+    before = _build.launches.copy()
     out = pipeline.match_padded_core(lp, rp, cfg, geom, "fused")
     torch.cuda.synchronize()
-    got = [getattr(f, a) - b for (f, a), b in zip(watched, before)]
-    assert got == [0, 0, 0, 0, 1, 1], got
+    return pairs, out, _build.launches - before
+
+
+def test_step_runs_k4b_and_matches_the_oracle(card):
+    """match_padded_core(route='fused') on a grad_hist KITTI D=256 batch:
+    the planes (two launches), one K4b launch, one K5 launch and nothing
+    else; one pair against the NumPy oracle within the fused gate."""
+    cfg = Config(max_disparity=256, descriptor="grad_hist")
+    pairs, out, got = kitti_step(cfg, card)
+    assert got == Counter({"PLANES": 2, "K4b": 1, "K5": 1}), got
     want = oracle.match_stereo(pairs[0][0], pairs[0][1], cfg)
     for k in ("disparity_raw", "valid", "disparity_right"):
         rate = float(np.mean(out[k][0, :KH, :KW].cpu().numpy()
                              != getattr(want, k)))
         print(f"K4b step vs oracle: {k} off on {rate:.6f}")
         assert rate <= FUSED_DECISION_TOL
+
+
+def test_bf16_step_runs_k4b_bf16_and_k5_bf16(card):
+    """The same step in bfloat16: the planes, then K4b's and K5's bf16
+    instances, once each, and nothing else."""
+    cfg = Config(max_disparity=256, descriptor="grad_hist",
+                 dtype="bfloat16")
+    _, out, got = kitti_step(cfg, card)
+    assert got == Counter({"PLANES": 2, "K4b bf16": 1, "K5 bf16": 1}), got
+    assert out["disparity_raw"].shape[0] == 2
 
 
 def test_k1b_step_builds_the_planes_in_the_pipeline(card):
@@ -182,14 +188,11 @@ def test_k1b_step_builds_the_planes_in_the_pipeline(card):
     lp, rp = (torch.from_numpy(np.stack([
         oracle.pad_image(oracle.to_grayscale_f32(p[j]), geom)
         for p in pairs])).to(card) for j in (0, 1))
-    watched = [(fused_cuda.match_planes, "magbin_launches"),
-               (fused_cuda.cost_volume_rows, "magbin_launches"),
-               (costvol_cuda.cost_volume_dmajor, "launches")]
-    before = [getattr(f, a) for f, a in watched]
+    before = _build.launches.copy()
     out = pipeline.match_padded_core(lp, rp, cfg, geom, "fused")
     torch.cuda.synchronize()
-    got = [getattr(f, a) - b for (f, a), b in zip(watched, before)]
-    assert got == [1, 0, 0], got
+    got = _build.launches - before
+    assert got == Counter({"PLANES": 2, "K1b": 1}), got
     want = oracle.match_stereo(pairs[0][0], pairs[0][1], cfg)
     for k in ("disparity_raw", "valid", "disparity_right"):
         rate = float(np.mean(out[k][0, :h, :w].cpu().numpy()

@@ -12,6 +12,8 @@ has no JAX, and tests/conftest.py imports it.  tests/test_torch_planes.py
 holds the plain version to np.gradient and to the JAX package on the CPU.
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,7 @@ import torch
 from deepmatching_stereo_matching_tpu_torch.config import Config
 from deepmatching_stereo_matching_tpu_torch.models import (descriptors,
                                                            pipeline)
-from deepmatching_stereo_matching_tpu_torch.ops import fused_cuda, planes_cuda
+from deepmatching_stereo_matching_tpu_torch.ops import _build, fused_cuda
 
 from planes_cases import SHAPES, bits, tie_images
 
@@ -34,10 +36,10 @@ def card():
 
 
 def kernel_and_plain(x_card, x_cpu):
-    before = planes_cuda.magbin_planes.launches
+    before = _build.launches.copy()
     got = descriptors.grad_hist_magbin(x_card)
     torch.cuda.synchronize()
-    assert planes_cuda.magbin_planes.launches - before == 1
+    assert _build.launches - before == Counter(PLANES=1)
     want = descriptors.grad_hist_magbin_torch(x_cpu)
     for g, w_ in zip(got, want):
         assert g.device == x_card.device and g.dtype == torch.float32
@@ -69,11 +71,11 @@ def test_flipped_strided_and_misaligned_inputs(card):
 
 
 def test_empty_stack(card):
-    before = planes_cuda.magbin_planes.launches
+    before = _build.launches.copy()
     mag, bins = descriptors.grad_hist_magbin(
         torch.zeros((0, 5, 8), device=card))
     assert mag.shape == bins.shape == (0, 5, 8)
-    assert planes_cuda.magbin_planes.launches == before
+    assert _build.launches == before
 
 
 def test_k4b_and_k1b_on_the_kernels_planes(card):
@@ -108,13 +110,13 @@ def test_two_launches_a_grad_hist_step(card):
     lp, rp = (torch.from_numpy(tie_images(
         (2, geom.padded_height, geom.padded_width), seed=s)).to(card)
         for s in (7, 8))
-    before = planes_cuda.magbin_planes.launches
+    before = _build.launches["PLANES"]
     pipeline.match_padded_core(lp, rp, cfg, geom, "fused")
     torch.cuda.synchronize()
-    assert planes_cuda.magbin_planes.launches - before == 2
+    assert _build.launches["PLANES"] - before == 2
     patch = Config(max_disparity=256)
-    before = planes_cuda.magbin_planes.launches
+    before = _build.launches["PLANES"]
     pipeline.match_padded_core(lp, rp, patch, patch.geometry(375, 1242),
                                "fused")
     torch.cuda.synchronize()
-    assert planes_cuda.magbin_planes.launches == before      # patch
+    assert _build.launches["PLANES"] == before      # patch

@@ -12,13 +12,14 @@ tests (tests/test_torch_prep.py) hold the plain version, on the same
 cases and colours, to the JAX package's own oracle.
 """
 
+from collections import Counter
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from deepmatching_stereo_matching_tpu_torch.ops import prep_cuda
+from deepmatching_stereo_matching_tpu_torch.ops import _build, prep_cuda
 from deepmatching_stereo_matching_tpu_torch.oracle import reference as oracle
 
 pytestmark = pytest.mark.card
@@ -48,10 +49,10 @@ def test_kernel_is_plain_and_oracle(card, n, h, w, c, hp, wp):
     if n > 2:
         raw[2] = 0
         raw[2, -1, -1] = 2                                     # lit
-    before = prep_cuda.gray_pad.launches
+    before = _build.launches.copy()
     got = prep_cuda.gray_pad(torch.from_numpy(raw).to(card), hp, wp)
     torch.cuda.synchronize()
-    assert prep_cuda.gray_pad.launches - before == prep_cuda.LAUNCHES
+    assert _build.launches - before == Counter(PREP=prep_cuda.LAUNCHES)
     assert got.device == card and got.shape == (n, hp, wp)
     plain = prep_cuda.gray_pad(torch.from_numpy(raw), hp, wp)
     geom = SimpleNamespace(padded_height=hp, padded_width=wp)
