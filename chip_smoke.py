@@ -2444,7 +2444,7 @@ def main():
               f"{events.count('tail_batch')}; every pair bitwise equal to "
               f"the unsharded pipeline {same}")
         print(f"  stream {rep.mpx_per_s:.1f} Mpx/s (host wall over the "
-              f"stream, synchronised per batch) beside the step [bench, "
+              f"stream, one batch ahead) beside the step [bench, "
               f"fused] {step_ms['bench fused']:.4f} ms = "
               f"{BATCH * H * W * 1e-3 / step_ms['bench fused']:.1f} Mpx/s "
               f"{card}")

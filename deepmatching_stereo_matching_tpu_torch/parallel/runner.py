@@ -6,11 +6,12 @@ Counterpart of the JAX package's `parallel/runner.py`:
     hosts (no-op on one host); every rank then holds the full batch and
     computes its own block of it (parallel/sharded.py).
   * `run_stream` drives batches of stereo pairs through a sharded
-    strategy (`match_batch_sharded`).  The per-pair pipeline is stateless
-    and short, so recovery needs no checkpoints: the stream records the
-    last completed batch index, a failed batch is retried `max_retries`
-    times, and a restarted job resumes with `start_batch` = the recorded
-    index.  Structured JSONL metrics are emitted per batch
+    strategy (`match_batch_sharded`), one batch ahead: the next batch is
+    issued while the last one's outputs copy out.  The per-pair pipeline
+    is stateless and short, so recovery needs no checkpoints: the stream
+    records the last completed batch index, a failed batch is retried
+    `max_retries` times, and a restarted job resumes with `start_batch` =
+    the recorded index.  Structured JSONL metrics are emitted per batch
     (utils/logging.py).
   * `pairs_from_paths` feeds it pre-padded planes from image files,
     through the native prefetch loader where it built (native/).
@@ -119,6 +120,23 @@ class StreamReport:
     mpx_per_s: float
 
 
+@dataclasses.dataclass
+class _Batch:
+    """One batch of a stream in flight: its padded inputs, held for a
+    retry, and what its issue left to collect."""
+
+    index: int
+    real: int          # genuine pairs; the tail's padded slots follow
+    pad: str           # "device" or "host"
+    lefts: object
+    rights: object
+    attempt: int = 0
+    t0: float = 0.0
+    out: Optional[dict] = None      # device outputs, held until `done`
+    host: Optional[dict] = None     # their host copies
+    done: Optional[torch.cuda.Event] = None
+
+
 def run_stream(pairs: Iterable[Tuple[np.ndarray, np.ndarray]],
                cfg: Config, height: int, width: int,
                mesh: Optional[DeviceMesh] = None,
@@ -146,22 +164,39 @@ def run_stream(pairs: Iterable[Tuple[np.ndarray, np.ndarray]],
       mesh: default `parallel.auto_mesh()` over the whole world.
       start_batch: skip batches below this index (resume after restart).
       max_retries: per-batch retry budget; exceeded -> the error
-        propagates.  Each batch ends in `torch.cuda.synchronize`, so a
-        CUDA error is charged to the batch that raised it and each
-        batch's seconds cover its device work, not the host's enqueue.
-        The retry is for host-side and collective failures: a sticky
-        CUDA error (an illegal address, for example) poisons the
-        process's CUDA context, so its retries fail too, and
+        propagates.  The batch issued before the failing one is then
+        still in flight and is not handed over: resume after the last
+        `batch_done`.  The retry is for host-side and collective
+        failures: a sticky CUDA error (an illegal address, for example)
+        poisons the process's CUDA context, so its retries fail too, and
         `max_retries` bounds them.
       merge_level: for "wtiled", the pyramid level at which tiles
         all_gather-merge (parallel/wtiled.py); it changes the input
         padding, so it flows to both pad_batch and the matcher.
       on_result: callback(batch_index, host outputs dict) with the
-        (real pairs, height, width) numpy outputs.
+        (real pairs, height, width) numpy outputs, in batch order.  The
+        arrays are the caller's: no later batch writes into them.
       _match_fn: test hook replacing the sharded step (fault injection).
     Returns a StreamReport; emits per-batch JSONL metrics via `logger`.
     In bfloat16 the stream computes as its strategy does
     (`sharded.match_batch_sharded`).
+
+    The stream runs one batch ahead: batch i+1 is padded, copied in and
+    issued before the host waits for batch i's outputs and hands them to
+    `on_result`.  On a CUDA mesh neither copy blocks the host: a raw
+    batch's bytes are staged in page-locked memory (`pad_batch`), and the
+    outputs leave on a side stream after the step that made them, each
+    into a fresh page-locked tensor from PyTorch's caching host
+    allocator; the wait is on that copy's event, so a CUDA error shows at
+    the wait of the batch that raised it or of the batch after it.  Each
+    `batch_done` record says `copy` ("pinned" on a CUDA mesh, else
+    "pageable"; a host-padded batch's planes are copied in from pageable
+    memory either way) and `ahead` (the next batch was issued before this
+    one's outputs were collected); its `seconds` run from the batch's
+    copy in being issued to its outputs on the host, which includes the
+    next batch's issue.  A failure while a batch is issued is retried as
+    that batch; a failure at its wait issues it again from its held
+    inputs.
     """
     pipeline.check_supported(cfg, route)
     if mesh is None:
@@ -176,67 +211,113 @@ def run_stream(pairs: Iterable[Tuple[np.ndarray, np.ndarray]],
     if batch_size % n_data:
         raise ValueError(f"batch_size {batch_size} must divide the "
                          f"data axis ({n_data})")
+    cuda = device.type == "cuda"
+    side = torch.cuda.Stream(device) if cuda else None
+    copy = "pinned" if cuda else "pageable"
 
     t_start = time.perf_counter()
     done = retries = pairs_done = 0
     batch: List[Tuple[np.ndarray, np.ndarray]] = []
     index = 0
+    pending: Optional[_Batch] = None
 
-    def flush(batch, index, real):
-        """Run one padded batch; `real` <= len(batch) pairs are genuine.
+    def retrying(b, step):
+        nonlocal retries
+        while True:
+            try:
+                return step()
+            except Exception as e:  # lost rank / transient failure
+                b.attempt += 1
+                retries += 1
+                log.log("batch_retry", batch=b.index, attempt=b.attempt,
+                        error=repr(e)[:200])
+                if b.attempt > max_retries:
+                    log.log("stream_failed", batch=b.index,
+                            completed_batches=done)
+                    raise
 
-        Padded tail slots (duplicates of the last pair) are excluded
-        from every report: Mpx/s, pairs_completed, and the outputs
-        handed to `on_result` all cover the first `real` pairs only.
-        """
-        nonlocal done, retries, pairs_done
-        if index < start_batch:
-            return
+    def launch(b):
+        """Issue b's copy in, step and copy out; nothing waits."""
+        b.out = b.done = None
+        b.t0 = time.perf_counter()
+        with span("stream.copy_in"):
+            lp, rp = (torch.as_tensor(x, device=device)
+                      for x in (b.lefts, b.rights))
+        with span("stream.match"):
+            out = match(lp, rp)
+        with span("stream.copy_out"):
+            b.host = out if on_result is not None else None
+            if cuda:
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    if b.host is not None:
+                        b.host = {k: torch.empty(
+                            v.shape, dtype=v.dtype, pin_memory=True).copy_(
+                                v.contiguous(), non_blocking=True)
+                            for k, v in out.items()}
+                    b.done = torch.cuda.Event()
+                    b.done.record()
+        b.out = out
+
+    def issue(batch, index, real):
+        """Pad a batch whose first `real` pairs are genuine and issue it.
+        Padded tail slots (duplicates of the last pair) are excluded from
+        every report: Mpx/s, pairs_completed, and the outputs handed to
+        `on_result` all cover the first `real` pairs only."""
         with span("stream.batch"):
             sides = [p[0] for p in batch], [p[1] for p in batch]
             # Raw pairs are copied in and padded on the device inside
             # pad_batch; any other batch is padded on the host and copied
-            # in below, inside the timed copy_in.
+            # in by `launch`, inside the timed copy_in.
             raw = all(sharded.raw_batch(s, height, width) for s in sides)
-            pad = "device" if raw else "host"
             with span("stream.pad"):
                 lefts, rights = (sharded.pad_batch(
                     s, cfg, height, width, mesh, strategy, merge_level,
                     device=device if raw else None) for s in sides)
-            attempt = 0
-            while True:
-                try:
-                    t0 = time.perf_counter()
-                    with span("stream.copy_in"):
-                        lp, rp = (torch.as_tensor(x, device=device)
-                                  for x in (lefts, rights))
-                    with span("stream.match"):
-                        out = match(lp, rp)
-                    with span("stream.wait"):
-                        if device.type == "cuda":
-                            torch.cuda.synchronize(device)
-                    if on_result is not None:
-                        with span("stream.copy_out"):
-                            out = {k: v.cpu().numpy() for k, v in out.items()}
-                    dt = time.perf_counter() - t0
-                    break
-                except Exception as e:  # lost rank / transient failure
-                    attempt += 1
-                    retries += 1
-                    log.log("batch_retry", batch=index, attempt=attempt,
-                            error=repr(e)[:200])
-                    if attempt > max_retries:
-                        log.log("stream_failed", batch=index,
-                                completed_batches=done)
-                        raise
-            done += 1
-            pairs_done += real
-            log.log("batch_done", batch=index, pairs=real, pad=pad,
-                    seconds=round(dt, 4),
-                    mpx_per_s=round(real * height * width * 1e-6 / dt, 3))
-            if on_result is not None:
-                with span("stream.on_result"):
-                    on_result(index, {k: v[:real] for k, v in out.items()})
+            b = _Batch(index, real, "device" if raw else "host", lefts,
+                       rights)
+            retrying(b, lambda: launch(b))
+        return b
+
+    def collect(b, ahead):
+        """Wait for b's outputs (issuing b again after a failure), report
+        it and hand them over."""
+        nonlocal done, pairs_done
+
+        def wait():
+            if b.out is None:
+                launch(b)
+            try:
+                with span("stream.wait"):
+                    if b.done is not None:
+                        b.done.synchronize()
+            except Exception:
+                b.out = None
+                raise
+            return time.perf_counter() - b.t0
+
+        dt = retrying(b, wait)
+        out = (None if b.host is None
+               else {k: v.numpy()[:b.real] for k, v in b.host.items()})
+        b.out = b.host = None
+        done += 1
+        pairs_done += b.real
+        log.log("batch_done", batch=b.index, pairs=b.real, pad=b.pad,
+                copy=copy, ahead=ahead, seconds=round(dt, 4),
+                mpx_per_s=round(b.real * height * width * 1e-6 / dt, 3))
+        if on_result is not None:
+            with span("stream.on_result"):
+                on_result(b.index, out)
+
+    def flush(batch, index, real):
+        """Issue this batch, then collect the one issued before it."""
+        nonlocal pending
+        if index < start_batch:
+            return
+        b = issue(batch, index, real)
+        if pending is not None:
+            collect(pending, ahead=True)
+        pending = b
 
     for pair in pairs:
         batch.append(pair)
@@ -252,6 +333,8 @@ def run_stream(pairs: Iterable[Tuple[np.ndarray, np.ndarray]],
             batch.append(batch[-1])
         log.log("tail_batch", batch=index, real_pairs=tail)
         flush(batch, index, tail)
+    if pending is not None:
+        collect(pending, ahead=False)
 
     seconds = time.perf_counter() - t_start
     report = StreamReport(

@@ -231,17 +231,20 @@ def pad_batch(images, cfg: Config, height: int, width: int,
     alignment for `mesh`.  `as_padded` planes are copied through.
 
     With `device`, the (B, Hp, Wp) float32 tensor on it: a `raw_batch` is
-    copied in as its uint8 bytes, an image a copy (no host-side stack),
-    and padded there (`prep_cuda.gray_pad`, bitwise the host path); any
-    other batch is padded on the host, then copied in."""
+    packed image by image into one host buffer of its uint8 bytes, copied
+    in as one copy and padded there (`prep_cuda.gray_pad`, bitwise the
+    host path); any other batch is padded on the host, then copied in.
+    For a CUDA device the buffer is page-locked, from PyTorch's caching
+    host allocator, so the copy does not block the host; the allocator
+    hands the buffer out again only once the copy has read it."""
     glob = strategy_geometry(cfg, height, width, mesh, strategy,
                              merge_level)
     if device is not None and raw_batch(images, height, width):
         raw = torch.empty((len(images), *images[0].shape), dtype=torch.uint8,
-                          device=device)
-        for dst, img in zip(raw, images):
-            dst.copy_(torch.from_numpy(np.ascontiguousarray(img)))
-        return prep_cuda.gray_pad(raw, glob.padded_height, glob.padded_width)
+                          pin_memory=device.type == "cuda")
+        np.stack(images, out=raw.numpy())
+        return prep_cuda.gray_pad(raw.to(device, non_blocking=True),
+                                  glob.padded_height, glob.padded_width)
     out = np.zeros((len(images), glob.padded_height, glob.padded_width),
                    dtype=np.float32)
     for i, img in enumerate(images):

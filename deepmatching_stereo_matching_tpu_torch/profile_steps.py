@@ -51,7 +51,8 @@ NCCL, a batch of the cell's pairs as 8-bit colour images, outputs copied
 back) and --steps calls of `api.match_stereo` (one colour pair each), and
 prints the stage rows of each: per batch or pair, every `dm.` span's
 calls, host ms, and the device ms and device operations launched inside
-it.
+it.  Then the copy rates, each way, pinned and pageable, at the bytes of
+the stream's batch of raw pairs and of its outputs.
 
 --k1 times K1 and K1b alone at the bench shapes (CUDA events, 5 x 20
 launches each, after a forced build) from the port package under --root
@@ -296,9 +297,12 @@ def profile_stages(cells, steps):
                 np.repeat(np.rint(x * 255).astype(np.uint8)[..., None], 3, -1)
                 for x in (left, right)))
 
+        out_bytes = []
+
         def stream(batches):
             runner.run_stream(pairs * batches, cfg, h, w, mesh, "tiled", n,
-                              "fused", on_result=lambda i, o: None)
+                              "fused", on_result=lambda i, o: out_bytes.append(
+                                  sum(v.nbytes for v in o.values())))
 
         def pair(k):
             api.match_stereo(*pairs[k % n], cfg, impl="fused", device=dev)
@@ -316,6 +320,35 @@ def profile_stages(cells, steps):
             print(f"\n== {cell} {label}: per unit over {units}")
             _print_stages(prof, units)
             sys.stdout.flush()
+        in_bytes = n * sum(x.nbytes for x in pairs[0])
+        for label, nbytes in (("a batch's raw pairs", in_bytes),
+                              ("a batch's outputs", out_bytes[-1])):
+            print_copy_rates(label, nbytes, dev)
+
+
+def print_copy_rates(label, nbytes, dev):
+    """Device ms and GB/s of one copy of `nbytes` between the host and
+    `dev`, each way, from page-locked and from pageable host memory: the
+    median of 5 copies timed with CUDA events after a first one."""
+    import torch
+
+    card = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    for kind, host in (("pinned", torch.ones(nbytes, dtype=torch.uint8,
+                                             pin_memory=True)),
+                       ("pageable", torch.ones(nbytes, dtype=torch.uint8))):
+        for way, dst, src in (("HtoD", card, host), ("DtoH", host, card)):
+            ms = []
+            for _ in range(6):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                dst.copy_(src, non_blocking=True)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            med = float(np.median(ms[1:]))
+            print(f"   copy {way} {kind} {label}, {nbytes / 1e6:.2f} MB: "
+                  f"{med:.4f} ms, {nbytes / med / 1e6:.2f} GB/s", flush=True)
 
 
 def time_steps(cells, routes, dtypes, strategies=()):

@@ -6,10 +6,14 @@ stream hands to `on_result` is held bitwise to the port's
 `match_batch_sharded` on the same padded batch, and in decisions to the
 JAX package's `run_stream` on a CPU mesh of the same shape ('exact' here,
 'jnp' there).  `pairs_from_paths`: the native loader equals the Python
-readers, and both equal the JAX package's planes.
+readers, and both equal the JAX package's planes.  The stream's one batch
+ahead: uint8 colour pairs bitwise the direct path, arrays held from
+`on_result` unchanged at the end, each `batch_done`'s `copy` and `ahead`,
+a failure at the next batch's issue, and a resume onto the tail batch.
 """
 
 import dataclasses
+import io
 import json
 import os
 import tempfile
@@ -60,6 +64,20 @@ def _direct(pairs, cfg, mesh, batch_size):
                                           "tiled", "exact")
         out[b] = {k: v.cpu().numpy()[:real] for k, v in got.items()}
     return out
+
+
+def colour_pairs(n, seed=40):
+    """uint8 (H, W, 3) pairs whose channels differ, for the stream's raw
+    path (`sharded.raw_batch`)."""
+    rng = np.random.default_rng(seed)
+    return [tuple(np.clip(np.round(x * 255)[..., None]
+                          + rng.integers(-9, 10, (H, W, 3)), 0, 255)
+                  .astype(np.uint8) for x in pair)
+            for pair in make_pairs(n, seed)]
+
+
+def _records(text):
+    return [json.loads(line) for line in text.getvalue().splitlines()]
 
 
 def _rank_stream(cfg):
@@ -121,6 +139,41 @@ def _rank_stream(cfg):
         res["exhaust"] = None
     except RuntimeError as e:
         res["exhaust"] = str(e)
+
+    # One batch ahead, uint8 colour pairs padded on the device: 10 pairs
+    # in batches of 4 (a tail of 2), each batch's arrays snapshotted as
+    # on_result gets them and held to the end of the stream.
+    colour10 = colour_pairs(10)
+    got, snaps, text = {}, {}, io.StringIO()
+
+    def hold(i, out):
+        got[i] = out
+        snaps[i] = {k: v.copy() for k, v in out.items()}
+
+    rep = parallel.run_stream(colour10, cfg, H, W, mesh22, batch_size=4,
+                              route="exact", on_result=hold,
+                              logger=JsonlLogger(stream=text))
+    res["ahead"] = dict(report=dataclasses.asdict(rep), results=got,
+                        snaps=snaps, records=_records(text),
+                        direct=_direct(colour10, cfg, mesh22, 4))
+
+    # A failure at the second batch's issue, which comes before the
+    # first batch is collected.
+    calls["n"] = 0
+    order, text = [], io.StringIO()
+    parallel.run_stream(pairs8, cfg, H, W, mesh14, batch_size=4,
+                        route="exact",
+                        on_result=lambda i, out: order.append(i),
+                        logger=JsonlLogger(stream=text), _match_fn=flaky)
+    res["retry_order"] = dict(order=order, records=_records(text))
+
+    got, text = {}, io.StringIO()
+    parallel.run_stream(colour10, cfg, H, W, mesh14, batch_size=4,
+                        route="exact", start_batch=1,
+                        on_result=_collect(got),
+                        logger=JsonlLogger(stream=text))
+    res["resume_tail"] = dict(results=got, records=_records(text),
+                              direct=_direct(colour10, cfg, mesh14, 4))
 
     res["sweep"] = parallel.scaling_sweep(cfg, H, W, mesh_sizes=(1, 4),
                                           batch_size=2, n_batches=2,
@@ -201,6 +254,72 @@ def test_stream_retries_transient_failure(world):
 def test_stream_exhausts_retries(world):
     for rank in world:
         assert "permanent" in rank["exhaust"]
+
+
+def test_stream_one_batch_ahead_equals_direct(world):
+    """uint8 colour pairs padded on the device, one batch ahead: every
+    batch, the tail's 2 pairs too, bitwise match_batch_sharded's."""
+    for rank in world:
+        case = rank["ahead"]
+        assert case["report"]["batches_completed"] == 3
+        assert case["report"]["pairs_completed"] == 10
+        assert sorted(case["results"]) == sorted(case["direct"]) == [0, 1, 2]
+        for b, want in case["direct"].items():
+            for k in KEYS:
+                np.testing.assert_array_equal(case["results"][b][k], want[k],
+                                              err_msg=f"batch {b} {k}")
+
+
+def test_stream_held_outputs_unchanged(world):
+    """Arrays handed to on_result and held to the stream's end read as
+    they did when handed over: no later batch writes into them."""
+    for rank in world:
+        case = rank["ahead"]
+        for b, snap in case["snaps"].items():
+            for k in KEYS:
+                np.testing.assert_array_equal(case["results"][b][k], snap[k],
+                                              err_msg=f"batch {b} {k}")
+
+
+def test_stream_batch_done_copy_and_ahead(world):
+    """On the CPU the copies are pageable; every batch but the last is
+    collected after the next one was issued."""
+    for rank in world:
+        done = [r for r in rank["ahead"]["records"]
+                if r["event"] == "batch_done"]
+        assert [r["batch"] for r in done] == [0, 1, 2]
+        assert [r["pairs"] for r in done] == [4, 4, 2]
+        assert [r["pad"] for r in done] == ["device"] * 3
+        assert [r["copy"] for r in done] == ["pageable"] * 3
+        assert [r["ahead"] for r in done] == [True, True, False]
+
+
+def test_stream_retry_at_issue_keeps_order(world):
+    """The second batch's issue fails before the first is collected: it
+    is retried as batch 1, and batch 0 still arrives once, first."""
+    for rank in world:
+        case = rank["retry_order"]
+        assert case["order"] == [0, 1]
+        events = [(r["event"], r.get("batch")) for r in case["records"]
+                  if r["event"] in ("batch_retry", "batch_done")]
+        assert events == [("batch_retry", 1), ("batch_done", 0),
+                          ("batch_done", 1)]
+
+
+def test_stream_resume_with_tail(world):
+    """start_batch 1 of 3: batch 0 is never issued, and the tail batch
+    keeps its 2 real pairs."""
+    for rank in world:
+        case = rank["resume_tail"]
+        assert sorted(case["results"]) == [1, 2]
+        for b in (1, 2):
+            for k in KEYS:
+                np.testing.assert_array_equal(case["results"][b][k],
+                                              case["direct"][b][k],
+                                              err_msg=f"batch {b} {k}")
+        done = [r for r in case["records"] if r["event"] == "batch_done"]
+        assert [(r["batch"], r["pairs"], r["ahead"]) for r in done] == [
+            (1, 4, True), (2, 2, False)]
 
 
 def test_init_distributed_single_host_noop():

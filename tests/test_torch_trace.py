@@ -32,8 +32,7 @@ STEP = ["dm.pipeline.flip", "dm.pipeline.match", "dm.pipeline.flip",
 # Each span's children in order; a name not listed has none.
 CHILDREN = {
     "dm.stream.batch": ["dm.stream.pad", "dm.stream.copy_in",
-                        "dm.stream.match", "dm.stream.wait",
-                        "dm.stream.copy_out", "dm.stream.on_result"],
+                        "dm.stream.match", "dm.stream.copy_out"],
     "dm.stream.match": ["dm.pipeline.step"],
     "dm.api.match_stereo": ["dm.api.preprocess", "dm.api.copy_in"] * 2
     + ["dm.api.match", "dm.api.wait", "dm.api.copy_out"],
@@ -81,7 +80,12 @@ def _stream(tmp_path):
         finally:
             torch.distributed.destroy_process_group()
         return got
-    return run, ["dm.stream.batch"] * STREAM_BATCHES, []
+    # One batch ahead: batch i+1's issue (`batch`) comes before batch i's
+    # `wait` and `on_result`, which the last batch's close.
+    collect = ["dm.stream.wait", "dm.stream.on_result"]
+    return run, (["dm.stream.batch"] * 2 + collect
+                 + (["dm.stream.batch"] + collect) * (STREAM_BATCHES - 2)
+                 + collect), []
 
 
 def _api(tmp_path):
