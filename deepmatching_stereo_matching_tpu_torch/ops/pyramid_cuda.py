@@ -31,6 +31,7 @@ from typing import List, Tuple
 
 import torch
 
+from ..utils.logging import span
 from . import _build
 from . import pool
 from ._dispatch import run_kernel
@@ -93,7 +94,8 @@ def blocks_per_sm(d0: int, levels: int, bf16: bool = False) -> int:
 
 
 def aggregate_dmajor_torch(cost: torch.Tensor, levels: int, lam: float,
-                           fast: bool = False, round_lam: bool = True
+                           fast: bool = False, round_lam: bool = True,
+                           pow_first: bool = False
                            ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Plain K5: (..., D0, H0, W0) -> (top, args), in the volume's dtype.
 
@@ -103,7 +105,9 @@ def aggregate_dmajor_torch(cost: torch.Tensor, levels: int, lam: float,
     past the next level's pool and skips it at the top (max commutes
     with the monotone power, so the winners are the same).
     round_lam=False keeps lam in float32 on bfloat16 maps (K1's fast
-    rectification); K5 rounds it.
+    rectification); K5 rounds it.  pow_first (fast mode) takes the power
+    at level 0's pool too: the volume is a level above 0, as in a K5 pass
+    that starts above level 0 (`aggregate_dmajor`).
     """
     if round_lam:
         lam = pool.map_lam(lam, cost.dtype)
@@ -112,7 +116,7 @@ def aggregate_dmajor_torch(cost: torch.Tensor, levels: int, lam: float,
     for lvl in range(levels):
         pooled, arg = pool.pool3_subsample_dmajor(cur)
         args.append(arg)
-        if fast and lvl > 0:
+        if fast and (lvl > 0 or pow_first):
             pooled = pool.rectify(pooled, lam)
         merged = pool.quad_mean(pooled, -2)
         cur = merged if fast else pool.rectify(merged, lam, exact=True)
@@ -299,34 +303,46 @@ def aggregate_dmajor(cost_dm: torch.Tensor, levels: int, lam: float,
     `aggregate_dmajor_torch`, through K5: one launch for every level (one
     per five levels above five), only the offsets and the top map in
     device memory, the top map in the volume's dtype.  Any D0 and shape
-    aligned to 2**levels; no shared-memory limit on D."""
+    aligned to 2**levels; no shared-memory limit on D.  Pass k (a launch,
+    or on the CPU the plain version over the same levels) runs in the
+    span `pipeline.aggregate_pass<k>`, so that a profile tells the passes
+    apart."""
     *lead, d0, h0, w0 = cost_dm.shape
     _check_aligned(d0, h0, w0, levels)
-    if not run_kernel(cost_dm):
-        return aggregate_dmajor_torch(cost_dm, levels, lam, fast)
-    _check_dtype(cost_dm, "aggregation", (torch.float32, torch.bfloat16))
-    bf16 = cost_dm.dtype == torch.bfloat16
+    on_card = run_kernel(cost_dm)
+    if on_card:
+        _check_dtype(cost_dm, "aggregation", (torch.float32, torch.bfloat16))
+        bf16 = cost_dm.dtype == torch.bfloat16
+        kernel = "K5 bf16" if bf16 else "K5" if fast else "K5 exact"
+        n = math.prod(lead)
+        offs, size = arg_offsets(n, d0, h0, w0, levels)
+        buf = torch.empty(size, dtype=torch.int8, device=cost_dm.device)
+        args = [buf[o:o + n * (d0 >> (lvl + 1)) * (h0 >> lvl) * (w0 >> lvl)]
+                .view(*lead, d0 >> (lvl + 1), h0 >> lvl, w0 >> lvl)
+                for lvl, o in enumerate(offs)]
+    else:
+        args = []
     lam = pool.map_lam(lam, cost_dm.dtype)
-    n = math.prod(lead)
     cur = cost_dm.contiguous()
-    dev = cur.device
-    offs, size = arg_offsets(n, d0, h0, w0, levels)
-    buf = torch.empty(size, dtype=torch.int8, device=dev)
-    args = [buf[o:o + n * (d0 >> (lvl + 1)) * (h0 >> lvl) * (w0 >> lvl)]
-            .view(*lead, d0 >> (lvl + 1), h0 >> lvl, w0 >> lvl)
-            for lvl, o in enumerate(offs)]
-    kernel = "K5 bf16" if bf16 else "K5" if fast else "K5 exact"
     first = 0
     while first < levels:    # one pass for every level up to five
         lv = min(levels - first, AGG_MAX_LEVELS)
-        d, h, w = d0 >> first, h0 >> first, w0 >> first
-        out = torch.empty((*lead, d >> lv, h >> lv, w >> lv),
-                          dtype=cost_dm.dtype, device=dev)
-        if cur.numel():
-            _build.launch(kernel, "dm_aggregate", dev, cur.data_ptr(),
-                          out.data_ptr(), buf.data_ptr() + offs[first], n, d,
-                          h, w, lv, int(fast), int(fast and first > 0), lam,
-                          int(bf16))
-        cur = out
+        pow_first = fast and first > 0
+        with span(f"pipeline.aggregate_pass{first // AGG_MAX_LEVELS}"):
+            if on_card:
+                d, h, w = d0 >> first, h0 >> first, w0 >> first
+                out = torch.empty((*lead, d >> lv, h >> lv, w >> lv),
+                                  dtype=cost_dm.dtype, device=cur.device)
+                if cur.numel():
+                    _build.launch(kernel, "dm_aggregate", cur.device,
+                                  cur.data_ptr(), out.data_ptr(),
+                                  buf.data_ptr() + offs[first], n, d, h, w,
+                                  lv, int(fast), int(pow_first), lam,
+                                  int(bf16))
+                cur = out
+            else:
+                cur, part = aggregate_dmajor_torch(cur, lv, lam, fast,
+                                                   pow_first=pow_first)
+                args += part
         first += lv
     return cur, args

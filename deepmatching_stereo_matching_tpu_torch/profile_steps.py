@@ -1,7 +1,7 @@
 """Where the time goes in the port's batched steps, on one CUDA device.
 
     python -m deepmatching_stereo_matching_tpu_torch.profile_steps \
-        [--cells bench,grad_hist,kitti128,kitti256,kitti256gh] \
+        [--cells bench,grad_hist,kitti128,kitti256,kitti256gh,mb14f] \
         [--routes fused,exact] \
         [--steps 5] [--strategies tiled,dslab,ringd,wtiled,wtiled1] \
         [--dtype float32,bfloat16]
@@ -23,7 +23,10 @@ Cells (synthetic pairs made from seeds, `lr_mode="flip"`): bench
 (450x375, D=64, 32 pairs, bench.py's recipe), grad_hist (the same with
 grad_hist descriptors), kitti128 and kitti256 (1242x375 at D=128 x 8
 pairs and D=256 x 4 pairs, tools/bench_large.py's recipe), kitti256gh
-(kitti256 with grad_hist descriptors: the magbin planes, K4b -> K5).
+(kitti256 with grad_hist descriptors: the magbin planes, K4b -> K5), mb14f
+(Middlebury 2014 at full resolution, 2880x1988 at D=290 x 2 pairs, 128 x
+128 disparity blocks: L = 6, K4 -> K5 in two passes, whose stage rows
+are `dm.pipeline.aggregate_pass0` and `_pass1`, one a K5 launch).
 
 For each cell, dtype (`--dtype`, default float32; bfloat16 runs on every
 route) and route, `--steps` calls of `match_padded_core` run
@@ -121,6 +124,7 @@ CELLS = {  # name -> (height, width, max_disparity, descriptor, pairs, block, se
     "kitti128": (375, 1242, 128, "patch", 8, 48, 0),
     "kitti256": (375, 1242, 256, "patch", 4, 48, 0),
     "kitti256gh": (375, 1242, 256, "grad_hist", 4, 48, 0),
+    "mb14f": (1988, 2880, 290, "patch", 2, 128, 0),
 }
 STRATEGIES = {  # name -> (strategy, route, merge_level)
     "tiled": ("tiled", "fused", None),

@@ -236,7 +236,7 @@ def test_profile_steps_needs_a_card(monkeypatch, capsys):
     assert profile_steps.main(["--cells", "kitti128"]) == 2
     assert "needs a CUDA device" in capsys.readouterr().err
     assert set(profile_steps.CELLS) == {"bench", "grad_hist", "kitti128",
-                                        "kitti256", "kitti256gh"}
+                                        "kitti256", "kitti256gh", "mb14f"}
 
 
 def test_kernel_modules_import_without_nvcc():

@@ -38,6 +38,7 @@ CHILDREN = {
     + ["dm.api.match", "dm.api.wait", "dm.api.copy_out"],
     "dm.api.match": ["dm.pipeline.step"],
     "dm.pipeline.step": STEP,
+    "dm.pipeline.aggregate": ["dm.pipeline.aggregate_pass0"],
 }
 LARGE_D_MATCH = ["dm.pipeline.cost", "dm.pipeline.aggregate",
                  "dm.pipeline.walk"]
