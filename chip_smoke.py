@@ -127,8 +127,16 @@ Phases, each printing its own lines (any failure exits nonzero):
   3h. the card tests (`card_tests_phase`): every tests/test_torch_*_card.py
      in one pytest process of its own (--noconftest: tests/conftest.py
      imports JAX), exit 0, every test passed and none skipped.  These
-     hold PREP, K4b and PLANES to their plain versions and the oracle; a
-     new kernel's card checks go there, and chip_smoke only times it;
+     hold PREP, K4b, PLANES and EPI to their plain versions and the
+     oracle; a new kernel's card checks go there, and chip_smoke only
+     times it;
+  3i. EPI, the step's LR check, densify and five outputs (`epilogue_phase`,
+     its four instances' registers with no spills), a path of its own
+     launching EPI once: its event and device time at the Middlebury step
+     cell's 128 pairs of 96 x 128 patches beside work.epilogue's bound and
+     the plain chain's time on the card; EPI is counted on every step's
+     path (one a step, held there by its card tests) but held to no
+     path's set of kernels;
   4. main path through `api.match_stereo` against the NumPy oracle: two
      bench pairs (patch: 'fused' within the bench's 0.5% decision gate,
      'exact' bitwise on decisions), one KITTI pair at D=128 (the
@@ -238,8 +246,8 @@ exact mode over its own count, `K5 exact`;
 K1, K1b, K2 (C=16 and C=128), K3, K4 and K5 bf16 rows of their own, each
 with its own launch count;
 library_ms the yardstick where there is one; K5's rows with device_ms,
-P3's with issue_ceiling_ms, PREP's with numpy_ms, PLANES's with
-device_ms; PREP, K4b and PLANES carry no max_abs_err: their card tests
+P3's with issue_ceiling_ms, PREP's with numpy_ms, PLANES's and EPI's with
+device_ms; PREP, K4b, PLANES and EPI carry no max_abs_err: their card tests
 hold them bitwise or within 2e-5; `roofline`: phase 8's headline and rows),
 and as the last line {"ok": true, "device": {...}}.  Needs one CUDA
 device; imports nothing of JAX or the JAX package.
@@ -293,6 +301,9 @@ PREP_SETS = 4      # distinct input batches cycled while timed: 65 MB > L2
 # The planes kernel's timed stack (csrc/planes.cu): the grad_hist KITTI
 # step's two stacks as one, 128 images of 384 x 1536.
 PLANES_STACK = (128, 384, 1536)
+# The epilogue kernel's timed maps (csrc/epilogue.cu), (pairs, H0, W0, D):
+# the Middlebury step cell's 128 pairs.
+EPI_GRID = (128, 96, 128, 64)
 PROBE_SASS = {"P1": "stream_kernelILi384", "P2": "stream_kernelILi96",
               "P3": "shift_kernel"}
 PROBE_NAMES = {"P1": "stream", "P2": "small", "P3": "shift"}
@@ -788,6 +799,56 @@ def planes_phase(run_path, dev, card, rows):
     print(flush=True)
 
 
+def epilogue_phase(dev, card, rows):
+    """3i: EPI (csrc/epilogue.cu), the step's LR check, densify and five
+    outputs, at the Middlebury step cell's 128 pairs of 96 x 128 patches
+    (two sets of maps cycled; 447 MB of outputs a call), one launch a
+    call: its event time and its device time beside work.epilogue's bound
+    and the plain chain's time on the card.  tests/test_torch_epilogue_card.py
+    holds it bitwise to the plain chain."""
+    import torch
+    from deepmatching_stereo_matching_tpu_torch import work
+    from deepmatching_stereo_matching_tpu_torch.config import Config
+    from deepmatching_stereo_matching_tpu_torch.models import pipeline
+    from deepmatching_stereo_matching_tpu_torch.ops import _build, epilogue_cuda
+    from deepmatching_stereo_matching_tpu_torch.profile_steps import device_ms
+
+    n, h0, w0, d = EPI_GRID
+    rng = np.random.default_rng(23)
+    sets = [tuple(torch.from_numpy(x).to(dev) for x in (
+        rng.integers(0, d, (n, h0, w0), dtype=np.int32),
+        rng.random((n, h0, w0), dtype=np.float32),
+        rng.integers(0, d, (n, h0, w0), dtype=np.int32))) for _ in range(2)]
+    cfg = Config(max_disparity=d)
+    order = iter(range(10 ** 9))
+
+    def call():
+        return pipeline.lr_outputs(*sets[next(order) % 2], cfg, d)
+
+    def plain():
+        disp, score, right = sets[next(order) % 2]
+        return pipeline.pixel_outputs(disp, score, cfg, right,
+                                      pipeline.lr_consistency_patch(
+                                          disp, right, cfg.tau, d,
+                                          cfg.patch_size))
+    before = _build.launches["EPI"]
+    call()
+    torch.cuda.synchronize()
+    require(_build.launches["EPI"] - before == 1, "EPI: not one launch")
+    ms = cuda_ms(torch, call, 20, warmup=2)
+    dev_ms = device_ms(torch, call, epilogue_cuda.KERNEL, 20)
+    plain_ms = cuda_ms(torch, plain, 5)
+    model = work.epilogue(n, h0, w0, cfg.patch_size)
+    bound_ms = work.bound(model)[0] * 1e3
+    print(f"EPI {EPI_GRID}: {ms:.4f} ms a call, device {dev_ms:.4f} ms "
+          f"(profiler); bound {bound_ms:.4f} ms (bytes), {ms / bound_ms:.2f}x;"
+          f" the plain chain on the card {plain_ms:.4f} ms {card}")
+    require(bound_ms / ms <= work.MERGED_WORK,
+            f"EPI above {work.MERGED_WORK} of its bound")
+    rows["EPI"] = dict(ms=ms, plain=plain_ms, work=model, device_ms=dev_ms)
+    print(flush=True)
+
+
 def card_tests_phase(card):
     """3h: every tests/test_torch_*_card.py in one pytest process of its
     own, with --noconftest (tests/conftest.py imports JAX, which the
@@ -1100,6 +1161,15 @@ def main():
     require(len(magbin_ptxas) == 4 and all(
         v[1] == 0 and v[2] == 0 for v in magbin_ptxas.values()),
         f"costrows_magbin_kernel missing or spilling: {magbin_ptxas}")
+    # lr_outputs_kernel<P, LR> (EPI): P 4 (16-byte stores) or 0 (any p).
+    epi_ptxas = ptxas(_build.build_log(), r"lr_outputs_kernelILi(\d+)ELb([01])E",
+                      lambda m: (int(m.group(1)), m.group(2) == "1"))
+    for (p_, lr), (regs, spill_st, spill_ld) in sorted(epi_ptxas.items()):
+        print(f"lr_outputs_kernel<{p_}, {lr}>: {regs} registers, spill "
+              f"stores {spill_st} B, spill loads {spill_ld} B")
+    require(len(epi_ptxas) == 4 and all(
+        v[1] == 0 and v[2] == 0 for v in epi_ptxas.values()),
+        f"lr_outputs_kernel missing or spilling: {epi_ptxas}")
     # magbin_planes_kernel<16-byte form> (PLANES).
     planes_ptxas = ptxas(_build.build_log(), r"magbin_planes_kernelILb([01])E",
                          lambda m: m.group(1) == "1")
@@ -1935,10 +2005,10 @@ def main():
         return out, path_launches[label]
 
     def launched(counts):
-        """The kernels of a path's counts but PLANES, which is counted on
-        every path and held to one launch a call by its card tests, not to
-        each path's set."""
-        return {k for k, n in counts.items() if n > 0} - {"PLANES"}
+        """The kernels of a path's counts but PLANES and EPI, which are
+        counted on every path and held to their launches by their card
+        tests (one a call; EPI one a step), not to each path's set."""
+        return {k for k, n in counts.items() if n > 0} - {"PLANES", "EPI"}
 
     def run_path(label, expected, fn):
         """fn() as a path of its own, which must launch exactly the
@@ -2049,6 +2119,8 @@ def main():
     planes_phase(run_path, dev, card, rows)
     # 3h. The card tests, in their own process.
     card_tests_passed = card_tests_phase(card)
+    # 3i. EPI: the step's LR check, densify and five outputs.
+    epilogue_phase(dev, card, rows)
 
     # 4. Main path through the public API, against the oracle.
     kcfg = kitti[128][0]
@@ -2749,6 +2821,10 @@ def main():
                    "csrc/planes.cu",
                    "none: the JAX package builds the planes in XLA "
                    "(models/descriptors.py: magbin_from_gradients)"),
+        "EPI": ("EPI LR check, densify and the five outputs",
+                "csrc/epilogue.cu",
+                "none: the JAX package runs them in XLA "
+                "(models/pipeline.py: lr_consistency_patch_padded, densify)"),
     }
     regs = {"K1": fused_ptxas.get((4, "patch", "f32")),
             "K1 KITTI": fused_ptxas.get((4, "patch", "f32")),
@@ -2766,6 +2842,7 @@ def main():
             "K4b": magbin_ptxas.get("costrows_magbin_kernelILi4EfE"),
             "K4b bf16": magbin_ptxas.get("costrows_magbin_kernelILi4Ebf16E"),
             "PLANES": planes_ptxas.get(True),
+            "EPI": epi_ptxas.get((4, True)),
             "K5": rows_ptxas.get("aggregate_kernelILb0ELb1ELb1E"),
             "K5 exact": rows_ptxas.get("aggregate_kernelILb0ELb1ELb0E"),
             "K5 bf16": rows_ptxas.get("aggregate_kernelILb1ELb1ELb1E")}
@@ -2780,7 +2857,8 @@ def main():
         bound_ms = bound_s * 1e3
         kernels.append({
             "name": label, "route": "cuda", "source": f"{PKG}/{src}",
-            "replaces": rep if k.startswith("P") else f"{JAX_PKG}/{rep}",
+            "replaces": (rep if k.startswith("P") or rep.startswith("none")
+                         else f"{JAX_PKG}/{rep}"),
             "launches": launches[k],
             "launches_by_path": {
                 p: c[shape_rows.get(k, (k,))[0]]

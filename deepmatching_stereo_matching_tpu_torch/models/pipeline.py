@@ -19,9 +19,12 @@ decided by the config and geometry, as in the JAX package:
 
 lr_mode='direct' matches right->left on shared descriptors with +d
 targets (K2 with reverse=True), so 'fused' takes the 'exact' route there,
-as in JAX.  The post-filter runs on the cropped outputs
-(`apply_postfilter`).  Centred descriptors take the descriptor route
-(K2 -> K3) on 'fused', as in JAX.
+as in JAX.  Every route ends in `lr_outputs`: the LR check, densify and
+the five pixel outputs, one EPI launch on the card (ops/epilogue_cuda.py),
+the plain chain (`lr_consistency_patch`, `pixel_outputs`) on the CPU.
+The post-filter runs on the cropped outputs (`apply_postfilter`).
+Centred descriptors take the descriptor route (K2 -> K3) on 'fused', as
+in JAX.
 
 Config.dtype='bfloat16' (the JAX package's bf16 mode; outputs stay
 float32) runs on every route and option, with the JAX package's two
@@ -46,10 +49,10 @@ import torch
 from ..config import Config, Geometry
 
 from ..ops import costvol as costvol_ops
-from ..ops import costvol_cuda, fused_cuda, pyramid_cuda
+from ..ops import costvol_cuda, epilogue_cuda, fused_cuda, pyramid_cuda
 from ..ops import pool as pool_ops
 from ..ops import postfilter as postfilter_ops
-from ..ops._dispatch import check_route, map_dtype
+from ..ops._dispatch import check_route, map_dtype, run_kernel
 from ..ops.pyramid_cuda import descend as backtrack_from
 from ..utils.logging import span
 from . import descriptors
@@ -291,6 +294,32 @@ def pixel_outputs(disp_fwd: torch.Tensor, score: torch.Tensor, cfg: Config,
     }
 
 
+def lr_outputs(disp_fwd: torch.Tensor, score: torch.Tensor,
+               disp_r_patch: Optional[torch.Tensor], cfg: Config,
+               num_disparities: int) -> Dict[str, torch.Tensor]:
+    """(..., H0, W0) patch decisions (and the R->L disparity, None
+    without the LR check) -> the five (..., Hp, Wp) outputs.
+
+    CUDA tensors launch EPI (one launch, inside the span
+    `pipeline.outputs`); CPU tensors run the plain chain,
+    `lr_consistency_patch` (span `pipeline.lr_check`) then
+    `pixel_outputs` (span `pipeline.outputs`), which EPI is bitwise."""
+    maps = (disp_fwd, score) + (() if disp_r_patch is None
+                                else (disp_r_patch,))
+    if run_kernel(*maps):
+        with span("pipeline.outputs"):
+            return epilogue_cuda.lr_outputs(
+                disp_fwd, score, disp_r_patch, cfg.tau, cfg.patch_size,
+                cfg.min_score, cfg.invalid_value)
+    lr_valid = None
+    if disp_r_patch is not None:
+        with span("pipeline.lr_check"):
+            lr_valid = lr_consistency_patch(disp_fwd, disp_r_patch, cfg.tau,
+                                            num_disparities, cfg.patch_size)
+    with span("pipeline.outputs"):
+        return pixel_outputs(disp_fwd, score, cfg, disp_r_patch, lr_valid)
+
+
 def match_padded_core(left_p: torch.Tensor, right_p: torch.Tensor,
                       cfg: Config, geom: Geometry, route: str = "fused"
                       ) -> Dict[str, torch.Tensor]:
@@ -313,15 +342,8 @@ def match_padded_core(left_p: torch.Tensor, right_p: torch.Tensor,
     with span("pipeline.step"):
         disp_fwd, score, disp_r_patch = lr_directions(left_p, right_p, cfg,
                                                       match)
-        lr_valid = None
-        if disp_r_patch is not None:
-            with span("pipeline.lr_check"):
-                lr_valid = lr_consistency_patch(
-                    disp_fwd, disp_r_patch, cfg.tau, geom.disparities,
-                    cfg.patch_size)
-        with span("pipeline.outputs"):
-            return pixel_outputs(disp_fwd, score, cfg, disp_r_patch,
-                                 lr_valid)
+        return lr_outputs(disp_fwd, score, disp_r_patch, cfg,
+                          geom.disparities)
 
 
 def crop(outputs: Dict[str, torch.Tensor], height: int, width: int

@@ -94,6 +94,10 @@ _SIGNATURES = {
     "dm_gray_pad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # img, mag, bin, n, h, w, stream
     "dm_magbin_planes": [_P, _P, _P, _I, _I, _I, _P],
+    # disp, score, disp_r, out, raw, valid, score_px, right, n, h0, w0, p,
+    # tau, use_min, min_score, invalid, stream
+    "dm_lr_outputs": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                      _F, _F, _P],
 }
 
 # The kernels' names (PERF.md's table of kernels): every launch is counted
@@ -101,7 +105,7 @@ _SIGNATURES = {
 # "PREP" counts both of its kernels.
 KERNELS = ("K1", "K1 bf16", "K1b", "K1b bf16", "K2", "K2 bf16", "K3",
            "K3 bf16", "K4", "K4 bf16", "K4b", "K4b bf16", "K5", "K5 bf16",
-           "K5 exact", "K6", "P1", "P2", "P3", "PLANES", "PREP")
+           "K5 exact", "K6", "P1", "P2", "P3", "PLANES", "PREP", "EPI")
 # Kernel launches in this process by kernel name, since the last clear().
 launches = collections.Counter()
 

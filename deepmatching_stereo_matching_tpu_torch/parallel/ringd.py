@@ -143,11 +143,8 @@ def match_batch_ringd(lefts_p, rights_p, cfg: Config, height: int,
         return _ringd_direction(srcs, tgts, cfg, local, mesh, reverse, route)
 
     disp_fwd, score, disp_r = pipeline.lr_directions(lp, rp, cfg, match)
-    lr_valid = None
-    if disp_r is not None:
-        lr_valid = pipeline.lr_consistency_patch(
-            disp_fwd, disp_r, cfg.tau, local.disparities, cfg.patch_size)
-    out = pipeline.pixel_outputs(disp_fwd, score, cfg, disp_r, lr_valid)
+    out = pipeline.lr_outputs(disp_fwd, score, disp_r, cfg,
+                              local.disparities)
     if debug_checks and n > 1:
         _check_replicated(out["disparity_raw"], mesh, n, "disparity")
         _check_replicated(out["score"], mesh, n, "score")

@@ -16,7 +16,12 @@ docstring), on a ("data", "th", "tw") mesh:
     K5) and the pyramid needs no communication;
   * the LR check's dR[x - dL] gather reaches into the left neighbour's
     trailing patch columns; 'flip' mode's global flip is a local flip
-    plus the tile permutation i -> n-1-i.
+    plus the tile permutation i -> n-1-i.  So the tile keeps the torch
+    chain (`pipeline.lr_consistency_patch_padded` on the halo-padded
+    right map at the tile's global column offset, then
+    `pipeline.pixel_outputs`) where the other strategies launch EPI
+    (`pipeline.lr_outputs`), whose right map has neither; no benchmark
+    cell runs wtiled.
 
 Every output is bitwise equal to the unsharded pipeline's at the same
 padded extents, for both LR modes.

@@ -269,6 +269,17 @@ def magbin_planes(n: int, height: int, width: int) -> Work:
                 {})
 
 
+def epilogue(n: int, h0: int, w0: int, p: int, lr: bool = True) -> Work:
+    """A step's epilogue (csrc/epilogue.cu): n (h0, w0) patch maps read
+    once (disparity and score, and the R->L disparity with the LR check),
+    the five (h0 p, w0 p) maps written once: 17.75 B a pixel at p = 4.
+    Its compares (a few a pixel) are left out."""
+    patches = n * h0 * w0
+    pixels = patches * p * p
+    return Work({"patch_maps": patches * (MAP_BYTES + (4 if lr else 0)),
+                 **{k: pixels * b for k, b in STEP_OUTPUT_BYTES.items()}}, {})
+
+
 def step_fused(cfg: Config, geom: Geometry, batch: int) -> Work:
     """The bench step's function (`match_padded_core`, 'fused', LR flip):
     two padded float32 planes a pair in, the five padded maps a pair out,

@@ -152,11 +152,11 @@ def kitti_step(cfg, dev):
 
 def test_step_runs_k4b_and_matches_the_oracle(card):
     """match_padded_core(route='fused') on a grad_hist KITTI D=256 batch:
-    the planes (two launches), one K4b launch, one K5 launch and nothing
-    else; one pair against the NumPy oracle within the fused gate."""
+    the planes (two launches), one K4b launch, one K5 launch, one EPI
+    launch and nothing else; one pair against the NumPy oracle within the fused gate."""
     cfg = Config(max_disparity=256, descriptor="grad_hist")
     pairs, out, got = kitti_step(cfg, card)
-    assert got == Counter({"PLANES": 2, "K4b": 1, "K5": 1}), got
+    assert got == Counter({"PLANES": 2, "K4b": 1, "K5": 1, "EPI": 1}), got
     want = oracle.match_stereo(pairs[0][0], pairs[0][1], cfg)
     for k in ("disparity_raw", "valid", "disparity_right"):
         rate = float(np.mean(out[k][0, :KH, :KW].cpu().numpy()
@@ -167,18 +167,19 @@ def test_step_runs_k4b_and_matches_the_oracle(card):
 
 def test_bf16_step_runs_k4b_bf16_and_k5_bf16(card):
     """The same step in bfloat16: the planes, then K4b's and K5's bf16
-    instances, once each, and nothing else."""
+    instances and EPI, once each, and nothing else."""
     cfg = Config(max_disparity=256, descriptor="grad_hist",
                  dtype="bfloat16")
     _, out, got = kitti_step(cfg, card)
-    assert got == Counter({"PLANES": 2, "K4b bf16": 1, "K5 bf16": 1}), got
+    assert got == Counter({"PLANES": 2, "K4b bf16": 1, "K5 bf16": 1,
+                           "EPI": 1}), got
     assert out["disparity_raw"].shape[0] == 2
 
 
 def test_k1b_step_builds_the_planes_in_the_pipeline(card):
     """Where K1b covers grad_hist (Middlebury quarter size, D=64),
     match_padded_core(route='fused') builds the planes in the pipeline
-    and launches K1b once, no K4b; one pair against the NumPy oracle
+    and launches K1b once, no K4b, and EPI once; one pair against the NumPy oracle
     within the fused gate."""
     cfg = Config(max_disparity=64, descriptor="grad_hist")
     h, w = 375, 450
@@ -192,7 +193,7 @@ def test_k1b_step_builds_the_planes_in_the_pipeline(card):
     out = pipeline.match_padded_core(lp, rp, cfg, geom, "fused")
     torch.cuda.synchronize()
     got = _build.launches - before
-    assert got == Counter({"PLANES": 2, "K1b": 1}), got
+    assert got == Counter({"PLANES": 2, "K1b": 1, "EPI": 1}), got
     want = oracle.match_stereo(pairs[0][0], pairs[0][1], cfg)
     for k in ("disparity_raw", "valid", "disparity_right"):
         rate = float(np.mean(out[k][0, :h, :w].cpu().numpy()

@@ -18,8 +18,8 @@ import torch
 
 from deepmatching_stereo_matching_tpu_torch.config import Config
 from deepmatching_stereo_matching_tpu_torch.ops import (
-    _build, costvol_cuda, fused_cuda, planes_cuda, prep_cuda, probe_cuda,
-    pyramid_cuda)
+    _build, costvol_cuda, epilogue_cuda, fused_cuda, planes_cuda, prep_cuda,
+    probe_cuda, pyramid_cuda)
 
 PORT = Path(_build.__file__).resolve().parent.parent
 # The library's launch functions: every entry point that returns a
@@ -28,12 +28,12 @@ LAUNCH_SYMBOLS = {name for name in _build._SIGNATURES
                   if not name.endswith(("_smem", "_blocks_per_sm", "_grid"))}
 # Function attributes that would count launches beside the seam.
 COUNTER_ATTRS = ("launches", "calls")
-WRAPPER_MODULES = (costvol_cuda, fused_cuda, planes_cuda, prep_cuda,
-                   probe_cuda, pyramid_cuda)
+WRAPPER_MODULES = (costvol_cuda, epilogue_cuda, fused_cuda, planes_cuda,
+                   prep_cuda, probe_cuda, pyramid_cuda)
 
 
 def test_launch_symbols_are_called_only_in_build():
-    assert "dm_fused_match" in LAUNCH_SYMBOLS and len(LAUNCH_SYMBOLS) == 13
+    assert "dm_fused_match" in LAUNCH_SYMBOLS and len(LAUNCH_SYMBOLS) == 14
     offenders = []
     for path in sorted(PORT.rglob("*.py")):
         tree = ast.parse(path.read_text(), str(path))
@@ -137,6 +137,9 @@ CASES = {
                lambda: planes_cuda.magbin_planes(torch.rand(2, 8, 8))),
     "PREP": ("dm_gray_pad", lambda: prep_cuda.gray_pad(
         torch.zeros(2, 8, 8, dtype=torch.uint8), 8, 8)),
+    "EPI": ("dm_lr_outputs", lambda: epilogue_cuda.lr_outputs(
+        torch.zeros(2, 4, 8, dtype=torch.int32), torch.zeros(2, 4, 8),
+        torch.zeros(2, 4, 8, dtype=torch.int32), 1.0, 4, 0.0, 0.0)),
 }
 
 

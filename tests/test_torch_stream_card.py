@@ -140,7 +140,8 @@ def test_stream_pinned_and_ahead(stream):
 
 
 def test_stream_launches_as_serial(stream):
-    """PREP twice a side and K1 once a batch, as on the serial path."""
+    """PREP twice a side, K1 and EPI once a batch, as on the serial
+    path."""
     per_batch = stream["serial_launches"]
-    assert per_batch == [Counter(PREP=4, K1=1)] * 5
-    assert stream["stream_launches"] == Counter(PREP=20, K1=5)
+    assert per_batch == [Counter(PREP=4, K1=1, EPI=1)] * 5
+    assert stream["stream_launches"] == Counter(PREP=20, K1=5, EPI=5)
