@@ -13,6 +13,11 @@ same metrics JSON keys, except:
   * `--dot-precision` is accepted and recorded in the config, and changes
     nothing: it picks the TPU kernel's selection-matmul scheme, which the
     CUDA kernels do not have;
+  * `--center-descriptors` sets `Config.center_descriptors`: each patch
+    descriptor centred on its mean before the L2 norm, so that matching
+    is zero-mean normalised cross-correlation (ZNCC), for views that
+    differ in gain and offset; it takes the 'exact' route on every
+    `--impl` but 'torch';
   * `engine` in the metrics names the torch device ("cuda:0", "cpu"), or
     "oracle".
 `--oracle` runs the port's copy of the NumPy oracle.  Outputs go through
@@ -71,6 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="LR consistency threshold (px)")
     p.add_argument("--descriptor", choices=("patch", "grad_hist"),
                    default="patch")
+    p.add_argument("--center-descriptors", action="store_true",
+                   help="centre each patch descriptor on its mean before "
+                        "normalising it (ZNCC matching)")
     p.add_argument("--no-lr-check", action="store_true")
     p.add_argument("--lr-mode", choices=("flip", "direct"), default="flip")
     p.add_argument("--min-score", type=float, default=0.0)
@@ -100,6 +108,7 @@ def config_from_args(args) -> "Config":
         lam=args.lam,
         tau=args.tau,
         descriptor=args.descriptor,
+        center_descriptors=args.center_descriptors,
         lr_check=not args.no_lr_check,
         lr_mode=args.lr_mode,
         min_score=args.min_score,

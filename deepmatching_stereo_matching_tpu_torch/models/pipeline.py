@@ -126,12 +126,15 @@ def match_from_descriptors(desc_src: torch.Tensor, desc_tgt: torch.Tensor,
     dt = map_dtype(cfg.dtype)
     desc_src, desc_tgt = desc_src.to(dt), desc_tgt.to(dt)
     if route == "exact":
-        cost_dm = costvol_cuda.cost_volume_dmajor(
-            desc_src, desc_tgt, geom.disparities, cfg.patch_size,
-            cfg.max_disparity, reverse=reverse, origin_offset=origin_offset)
+        with span("pipeline.cost"):
+            cost_dm = costvol_cuda.cost_volume_dmajor(
+                desc_src, desc_tgt, geom.disparities, cfg.patch_size,
+                cfg.max_disparity, reverse=reverse,
+                origin_offset=origin_offset)
         if pyramid_cuda.supported(geom.disparities, geom.levels):
-            return pyramid_cuda.pyramid_backtrack(cost_dm, geom.levels,
-                                                  cfg.lam)
+            with span("pipeline.pyramid"):
+                return pyramid_cuda.pyramid_backtrack(cost_dm, geom.levels,
+                                                      cfg.lam)
         return match_dmajor(cost_dm, geom.levels, cfg.lam)
     cost0 = costvol_ops.cost_volume(
         desc_src, desc_tgt, geom.disparities, cfg.patch_size,
@@ -166,8 +169,9 @@ def one_direction(left: torch.Tensor, right: torch.Tensor, cfg: Config,
                 cost_dm = fused_cuda.cost_volume_rows(left, right, cfg, geom,
                                                       *bins)
             return match_dmajor(cost_dm, geom.levels, cfg.lam, fast=True)
-    desc_src = descriptors.left_descriptors(left, cfg)
-    desc_tgt = descriptors.right_sliding_descriptors(right, cfg)
+    with span("pipeline.descriptors"):
+        desc_src = descriptors.left_descriptors(left, cfg)
+        desc_tgt = descriptors.right_sliding_descriptors(right, cfg)
     return match_from_descriptors(desc_src, desc_tgt, cfg, geom, route)
 
 
@@ -332,10 +336,11 @@ def match_padded_core(left_p: torch.Tensor, right_p: torch.Tensor,
     check_supported(cfg, route)
     if cfg.lr_check and cfg.lr_mode == "direct":
         def match(srcs, tgts, reverse):
-            return match_from_descriptors(
-                descriptors.left_descriptors(srcs, cfg),
-                descriptors.right_sliding_descriptors(tgts, cfg), cfg, geom,
-                route, reverse=reverse)
+            with span("pipeline.descriptors"):
+                desc_src = descriptors.left_descriptors(srcs, cfg)
+                desc_tgt = descriptors.right_sliding_descriptors(tgts, cfg)
+            return match_from_descriptors(desc_src, desc_tgt, cfg, geom,
+                                          route, reverse=reverse)
     else:
         def match(srcs, tgts, reverse):
             return one_direction(srcs, tgts, cfg, geom, route)

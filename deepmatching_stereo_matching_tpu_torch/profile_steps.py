@@ -1,7 +1,7 @@
 """Where the time goes in the port's batched steps, on one CUDA device.
 
     python -m deepmatching_stereo_matching_tpu_torch.profile_steps \
-        [--cells bench,grad_hist,kitti128,kitti256,kitti256gh,mb14f] \
+        [--cells bench,grad_hist,zncc,kitti128,kitti256,kitti256gh,mb14f] \
         [--routes fused,exact] \
         [--steps 5] [--strategies tiled,dslab,ringd,wtiled,wtiled1] \
         [--dtype float32,bfloat16]
@@ -21,12 +21,15 @@
 
 Cells (synthetic pairs made from seeds, `lr_mode="flip"`): bench
 (450x375, D=64, 32 pairs, bench.py's recipe), grad_hist (the same with
-grad_hist descriptors), kitti128 and kitti256 (1242x375 at D=128 x 8
-pairs and D=256 x 4 pairs, tools/bench_large.py's recipe), kitti256gh
-(kitti256 with grad_hist descriptors: the magbin planes, K4b -> K5), mb14f
-(Middlebury 2014 at full resolution, 2880x1988 at D=290 x 2 pairs, 128 x
-128 disparity blocks: L = 6, K4 -> K5 in two passes, whose stage rows
-are `dm.pipeline.aggregate_pass0` and `_pass1`, one a K5 launch).
+grad_hist descriptors), zncc (bench with centred descriptors, ZNCC: every
+route takes 'exact', torch descriptors -> K2 -> K3, whose stage rows are
+`dm.pipeline.descriptors`, `cost` and `pyramid`), kitti128 and kitti256
+(1242x375 at D=128 x 8 pairs and D=256 x 4 pairs, tools/bench_large.py's
+recipe), kitti256gh (kitti256 with grad_hist descriptors: the magbin
+planes, K4b -> K5), mb14f (Middlebury 2014 at full resolution, 2880x1988
+at D=290 x 2 pairs, 128 x 128 disparity blocks: L = 6, K4 -> K5 in two
+passes, whose stage rows are `dm.pipeline.aggregate_pass0` and `_pass1`,
+one a K5 launch).
 
 For each cell, dtype (`--dtype`, default float32; bfloat16 runs on every
 route) and route, `--steps` calls of `match_padded_core` run
@@ -121,11 +124,13 @@ import numpy as np
 CELLS = {  # name -> (height, width, max_disparity, descriptor, pairs, block, seed0)
     "bench": (375, 450, 64, "patch", 32, 32, 100),
     "grad_hist": (375, 450, 64, "grad_hist", 32, 32, 100),
+    "zncc": (375, 450, 64, "patch", 32, 32, 100),
     "kitti128": (375, 1242, 128, "patch", 8, 48, 0),
     "kitti256": (375, 1242, 256, "patch", 4, 48, 0),
     "kitti256gh": (375, 1242, 256, "grad_hist", 4, 48, 0),
     "mb14f": (1988, 2880, 290, "patch", 2, 128, 0),
 }
+CENTRED = {"zncc"}  # cells whose descriptors are centred (ZNCC)
 STRATEGIES = {  # name -> (strategy, route, merge_level)
     "tiled": ("tiled", "fused", None),
     "dslab": ("dslab", "exact", None),
@@ -143,7 +148,8 @@ def _padded_pairs(cell, dtype="float32"):
     from deepmatching_stereo_matching_tpu_torch import api
 
     h, w, max_d, desc, n, block, seed0 = CELLS[cell]
-    cfg = Config(max_disparity=max_d, descriptor=desc, dtype=dtype)
+    cfg = Config(max_disparity=max_d, descriptor=desc, dtype=dtype,
+                 center_descriptors=cell in CENTRED)
     lefts, rights = [], []
     for s in range(seed0, seed0 + n):
         field = synthetic.block_disparity_field(
@@ -291,7 +297,8 @@ def profile_stages(cells, steps):
     dev = torch.device("cuda", 0)
     for cell in cells:
         h, w, max_d, desc, n, block, seed0 = CELLS[cell]
-        cfg = Config(max_disparity=max_d, descriptor=desc)
+        cfg = Config(max_disparity=max_d, descriptor=desc,
+                     center_descriptors=cell in CENTRED)
         pairs = []
         for s in range(seed0, seed0 + n):
             field = synthetic.block_disparity_field(

@@ -3,7 +3,7 @@
     python -m deepmatching_stereo_matching_tpu_torch.tools.eval_dataset \\
         DATASET_DIR [-D 64] [--impl fused|exact|torch] [--gt-scale S] \\
         [--oracle-check N] [--max-pairs N] [--cpu] [--out EVAL.json] \\
-        [--save-disparity DIR]
+        [--save-disparity DIR] [--center-descriptors]
 
 Counterpart of the JAX package's `tools/eval_dataset.py`: the same
 layouts, the same per-pair rows and the same summary line, for one pair
@@ -25,10 +25,11 @@ with ground truth the bad-pixel rates (kept and all) and the EPE, and with
 validity that differ from the port's copy of the NumPy oracle.  The
 summary goes to stdout as one JSON line; `--out` writes the report.
 
-`--impl` takes the port's routes (default `fused`).  The tool runs on
-`cuda:0`; `--cpu` runs the kernels' plain versions on the CPU, and
-without a card and without `--cpu` it exits 2.  It exits 2 when no pair
-is found.
+`--impl` takes the port's routes (default `fused`).
+`--center-descriptors` matches by ZNCC (`Config.center_descriptors`),
+which the oracle check applies too.  The tool runs on `cuda:0`; `--cpu`
+runs the kernels' plain versions on the CPU, and without a card and
+without `--cpu` it exits 2.  It exits 2 when no pair is found.
 """
 
 from __future__ import annotations
@@ -138,6 +139,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-pairs", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the kernels' plain versions)")
+    ap.add_argument("--center-descriptors", action="store_true",
+                    help="centre each patch descriptor on its mean before "
+                         "normalising it (ZNCC matching)")
     ap.add_argument("--out", default=None, help="write a JSON report here")
     ap.add_argument("--save-disparity", default=None,
                     help="directory for predicted PFM/color maps")
@@ -165,7 +169,8 @@ def main(argv=None) -> int:
         return 2
     if args.max_pairs:
         pairs = pairs[: args.max_pairs]
-    cfg = Config(max_disparity=args.max_disparity)
+    cfg = Config(max_disparity=args.max_disparity,
+                 center_descriptors=args.center_descriptors)
     log(f"{len(pairs)} pairs, impl={args.impl}, device={device}, "
         f"D={args.max_disparity}")
 

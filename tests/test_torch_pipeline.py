@@ -235,8 +235,10 @@ def test_profile_steps_needs_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert profile_steps.main(["--cells", "kitti128"]) == 2
     assert "needs a CUDA device" in capsys.readouterr().err
-    assert set(profile_steps.CELLS) == {"bench", "grad_hist", "kitti128",
-                                        "kitti256", "kitti256gh", "mb14f"}
+    assert set(profile_steps.CELLS) == {"bench", "grad_hist", "zncc",
+                                        "kitti128", "kitti256", "kitti256gh",
+                                        "mb14f"}
+    assert profile_steps.CENTRED <= set(profile_steps.CELLS)
 
 
 def test_kernel_modules_import_without_nvcc():

@@ -1,8 +1,9 @@
 """The port's own profiler spans (`utils/logging.span`) on the CPU.
 
-Each entry point (the stream, the API, the step, and the step on the
-large-D route, patch and grad_hist) records its stages as `dm.` ranges under a CPU-only
-`torch.profiler`, nested as the stages are; the outputs are bitwise the
+Each entry point (the stream, the API, the step, the step on the
+large-D route, patch and grad_hist, and the step on the exact route,
+centred (ZNCC) on K3's geometry and at large D) records its stages as
+`dm.` ranges under a CPU-only `torch.profiler`, nested as the stages are; the outputs are bitwise the
 same with the profiler on and off; each span is a profiler op, not a
 user annotation, so a CUDA trace holds no device-side range of it; a call
 that raises inside a span leaves no range open; with no profiler active,
@@ -21,7 +22,8 @@ from deepmatching_stereo_matching_tpu_torch import api, profile_steps
 from deepmatching_stereo_matching_tpu_torch.config import Config
 from deepmatching_stereo_matching_tpu_torch.data import synthetic
 from deepmatching_stereo_matching_tpu_torch.models import pipeline
-from deepmatching_stereo_matching_tpu_torch.ops import fused_cuda
+from deepmatching_stereo_matching_tpu_torch.ops import (fused_cuda,
+                                                        pyramid_cuda)
 from deepmatching_stereo_matching_tpu_torch.parallel import launch, mesh
 from deepmatching_stereo_matching_tpu_torch.parallel import runner
 from deepmatching_stereo_matching_tpu_torch.utils import logging as dm_log
@@ -42,11 +44,19 @@ CHILDREN = {
 }
 LARGE_D_MATCH = ["dm.pipeline.cost", "dm.pipeline.aggregate",
                  "dm.pipeline.walk"]
-# (height, width, max_disparity): K1's plain version; K4 -> K5's.
-SIZES = {"k1": (48, 64, 16), "large_d": (128, 320, 256)}
+# (height, width, max_disparity): K1's plain version; K4 -> K5's; the
+# exact route's K2 -> K3 (L = 4, D0 = 64, as Middlebury Q).
+SIZES = {"k1": (48, 64, 16), "large_d": (128, 320, 256),
+         "zncc": (130, 170, 64)}
 # grad_hist's fused routes build the (magnitude, bin) planes first.
 PLANES = ["dm.pipeline.planes"]
 MAGBIN_MATCH = PLANES + LARGE_D_MATCH
+# The exact route: torch descriptors, then K2, then K3 where its tile
+# holds the volume, else K5 (exact) and the walk.
+DESCRIPTORS = ["dm.pipeline.descriptors", "dm.pipeline.cost"]
+EXACT_MATCH = DESCRIPTORS + ["dm.pipeline.pyramid"]
+EXACT_LARGE_D_MATCH = DESCRIPTORS + ["dm.pipeline.aggregate",
+                                     "dm.pipeline.walk"]
 
 
 def _pairs(n, h, w, d):
@@ -102,10 +112,11 @@ def _api(tmp_path):
     return run, ["dm.api.match_stereo"], []
 
 
-def _step(size, descriptor="patch"):
+def _step(size, descriptor="patch", center=False, route="fused"):
     def case(tmp_path):
         h, w, d = SIZES[size]
-        cfg = Config(max_disparity=d, descriptor=descriptor)
+        cfg = Config(max_disparity=d, descriptor=descriptor,
+                     center_descriptors=center)
         geom = cfg.geometry(h, w)
         assert fused_cuda.supported(cfg, geom) == (size == "k1")
         pairs = _pairs(2, h, w, d)
@@ -115,7 +126,12 @@ def _step(size, descriptor="patch"):
 
         def run():
             return _host(pipeline.match_padded_core(lp, rp, cfg, geom,
-                                                    "fused"))
+                                                    route))
+        if center or route == "exact":
+            k3 = pyramid_cuda.supported(geom.disparities, geom.levels)
+            assert k3 == (size == "zncc")
+            return run, ["dm.pipeline.step"], (
+                EXACT_MATCH if k3 else EXACT_LARGE_D_MATCH)
         if size == "k1":
             return run, ["dm.pipeline.step"], (
                 PLANES if descriptor == "grad_hist" else [])
@@ -157,9 +173,12 @@ def _check_nesting(node, match_children):
 @pytest.mark.parametrize("entry", [_stream, _api, _step("k1"),
                                    _step("k1", "grad_hist"),
                                    _step("large_d"),
-                                   _step("large_d", "grad_hist")],
+                                   _step("large_d", "grad_hist"),
+                                   _step("zncc", center=True),
+                                   _step("large_d", route="exact")],
                          ids=["stream", "api", "step", "step_grad_hist",
-                              "step_large_d", "step_large_d_grad_hist"])
+                              "step_large_d", "step_large_d_grad_hist",
+                              "step_zncc", "step_exact_large_d"])
 def test_entry_point_spans(entry, tmp_path, monkeypatch):
     run, roots, match_children = entry(tmp_path)
     real = dm_log._op_range
